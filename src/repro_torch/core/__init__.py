@@ -1,0 +1,25 @@
+"""Core: the paper's contribution as composable modules.
+
+- time_model:      Eq. 2/3 (time) and Eq. 9 (memory) linear models
+- dual_batch:      Eq. 4-8 plan solver + model-update factors
+- flat:            tree ⇄ flat-buffer codec (the fused hot path's store)
+- progressive:     cyclic progressive learning schedules
+- hybrid:          CPL x DBL composition
+- spmd_dual_batch: the synchronous dual-batch layout
+- tree:            jax.tree_util-ordered helpers over dicts/lists of tensors
+"""
+from repro_torch.core.dual_batch import DualBatchPlan, plan_table, solve_plan, update_factor
+from repro_torch.core.flat import FlatParams, FlatSpec, flat_spec
+from repro_torch.core.hybrid import HybridPhase, predicted_total_time
+from repro_torch.core.progressive import SubStagePlan, adapt_batch, cyclic_schedule, total_cost
+from repro_torch.core.spmd_dual_batch import SpmdDualBatch, layout_from_plan
+from repro_torch.core.time_model import LinearTimeModel, MemoryModel, measure_time_model
+
+__all__ = [
+    "DualBatchPlan", "solve_plan", "plan_table", "update_factor",
+    "FlatParams", "FlatSpec", "flat_spec",
+    "HybridPhase", "predicted_total_time",
+    "SubStagePlan", "adapt_batch", "cyclic_schedule", "total_cost",
+    "SpmdDualBatch", "layout_from_plan",
+    "LinearTimeModel", "MemoryModel", "measure_time_model",
+]
