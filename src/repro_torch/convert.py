@@ -11,11 +11,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_map
+from repro_torch.device import resolve_device
 
 
 def tensor_from_numpy(arr, device=None) -> torch.Tensor:
-    """numpy array (f32, int, or bf16) -> tensor on ``device``, bits
-    unchanged."""
+    """numpy array (f32, int, or bf16) -> tensor on ``device`` (``None``
+    means the card), bits unchanged."""
+    device = resolve_device(device)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))
@@ -34,5 +36,6 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_from_numpy(tree, device=None):
     """A tree (dicts/lists) of numpy arrays in the reference's structure ->
-    the same tree of tensors on ``device``."""
+    the same tree of tensors on ``device`` (``None`` means the card)."""
+    device = resolve_device(device)
     return tree_map(lambda a: tensor_from_numpy(a, device), tree)

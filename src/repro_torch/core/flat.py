@@ -38,6 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.tree import tree_flatten, tree_unflatten
+from repro_torch.device import resolve_device
 
 LANE = 128            # last dim of the flat buffer
 SUBLANE = 8           # f32 row padding granularity
@@ -134,9 +135,10 @@ class FlatSpec:
     # -- stacked per-worker buffers (trace-compiled PS simulator) ------
     def zeros_stacked(self, n: int, device=None) -> torch.Tensor:
         """Zero ``(n, rows, LANE)`` f32 stack — one flat row block per
-        simulated worker (fresh workers, zero velocity)."""
+        simulated worker (fresh workers, zero velocity); ``device=None``
+        means the card."""
         return torch.zeros((int(n),) + self.shape, dtype=torch.float32,
-                           device=device)
+                           device=resolve_device(device))
 
     def ravel_stacked(self, trees) -> torch.Tensor:
         """Per-worker trees -> ``(len(trees), rows, LANE)`` stack."""

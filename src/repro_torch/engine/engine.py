@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.core.flat import FlatSpec, flat_spec
 from repro_torch.core.tree import tree_leaves
+from repro_torch.device import resolve_device
 from repro_torch.engine.phases import Phase
 from repro_torch.engine.steps import (make_fused_dbl_step,
                                       make_fused_phase_scan,
@@ -56,19 +57,6 @@ class StepKey:
     micro_steps: int
     kind: str                 # "weighted" | "micro" | "fused"
     drop_rate: float          # per-phase dropout (baked into the step)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  Raises when CUDA is asked for and absent —
-    no path moves to the CPU unless the caller names it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the port on the CPU")
-    if dev.type == "cuda" and dev.index is None:
-        # tensors report "cuda:<n>", which never equals a bare "cuda"
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def _drop_gen(device: torch.device, seed: int, gstep: int):

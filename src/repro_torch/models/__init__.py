@@ -26,6 +26,7 @@ def _mod(cfg):
 
 
 def init_params(cfg, gen, device=None):
+    """``device=None`` means the card (raises without CUDA)."""
     return _mod(cfg).init_params(cfg, gen, device=device)
 
 

@@ -7,7 +7,7 @@ import torch
 
 
 def normal_init(gen: torch.Generator, shape, scale: float,
-                dtype: torch.dtype, device=None) -> torch.Tensor:
+                dtype: torch.dtype, device) -> torch.Tensor:
     """``scale · N(0, 1)`` drawn from ``gen`` (a CPU generator, so the
     values do not depend on the device), placed on ``device``."""
     x = scale * torch.randn(tuple(shape), generator=gen, dtype=torch.float32)

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.models.layers import dropout, normal_init
 
 
@@ -84,7 +85,9 @@ def init_params(cfg, gen: torch.Generator, width: Optional[int] = None,
     """cfg: ModelConfig with arch_type == 'cnn' (vocab_size = classes).
     Draws from the CPU generator ``gen`` (values differ from the
     reference's ``jax.random`` init; ``repro_torch.convert`` carries the
-    reference's parameters over instead)."""
+    reference's parameters over instead).  ``device=None`` means the
+    card."""
+    device = resolve_device(device)
     w = width or cfg.d_model          # stem width (64 for real ResNet-18)
     widths = [w, 2 * w, 4 * w, 8 * w]
     strides = [1, 2, 2, 2]

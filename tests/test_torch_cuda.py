@@ -1,7 +1,7 @@
-"""The port's CUDA kernels on the card: each variant of ``dbl_apply_flat2d``
-(B1) and ``dbl_merge_flat2d`` (B2) bit-equal to its plain PyTorch version
-on the same CUDA inputs, one counted launch per call, and the engine's
-device fences.  Skips without a GPU; on one, run
+"""The engine's device fences on the card: the default device is CUDA, TF32
+is off, and parameters that live elsewhere are refused.  (``chip_smoke.py``
+holds every kernel variant bit-equal to its plain version on the card.)
+Skips without a GPU; on one, run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -9,59 +9,15 @@ device fences.  Skips without a GPU; on one, run
 import pytest
 import torch
 
-from repro_torch.kernels import dbl_merge as K
-
 pytestmark = pytest.mark.cuda
-
-LR, FACTOR, MOM = 0.05, 0.8367, 0.9
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode; "
-                    "their plain versions are tested on the CPU)")
+        pytest.skip("needs a CUDA device (the device fences are tested "
+                    "without one in test_torch_imports.py)")
     return torch.device("cuda")
-
-
-def _bufs(rows, seed):
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    return {k: torch.randn(rows, 128, generator=gen, device="cuda")
-            for k in ("w", "gl", "gs", "v")}
-
-
-def _update(kernel, variant, b, plain):
-    kw = {"lr": LR}
-    if "vel" in variant:
-        kw.update(vel2=b["v"], momentum=MOM)
-    p2 = b["w"]
-    if "master" in variant:
-        kw["master2"] = b["w"]
-        p2 = b["shadow"]
-    if kernel == "dbl_merge_flat2d":
-        fn = K.dbl_merge_plain if plain else K.dbl_merge_flat2d
-        return fn(p2, b["gl"], b["gs"], factor=FACTOR, **kw)
-    fn = K.dbl_apply_plain if plain else K.dbl_apply_flat2d
-    return fn(p2, b["gl"], **kw)
-
-
-@pytest.mark.parametrize("rows", [64, 3072])
-@pytest.mark.parametrize("variant", K.VARIANTS)
-@pytest.mark.parametrize("kernel", K.KERNELS)
-def test_kernel_bit_equal_to_plain_on_card(cuda, kernel, variant, rows):
-    a = _bufs(rows, seed=rows + len(variant))
-    a["shadow"] = a["w"].to(torch.bfloat16)
-    b = {k: t.clone() for k, t in a.items()}
-    K.reset_counts()
-    _update(kernel, variant, a, plain=False)
-    assert K.launch_count(kernel, variant) == 1 == K.launch_count()
-    _update(kernel, variant, b, plain=True)
-    assert K.launch_count() == 1 and K.plain_count() == 0
-    torch.cuda.synchronize()
-    for name in a:
-        assert torch.equal(a[name], b[name]), name
-    if "master" in variant:
-        assert torch.equal(a["shadow"], a["w"].to(torch.bfloat16))
 
 
 def test_engine_refuses_params_off_its_device(cuda):
@@ -76,6 +32,9 @@ def test_engine_refuses_params_off_its_device(cuda):
     assert engine.device.type == "cuda"
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+    on_card = models.init_params(cfg, torch.Generator().manual_seed(0))
+    assert all(t.device == engine.device for t in
+               [on_card["stem"], on_card["fc_w"], on_card["bn0"]["scale"]])
     params = models.init_params(cfg, torch.Generator().manual_seed(0),
                                 device="cpu")
     with pytest.raises(ValueError, match="live on cpu"):

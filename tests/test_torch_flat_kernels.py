@@ -106,7 +106,7 @@ def test_ravel_byte_equal_and_round_trip(store):
     st = ts.ravel_stacked([tp, tp])
     assert st.shape == (2,) + ts.shape
     assert _bits(st) == _bits(js.ravel_stacked([p, p]))
-    assert ts.zeros_stacked(3).shape == js.zeros_stacked(3).shape
+    assert ts.zeros_stacked(3, "cpu").shape == js.zeros_stacked(3).shape
     fp = flat.FlatParams.from_tree(tp, ts)
     assert (fp.master is None) == (store == "f32")
     for a, b in zip(tree_leaves(fp.to_tree()), tree_leaves(tp)):
@@ -219,7 +219,7 @@ def test_plain_kernel_matches_numpy_and_jax(kernel, variant, rows):
             assert got.dtype == torch.bfloat16
             # the shadow is exactly the rounded master
             assert torch.equal(got, t["m"].to(torch.bfloat16))
-            jsh = tensor_from_numpy(j["shadow"])
+            jsh = tensor_from_numpy(j["shadow"], "cpu")
             diff = (got.float() - jsh.float()).abs()
             ulp = torch.exp2(torch.floor(torch.log2(
                 t["m"].abs().clamp_min(1e-30))) - 7)

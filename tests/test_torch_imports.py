@@ -75,6 +75,43 @@ def test_engine_without_device_needs_cuda():
                     device="cuda")
 
 
+def _entry_points():
+    import numpy as np
+
+    from repro_torch import convert, models
+    from repro_torch.configs import get_config
+    from repro_torch.core.flat import flat_spec
+    from repro_torch.models import resnet
+    cfg = get_config("cifar-resnet18")
+    gen = torch.Generator().manual_seed(0)
+    arr = np.zeros((2, 3), np.float32)
+    spec = flat_spec({"w": torch.zeros(3, 5)})
+    return {
+        "models.init_params": lambda d: models.init_params(cfg, gen,
+                                                           device=d),
+        "resnet.init_params": lambda d: resnet.init_params(cfg, gen,
+                                                           device=d),
+        "convert.tensor_from_numpy": lambda d: convert.tensor_from_numpy(
+            arr, d),
+        "convert.params_from_numpy": lambda d: convert.params_from_numpy(
+            {"a": arr}, d),
+        "FlatSpec.zeros_stacked": lambda d: spec.zeros_stacked(2, d),
+    }
+
+
+@pytest.mark.parametrize("name", list(_entry_points()))
+def test_entry_point_without_device_needs_cuda(name):
+    make = _entry_points()[name]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make(None)
+    out = make("cpu")
+    leaves = out.values() if isinstance(out, dict) else [out]
+    assert all(t.device.type == "cpu" for t in leaves
+               if isinstance(t, torch.Tensor))
+
+
 def test_kernel_wrappers_refuse_other_devices():
     from repro_torch.kernels.dbl_merge import dbl_apply_flat2d
     p2 = torch.zeros(8, 128, device="meta")
