@@ -9,8 +9,9 @@ for field — and therefore in ``to_json`` and ``run_key`` — to the
 reference's; ``to_phases()`` lowers it to the engine's ``Phase`` list.
 
 ``RunConfig`` collects the execution-side knobs.  ``run(spec, config,
-...)`` drives the synchronous engine (``backend="spmd"``); the PS
-simulator backend waits for ROADMAP A7.
+...)`` drives either backend: the PS simulator (``backend="ps_sim"``,
+event path or traced replay — the paper's accuracy path) or the
+synchronous engine (``backend="spmd"``).
 """
 from __future__ import annotations
 
@@ -18,9 +19,9 @@ import dataclasses
 import hashlib
 import json
 from dataclasses import dataclass, replace
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
-from repro_torch.cluster.backend import RunResult, SpmdBackend
+from repro_torch.cluster.backend import PsSimBackend, RunResult, SpmdBackend
 from repro_torch.core.dual_batch import DualBatchPlan, solve_plan
 from repro_torch.core.hybrid import _hybrid_schedule
 from repro_torch.core.time_model import LinearTimeModel
@@ -179,15 +180,27 @@ class ScheduleSpec:
 class RunConfig:
     """Execution-side knobs — how a spec runs, never what it computes.
 
-    The reference's fields that the ``spmd`` backend reads; the PS-sim
-    fields (``sync``, ``staleness``, ``momentum``, ``jitter``, ``traced``
-    …) come with that backend (ROADMAP A7).  ``ckpt_dir``/``resume`` are
-    refused until the checkpoint slice (A9).  ``precision`` must match the
-    engine's own (the engine owns its flat-store layout).
+    The reference's fields.  ``sync=None`` defers to the spec's own policy
+    string; a ``SyncPolicy`` object here overrides it (e.g.
+    ``SSP(staleness=5)``).  ``precision``: ``"f32"`` or ``"bf16"`` (the
+    mixed store); on ``ps_sim`` it requires ``traced=True``, on ``spmd``
+    it must match the engine's own (the engine owns its flat-store
+    layout).  ``ckpt_dir``/``resume`` are refused until the checkpoint
+    slice (ROADMAP A9).  ``log_fn`` receives the engine's step records
+    (``spmd``) or one timing record per phase (``ps_sim``).
     """
     backend: str = "ps_sim"              # ps_sim | spmd
+    sync: Any = None                     # None -> spec.sync
+    staleness: int = 3
+    momentum: float = 0.9
+    jitter: Any = 0.0
+    traced: bool = False                 # traced PS replay (B3 per event)
+    trace_chunk: int = 32
+    trace_update: str = "auto"
     precision: str = "f32"               # f32 | bf16 (mixed store)
     prefetch: bool = True
+    ref_size: Optional[int] = None       # None -> spec.input_size
+    events_for_phase: Optional[Callable] = None
     ckpt_dir: Optional[str] = None
     resume: bool = False
     log_every: int = 20
@@ -195,45 +208,61 @@ class RunConfig:
 
 
 def run(spec: ScheduleSpec, config: Optional[RunConfig] = None, *,
-        init_params, opt_state=None, engine=None, plane=None,
-        data=None) -> RunResult:
-    """THE run entrypoint: one spec, one config.
+        init_params, opt_state=None, fns_factory: Optional[Callable] = None,
+        engine=None, plane=None, data=None, device=None) -> RunResult:
+    """THE run entrypoint: one spec, one config, either backend.
 
+    ``ps_sim`` (default): needs ``fns_factory(input_size) -> (grad_fn,
+    data_fn, eval_fn)``; runs on ``device`` (``None`` means the card,
+    raising without CUDA), where ``init_params`` must already live.
     ``spmd``: needs ``engine`` (a ``TrainEngine``, on the card unless it
-    was built for the CPU) and ``plane`` (the batch_fn) or ``data`` (a
-    DataPlane source; the plane is then built here, seeded from
-    ``spec.seed``, and closed when the run ends).  ``init_params`` must
-    live on the engine's device.
+    was built for the CPU; ``init_params`` on its device).  Batches come
+    from ``plane`` or — when ``data`` (a DataPlane source) is given — from
+    a plane built here, seeded from ``spec.seed`` and closed when the run
+    ends.
     """
     config = config or RunConfig()
-    if config.backend == "ps_sim":
-        raise NotImplementedError(
-            "the PS-simulator backend waits for the PS-sim slice "
-            "(ROADMAP A7); use RunConfig(backend='spmd')")
-    if config.backend != "spmd":
+    if config.backend not in ("ps_sim", "spmd"):
         raise ValueError(f"unknown backend {config.backend!r}")
-    if engine is None:
-        raise ValueError("spmd backend needs engine=TrainEngine(...)")
-    if engine.precision != config.precision:
-        raise ValueError(
-            f"config.precision={config.precision!r} but the engine was "
-            f"built with precision={engine.precision!r} — build the engine "
-            "at the precision the run asks for")
+    if config.backend == "spmd":
+        if engine is None:
+            raise ValueError("spmd backend needs engine=TrainEngine(...)")
+        if engine.precision != config.precision:
+            raise ValueError(
+                f"config.precision={config.precision!r} but the engine was "
+                f"built with precision={engine.precision!r} — build the "
+                "engine at the precision the run asks for")
+    elif fns_factory is None:
+        raise ValueError("ps_sim backend needs fns_factory(input_size) -> "
+                         "(grad_fn, data_fn, eval_fn)")
     phases = spec.to_phases()
     owned = None
     if plane is None and data is not None:
         from repro_torch.data import DataPlane
         plane = owned = DataPlane(data, seed=spec.seed,
                                   prefetch=config.prefetch)
-    if plane is None:
-        raise ValueError("spmd backend needs plane= (or data=) as the "
-                         "batch source")
-    kw = {} if opt_state is None else {"opt_state": opt_state}
     try:
-        return SpmdBackend(engine, plane).run(
-            phases, init_params, seed=spec.seed, ckpt_dir=config.ckpt_dir,
-            resume=config.resume, log_every=config.log_every,
-            log_fn=config.log_fn, **kw)
+        if config.backend == "spmd":
+            if plane is None:
+                raise ValueError("spmd backend needs plane= (or data=) as "
+                                 "the batch source")
+            kw = {} if opt_state is None else {"opt_state": opt_state}
+            return SpmdBackend(engine, plane).run(
+                phases, init_params, seed=spec.seed,
+                ckpt_dir=config.ckpt_dir, resume=config.resume,
+                log_every=config.log_every, log_fn=config.log_fn, **kw)
+        backend = PsSimBackend(
+            fns_factory, tm=spec.time_model(), axis=spec.axis,
+            sync=config.sync if config.sync is not None else spec.sync,
+            staleness=config.staleness, momentum=config.momentum,
+            ref_size=config.ref_size or spec.input_size,
+            jitter=config.jitter, events_for_phase=config.events_for_phase,
+            plane=plane, traced=config.traced,
+            trace_chunk=config.trace_chunk,
+            trace_update=config.trace_update, precision=config.precision,
+            device=device, log_fn=config.log_fn)
+        return backend.run(phases, init_params, seed=spec.seed,
+                           ckpt_dir=config.ckpt_dir, resume=config.resume)
     finally:
         if owned is not None:
             owned.close()

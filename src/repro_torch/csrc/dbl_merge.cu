@@ -8,6 +8,11 @@
 //   dbl_merge_flat2d  (B2, :186) — _kernel, _kernel_vel, _kernel_master,
 //                      _kernel_master_vel
 //       g = (g_L + f·g_S)·inv, inv = 1/(1+f);  then the same apply
+//   dbl_apply_worker_flat2d  (B3, :318) — _kernel_apply_worker (:270),
+//                      _kernel_apply_worker_master (:287)
+//       v'[wid] = m·v[wid] + g;  d = −lr·v'[wid];  w' = w + f·d
+//       (one simulated parameter-server event; only worker wid's row block
+//       of the stacked (n_workers, rows, 128) velocity is read or written)
 // In the master forms the update runs on the f32 master and the same pass
 // writes the master and its round-to-nearest-even bf16 shadow; the shadow's
 // old value is never read (as at dbl_merge.py:108).  Every output is written
@@ -15,7 +20,8 @@
 //
 // What bounds it: nothing but device-memory bytes.  Each element costs 2 to
 // 6 flops and 12 to 26 bytes: B1 12 / 20 / 14 / 22 and B2 16 / 24 / 18 / 26
-// bytes (plain, vel, master, master+vel).  At the full ResNet-18 store
+// bytes (plain, vel, master, master+vel); B3 20 (f32: read w, g, v[wid],
+// write w, v[wid]) or 22 (master: the bf16 shadow is written, never read).  At the full ResNet-18 store
 // (88,064 × 128 elements) that is 135–293 MB a step, a 40–87 µs bound at
 // the 3.35 TB/s of an H100 SXM.  The design therefore only has to stream:
 // one thread per 4 floats (16-byte float4 loads/stores, 8-byte stores of 4
@@ -23,9 +29,14 @@
 // blocks to keep every SM's load queue full.  The TPU's whole-buffer /
 // 1024-row tiling existed for VMEM and is not carried over.
 //
+// B3 is the same sweep over one worker's row block of the velocity (the
+// pointer moves by wid·rows·128; every other worker's rows are never
+// touched), so it streams as B1's vel form does.  Its scalars come in by
+// value from the host, where the simulator's trace keeps them.
+//
 // Numbers: the float op order is the reference's exactly — (gl + f·gs)·inv,
-// then m·v + g, then w − lr·v — with every multiply and add rounded on its
-// own (__fmul_rn / __fadd_rn / __fsub_rn, and the library is built with
+// then m·v + g, then w − lr·v (B3: m·v + g, then (−lr)·v, then w + f·d) —
+// with every multiply and add rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn, and the library is built with
 // --fmad=false), so no fused multiply-add changes a bit: the kernel is
 // bit-equal to the plain PyTorch version of each variant.
 #include <cuda_bf16.h>
@@ -115,6 +126,36 @@ dbl_sweep(float* __restrict__ w, __nv_bfloat16* __restrict__ shadow,
   }
 }
 
+// One simulated-PS event over the flat store (B3).  w: f32 params (or the
+// f32 master when kMaster); shadow: bf16 store (kMaster only); g: the
+// event's gradient; v: worker wid's row block of the stacked velocity.
+template <bool kMaster>
+__global__ void __launch_bounds__(kThreads)
+dbl_worker_sweep(float* __restrict__ w, __nv_bfloat16* __restrict__ shadow,
+                 const float* __restrict__ g, float* __restrict__ v,
+                 int64_t n4, float lr, float factor, float momentum) {
+  const float neg_lr = -lr;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n4; i += stride) {
+    const float4 gg = load4(g, i);
+    float4 vv = load4(v, i);
+    vv.x = vel1(vv.x, gg.x, momentum);
+    vv.y = vel1(vv.y, gg.y, momentum);
+    vv.z = vel1(vv.z, gg.z, momentum);
+    vv.w = vel1(vv.w, gg.w, momentum);
+    store4(v, i, vv);
+    float4 p = load4(w, i);
+    p.x = __fadd_rn(p.x, __fmul_rn(factor, __fmul_rn(neg_lr, vv.x)));
+    p.y = __fadd_rn(p.y, __fmul_rn(factor, __fmul_rn(neg_lr, vv.y)));
+    p.z = __fadd_rn(p.z, __fmul_rn(factor, __fmul_rn(neg_lr, vv.z)));
+    p.w = __fadd_rn(p.w, __fmul_rn(factor, __fmul_rn(neg_lr, vv.w)));
+    store4(w, i, p);
+    if constexpr (kMaster) store4_bf16(shadow, i, p);
+  }
+}
+
 int grid_for(int64_t n4) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
@@ -166,4 +207,27 @@ extern "C" int repro_dbl_merge_flat2d(float* w, void* shadow, const float* gl,
   return launch<true>(w, static_cast<__nv_bfloat16*>(shadow), gl, gs, v, n,
                       lr, factor, inv, momentum,
                       static_cast<cudaStream_t>(stream));
+}
+
+// B3.  w / shadow / g: (rows, 128) buffers of n = rows·128 elements; vel3:
+// the stacked (n_workers, rows, 128) velocity, of which only row block wid
+// is used (the caller checks 0 <= wid < n_workers).  shadow null for the
+// f32 form.  Same alignment rules and return value as above.
+extern "C" int repro_dbl_apply_worker_flat2d(float* w, void* shadow,
+                                             const float* g, float* vel3,
+                                             int64_t n, int wid, float lr,
+                                             float factor, float momentum,
+                                             void* stream) {
+  const int64_t n4 = n / 4;
+  float* v = vel3 + static_cast<int64_t>(wid) * n;
+  const dim3 grid(grid_for(n4)), block(kThreads);
+  auto* sh = static_cast<__nv_bfloat16*>(shadow);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (sh != nullptr)
+    dbl_worker_sweep<true><<<grid, block, 0, st>>>(w, sh, g, v, n4, lr,
+                                                   factor, momentum);
+  else
+    dbl_worker_sweep<false><<<grid, block, 0, st>>>(w, sh, g, v, n4, lr,
+                                                    factor, momentum);
+  return static_cast<int>(cudaGetLastError());
 }

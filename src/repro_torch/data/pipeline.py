@@ -62,10 +62,14 @@ def bilinear_resize(img: np.ndarray, out: int) -> np.ndarray:
 
 
 def resize_images(imgs: np.ndarray, out: int) -> np.ndarray:
-    """(N, H, W, C) -> (N, out, out, C); identity when already at size."""
+    """(N, H, W, C) -> (N, out, out, C); identity when already at size.
+    The result is C-contiguous: ``np.stack`` keeps the resized images'
+    W-major layout, and cuDNN picks other kernels (other rounding) for a
+    batch laid out so than for the same values in NHWC order."""
     if imgs.shape[1] == out and imgs.shape[2] == out:
-        return np.asarray(imgs, np.float32)
-    return np.stack([bilinear_resize(im, out) for im in imgs])
+        return np.ascontiguousarray(imgs, np.float32)
+    return np.ascontiguousarray(
+        np.stack([bilinear_resize(im, out) for im in imgs]))
 
 
 def crop_tokens(toks: np.ndarray, seq: int) -> np.ndarray:

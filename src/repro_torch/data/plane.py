@@ -19,13 +19,15 @@ Contracts served:
 
     plane(phase, gstep)                      -> host batch dict (numpy)
     plane.scan_feed(phase, g0, n, chunk, device)   (engine loop)
+    plane.sim_data_fn(i, phase, device)      -> data_fn (PS-sim event path)
+    plane.trace_feed(i, phase, device)       -> feed    (traced PS-sim)
     plane.batch_struct(phase[, stacked])
 
 ``bind(phases)`` pins the schedule so a ``Phase`` object resolves to its
 index (and absolute start step); the backend binds automatically.  The
 prefetch thread belongs to the plane: ``close()`` (or leaving a ``with``
-block, or interpreter exit) shuts it down.  The PS-simulator feeds
-(``sim_data_fn``, ``trace_feed``) wait for the PS-sim slice (ROADMAP A7).
+block, or interpreter exit) shuts it down.  ``trace_feed`` stages its
+chunks of simulator events the same way as ``scan_feed``.
 """
 from __future__ import annotations
 
@@ -216,26 +218,51 @@ class DataPlane:
                 s = self._streams[device] = torch.cuda.Stream(device=device)
             return s
 
+    def _upload(self, shapes: dict, fill, device: torch.device):
+        """Allocate a chunk's host buffers (``{key: (shape, numpy
+        dtype)}``, pinned on CUDA), let ``fill({key: numpy view})`` write
+        them, and start the copy to ``device``: ``(tensors, event)``,
+        ``event`` None off CUDA."""
+        if device.type != "cuda":
+            host = {k: np.empty(s, dt) for k, (s, dt) in shapes.items()}
+            fill(host)
+            return {k: torch.from_numpy(v).to(device)
+                    for k, v in host.items()}, None
+        pinned = {k: torch.empty(s, pin_memory=True, dtype=torch.from_numpy(
+                      np.empty(0, dt)).dtype) for k, (s, dt) in shapes.items()}
+        fill({k: t.numpy() for k, t in pinned.items()})
+        stream = self._side_stream(device)
+        with torch.cuda.stream(stream):
+            out = {k: t.to(device, non_blocking=True)
+                   for k, t in pinned.items()}
+            event = torch.cuda.Event()
+            event.record(stream)
+        return out, event
+
+    @staticmethod
+    def _handoff(staged_iter, device: torch.device):
+        """Yield each staged ``(tensors, event)`` as tensors ready for the
+        caller's current stream."""
+        for batches, event in staged_iter:
+            if event is not None:
+                cur = torch.cuda.current_stream(device)
+                cur.wait_event(event)
+                for t in batches.values():
+                    # the side stream allocated them; tell the caching
+                    # allocator the consumer's stream uses them too
+                    t.record_stream(cur)
+            yield batches
+
     def _stage_chunk(self, phase, g0: int, c: int, device: torch.device):
         """Host-build + stack ``c`` consecutive batches and start their
         upload: ``(tensors, event)``, ``event`` None off CUDA."""
         batches = [self(phase, g0 + j) for j in range(c)]
-        if device.type != "cuda":
-            return {k: torch.from_numpy(np.stack([b[k] for b in batches]))
-                    .to(device) for k in batches[0]}, None
-        stream = self._side_stream(device)
-        out = {}
-        with torch.cuda.stream(stream):
-            for k in batches[0]:
-                first = batches[0][k]
-                host = torch.empty((c,) + first.shape,
-                                   dtype=torch.from_numpy(first[:0]).dtype,
-                                   pin_memory=True)
-                np.stack([b[k] for b in batches], out=host.numpy())
-                out[k] = host.to(device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return out, event
+
+        def fill(out):
+            for k, buf in out.items():
+                np.stack([b[k] for b in batches], out=buf)
+        return self._upload({k: ((c,) + v.shape, v.dtype)
+                             for k, v in batches[0].items()}, fill, device)
 
     def scan_feed(self, phase, start: int, n_steps: int, chunk: int,
                   device) -> Iterator[Tuple[int, dict]]:
@@ -254,12 +281,64 @@ class DataPlane:
         staged_iter = prefetch_iter(self._stage_chunk, items,
                                     self._executor() if self.prefetch
                                     else None)
-        for (_, _, c, _), (batches, event) in zip(items, staged_iter):
-            if event is not None:
-                cur = torch.cuda.current_stream(device)
-                cur.wait_event(event)
-                for t in batches.values():
-                    # the side stream allocated them; tell the caching
-                    # allocator the consumer's stream uses them too
-                    t.record_stream(cur)
+        for (_, _, c, _), batches in zip(items,
+                                         self._handoff(staged_iter, device)):
             yield c, batches
+
+    # -- PS-sim contracts -------------------------------------------------
+    def sim_data_fn(self, phase_idx: int, phase, device):
+        """``data_fn(rng, wid, bsz)`` for one simulator phase, giving
+        tensors on ``device``.  Ignores the simulator's shared rng: draws
+        come from the per-worker counter stream instead, so the sample
+        sequence is independent of event interleaving."""
+        device = torch.device(device)
+        counters: dict = {}
+
+        def data_fn(rng, wid, bsz):
+            t = counters.get(wid, 0)
+            counters[wid] = t + 1
+            idx = self.worker_indices(phase_idx, wid, t, bsz)
+            b = self.source.batch_at(idx, phase.input_size)
+            return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        return data_fn
+
+    def trace_feed(self, phase_idx: int, phase, device, *,
+                   prefetch: Optional[bool] = None):
+        """``feed(trace, ranges)`` for ``repro_torch.cluster.trace``'s
+        execute pass: stages each event range of a ``SimTrace`` from the
+        canonical per-``(seed, phase, worker, step)`` streams —
+        ``trace.stream_step`` holds exactly the per-worker counters the
+        event path's ``sim_data_fn`` closures would have advanced, so
+        sample selection equals the event path's.  Each chunk is stacked
+        into pinned memory (padded to the largest event batch) and copied
+        to ``device`` on the side stream, as ``scan_feed`` does; with
+        prefetch the next range stages on the background thread while the
+        current one runs."""
+        use_prefetch = self.prefetch if prefetch is None else bool(prefetch)
+        device = torch.device(device)
+
+        def feed(trace, ranges):
+            from repro_torch.cluster.trace import stack_event_batches
+            b_max = int(max(trace.sizes)) if trace.sizes else 1
+
+            def stage(e0: int, e1: int):
+                batches = [
+                    self.source.batch_at(
+                        self.worker_indices(phase_idx,
+                                            int(trace.worker_id[e]),
+                                            int(trace.stream_step[e]),
+                                            int(trace.batch_size[e])),
+                        phase.input_size)
+                    for e in range(e0, e1)]
+                shapes = {k: ((e1 - e0, b_max) + v.shape[1:], v.dtype)
+                          for k, v in batches[0].items()}
+                return self._upload(
+                    shapes,
+                    lambda out: stack_event_batches(batches, b_max, out=out),
+                    device)
+
+            yield from self._handoff(
+                prefetch_iter(stage, ranges,
+                              self._executor() if use_prefetch else None),
+                device)
+        return feed

@@ -16,3 +16,12 @@ def resolve_device(device=None) -> torch.device:
         # tensors report "cuda:<n>", which never equals a bare "cuda"
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def strict_f32(device: torch.device) -> None:
+    """On CUDA, turn TF32 off for convolutions and matrix products
+    (process-wide): cuDNN runs f32 convolutions in TF32 by default, and
+    the port's contract is f32 math, as the reference's."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -24,11 +24,10 @@ PyTorch runs eagerly, so there is nothing to compile ahead:
 ``overlap_compile`` is accepted and inert until the CUDA-graph slice
 (ROADMAP A15), and a ``mesh`` raises until the multi-GPU slice.
 
-Numerics: building an engine for CUDA sets
-``torch.backends.cudnn.allow_tf32 = False`` and
-``torch.backends.cuda.matmul.allow_tf32 = False`` (process-wide), because
-cuDNN runs f32 convolutions in TF32 by default; the engine's contract is
-f32 math, as the reference's.
+Numerics: building an engine for CUDA turns TF32 off process-wide
+(``repro_torch.device.strict_f32``), because cuDNN runs f32 convolutions
+in TF32 by default; the engine's contract is f32 math, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -41,7 +40,7 @@ import torch
 
 from repro_torch.core.flat import FlatSpec, flat_spec
 from repro_torch.core.tree import tree_leaves
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, strict_f32
 from repro_torch.engine.phases import Phase
 from repro_torch.engine.steps import (make_fused_dbl_step,
                                       make_fused_phase_scan,
@@ -138,9 +137,7 @@ class TrainEngine:
                 "precision='bf16' requires the fused scan path "
                 "(scan_loop enabled, fused_merge on, no mesh)")
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        strict_f32(self.device)
         self._cache: dict = {}
         self._phase_cache: dict = {}
         self.stall_log: list = []
