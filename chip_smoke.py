@@ -46,17 +46,41 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    per event);
 10. PS-sim parity: the traced replay at width 8 on the card (started with
     TF32 on, which the backend turns off) against the CPU port, within
-    ``PS_PARITY_BAND``.
+    ``PS_PARITY_BAND``;
+11. decode kernels: ``flash_decode`` (B5) and ``flash_decode_paged`` (B6)
+    against their plain versions (``FD_F32_TOL``; bf16 outputs one bf16
+    ulp more) at the phi3-mini and gemma3-4b geometries and the reduced
+    shapes of the CPU tests, q and cache each in f32 and bf16, with a
+    scrambled page table, a dead sentinel row and the windows of
+    ``FD_SHAPES``; each timed at its first window beside its plain
+    version, its library call (SDPA for B5; for B6 none, with gather +
+    SDPA as a note) and its bytes bound;
+12. serving main path: ``ServeEngine(backend="paged")`` on
+    ``phi3-mini-3.8b`` at full width (32 layers, bf16 params, f32 pages,
+    weights from a seeded generator on the card) serving the 16 requests
+    of ``SERVE_WORKLOAD``: one B6 launch per layer per decode tick and no
+    plain attention at T = 1, tokens in the vocabulary, finite logits,
+    the schedule ``run_serve_loop`` gives with stub hooks; tok/s, TTFT,
+    TPOT, ms per decode tick, a profile of ``PROFILE_TICKS`` (B6's share,
+    device idle share, top kernels) and peak memory; the contiguous
+    backend on the same requests (token agreement reported, not
+    asserted: bf16 logits can tie);
+13. serving parity: reduced gemma3-4b (window 16) and phi3-mini in f32 on
+    the card against the CPU port on the churn workload, tokens identical
+    and logits within ``SERVE_PARITY_BAND``; on the card, speculative
+    decode (k = 3) and prefix sharing token-identical to one-token decode.
 
 The launch counts are set to 0 just before each path and read just after;
 the ``launches`` in the kernels line are those counts, summed over the
-main path and the short runs.  Launches made to compare a kernel with its
+main path and the short runs (for B5 and B6, the paged serving main
+path's timed run; B5 has no caller on that path, so its count is 0).  Launches made to compare a kernel with its
 plain version are not counted.
 The last three lines of standard output are the card's name and power
 limit (as ``nvidia-smi`` gives them), one JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``.
 """
 import argparse
+import gc
 import json
 import math
 import os
@@ -541,11 +565,536 @@ def param_gap(m, a, b) -> float:
                for x, y in zip(m.tree_leaves(a), m.tree_leaves(b)))
 
 
+# ------------------------------ phases 11-14: serving -------------------------
+FD_CSRC = "src/repro_torch/csrc/flash_decode.cu"
+FD_REFERENCE = "src/repro/kernels/flash_decode.py"
+FD_INFO = {"flash_decode": 99, "flash_decode_paged": 192}
+# (label, rows, heads, kv heads, hd, page_len, pages per slot, pages, longest
+# length, windows): phi3-mini and gemma3-4b at full geometry, and the
+# reduced shapes of tests/test_torch_serve.py.  Each row of a table gets
+# its own pages (a permutation of the pool); row 1 is dead (every entry the
+# sentinel id n_pages, length 0).
+FD_SHAPES = (("phi3-mini-3.8b", 8, 32, 32, 96, 16, 64, 512, 1023, (0, 64)),
+             ("gemma3-4b", 8, 8, 4, 256, 16, 128, 1024, 2047, (1024,)),
+             ("gemma3-4b-reduced", 2, 4, 2, 64, 16, 4, 8, 63, (16,)),
+             ("phi3-mini-3.8b-reduced", 2, 4, 4, 64, 16, 4, 8, 63, (0,)))
+# kernel against plain: f32 outputs within 2e-5 (the two sum the softmax in
+# other orders, with other exp); bf16 outputs within one bf16 ulp of the
+# larger magnitude plus that 2e-5 — both round f32 values that differ by up
+# to 2e-5, and each rounding moves a value by at most half an ulp.  The
+# 2e-5 matters only near zero, where the outputs (averages of ~1000 N(0, 1)
+# values) cancel and the two f32 results can round two bf16 ulps apart.
+FD_F32_TOL = 2e-5
+# the full-width serving path (section 5 of PERF.md): phi3-mini at full
+# width, bf16 params, f32 pages
+SERVE_ARCH = "phi3-mini-3.8b"
+SERVE_SPEC = dict(page_len=16, pages_per_slot=32, n_slots=8)
+SERVE_CHUNK = 64
+SERVE_WORKLOAD = dict(prompt_lens=(16, 256), gen_short=(16, 32),
+                      gen_long=(96, 128), p_long=0.25)
+SERVE_REQUESTS = 16
+PROFILE_TICKS = 10               # full (8-row) decode ticks profiled
+# card vs CPU on the reduced configs, f32, the churn workload of
+# tests/test_serve.py: greedy tokens identical, logits within this band
+# (measured 4.9e-6 / 5.1e-6 for gemma3 / phi3 on NVIDIA H100 80GB HBM3,
+# 700 W — the port's CPU lies 5.4e-6 from the JAX package on the same runs)
+SERVE_PARITY_BAND = 5e-5
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |x| (8 significant bits)."""
+    a = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _fd_inputs(shape, q_dtype, kv_dtype, seed):
+    """One shape's paged inputs on the card, and the contiguous caches of
+    the same keys (B5's layout), from a seeded numpy / torch draw."""
+    import numpy as np
+    _, rows, h, kvh, hd, page_len, pp, n_pages, max_len, _ = shape
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = rng.permutation(n_pages)[:rows * pp].reshape(rows, pp) \
+        .astype(np.int32)
+    lengths = rng.integers(0, max_len + 1, rows).astype(np.int32)
+    lengths[0] = max_len
+    table[1], lengths[1] = n_pages, 0                    # the dead row
+    q = torch.randn(rows, h, 1, hd, generator=gen, device="cuda") \
+        .to(q_dtype)
+    kp = torch.randn(n_pages, page_len, kvh, hd, generator=gen,
+                     device="cuda").to(kv_dtype)
+    vp = torch.randn(n_pages, page_len, kvh, hd, generator=gen,
+                     device="cuda").to(kv_dtype)
+    tbl = torch.from_numpy(table).cuda()
+    lens = torch.from_numpy(lengths).cuda()
+    gather = tbl.long().clamp(0, n_pages - 1)
+    kc = kp[gather].reshape(rows, pp * page_len, kvh, hd).transpose(1, 2) \
+        .contiguous()
+    vc = vp[gather].reshape(rows, pp * page_len, kvh, hd).transpose(1, 2) \
+        .contiguous()
+    return q, kp, vp, tbl, lens, kc, vc, lengths
+
+
+def _live(length: int, n_keys: int, window: int) -> int:
+    hi = min(length, n_keys - 1)
+    lo = max(0, length - window + 1) if window > 0 else 0
+    return max(0, hi - lo + 1)
+
+
+def _fd_err(out, ref):
+    """(max abs diff, passes, worst element): f32 within FD_F32_TOL, bf16
+    within FD_F32_TOL plus one bf16 ulp, elementwise."""
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype == torch.bfloat16:
+        big = torch.maximum(out.float().abs(), ref.float().abs())
+        ratio = diff / (bf16_ulp(big) + FD_F32_TOL)
+        ok = bool((ratio <= 1.0).all())
+    else:
+        ratio = diff / FD_F32_TOL
+        ok = float(diff.max()) <= FD_F32_TOL
+    i = int(ratio.argmax())
+    worst = (tuple(int(x) for x in
+                   torch.unravel_index(torch.tensor(i), ratio.shape)),
+             float(out.flatten()[i]), float(ref.flatten()[i]),
+             float(ratio.flatten()[i]))
+    return float(diff.max()), ok, worst
+
+
+def fd_kernel_phase(FD, rate):
+    """B5 and B6 against their plain versions at every shape, dtype pair
+    and window of FD_SHAPES; timed (kernel, plain, library, bound) at
+    each shape's first window.  Returns per-kernel lists of records."""
+    out = {"flash_decode": [], "flash_decode_paged": []}
+    for si, shape in enumerate(FD_SHAPES):
+        label, rows, h, kvh, hd, page_len, pp, n_pages, max_len, windows = \
+            shape
+        n_keys = pp * page_len
+        pos = max_len - 7                      # B5: one position for all
+        for qd in (torch.bfloat16, torch.float32):
+            for kd in (torch.float32, torch.bfloat16):
+                q, kp, vp, tbl, lens, kc, vc, lengths = _fd_inputs(
+                    shape, qd, kd, seed=100 + si)
+                for wi, w in enumerate(windows):
+                    b6 = FD.flash_decode_paged(q, kp, vp, tbl, lens, window=w)
+                    r6 = FD.paged_decode_ref(q, kp, vp, tbl, lens, window=w)
+                    b5 = FD.flash_decode(q, kc, vc, pos, window=w)
+                    r5 = FD._xla_decode(q, kc, vc, pos, window=w)
+                    torch.cuda.synchronize()
+                    for name, o, r in (("flash_decode_paged", b6, r6),
+                                       ("flash_decode", b5, r5)):
+                        err, ok, worst = _fd_err(o, r)
+                        if not ok:
+                            raise AssertionError(
+                                f"{name} {label} q {qd} cache {kd} window "
+                                f"{w}: kernel differs from its plain "
+                                f"version by {err}; worst element (index, "
+                                f"kernel, plain, diff / tolerance) {worst}")
+                        rec = {"shape": label, "q": str(qd)[6:],
+                               "cache": str(kd)[6:], "window": w,
+                               "max_abs_err": err}
+                        if wi == 0:
+                            rec.update(_fd_times(
+                                FD, name, q, kp, vp, tbl, lens, kc, vc, pos,
+                                w, lengths, n_keys, rate))
+                        out[name].append(rec)
+                del q, kp, vp, tbl, lens, kc, vc
+        log(f"  B5/B6 {label}: rows {rows}, heads {h}/{kvh}, hd {hd}, "
+            f"{pp} pages of {page_len} per row, windows {windows}: within "
+            "tolerance of the plain versions (q and cache bf16 / f32)")
+        for name in out:
+            for r in out[name]:
+                if r["shape"] == label and "ms" in r:
+                    log(f"    {name} q {r['q']} cache {r['cache']}: kernel "
+                        f"{r['ms'] * 1e3:.1f} us, plain "
+                        f"{r['plain_ms'] * 1e3:.1f} us, library "
+                        + ("-" if r["library_ms"] is None
+                           else f"{r['library_ms'] * 1e3:.1f} us")
+                        + (f" (gather + SDPA {r['gather_sdpa_ms'] * 1e3:.1f}"
+                           " us)" if "gather_sdpa_ms" in r else "")
+                        + f", bound {r['bound_ms'] * 1e3:.1f} us by "
+                        f"{r['bound_by']} ({r['bound_ms'] / r['ms']:.0%}), "
+                        f"err {r['max_abs_err']:.3g}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fd_times(FD, name, q, kp, vp, tbl, lens, kc, vc, pos, w, lengths,
+              n_keys, rate):
+    """Kernel, plain-version and library times of one call, and its bound:
+    each live K/V byte read once, q read and the output written once."""
+    import torch.nn.functional as F
+    rows, h, _, hd = q.shape
+    kvh = kp.shape[2]
+    esz = kp.element_size()
+    if name == "flash_decode_paged":
+        live = [_live(int(x), n_keys, w) for x in lengths]
+        kern = lambda: FD.flash_decode_paged(q, kp, vp, tbl, lens, window=w)
+        plain = lambda: FD.paged_decode_ref(q, kp, vp, tbl, lens, window=w)
+    else:
+        live = [_live(pos, n_keys, w)] * rows
+        kern = lambda: FD.flash_decode(q, kc, vc, pos, window=w)
+        plain = lambda: FD._xla_decode(q, kc, vc, pos, window=w)
+    nbytes = sum(live) * kvh * hd * 2 * esz + 2 * q.numel() * q.element_size()
+    nops = sum(live) * h * hd * 4
+    bound_s = max(nbytes / rate, nops / F32_RATE)
+    rec = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+           "bound_ms": bound_s * 1e3,
+           "bound_by": "bytes" if nbytes / rate >= nops / F32_RATE
+           else "operations", "bytes": nbytes, "live_keys": sum(live)}
+    idx = torch.arange(n_keys, device="cuda")
+    ql = q.to(kp.dtype)
+    if name == "flash_decode":
+        # one PyTorch call for the same function: SDPA with a boolean mask
+        lo = max(0, pos - w + 1) if w > 0 else 0
+        mask = ((idx <= pos) & (idx >= lo))[None, None, None]
+        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            ql, kc, vc, attn_mask=mask, enable_gqa=True))
+    else:
+        # no one call reads through a page table: the gather + SDPA pair
+        # is a note beside B6, not its library time
+        rec["library_ms"] = None
+        n_pages, page_len = kp.shape[:2]
+        lens_l = lens.long()[:, None]
+        lo = (lens_l - w + 1).clamp_min(0) if w > 0 else torch.zeros_like(
+            lens_l)
+        mask = ((idx[None] <= lens_l) & (idx[None] >= lo))[:, None, None]
+        gather = tbl.long().clamp(0, n_pages - 1)
+
+        def gather_sdpa():
+            k = kp[gather].reshape(rows, n_keys, kvh, hd).transpose(1, 2)
+            v = vp[gather].reshape(rows, n_keys, kvh, hd).transpose(1, 2)
+            return F.scaled_dot_product_attention(ql, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        rec["gather_sdpa_ms"] = cuda_ms(gather_sdpa)
+    return rec
+
+
+class _StubHooks:
+    """Device-free scheduler hooks: the schedule the engine must follow."""
+
+    def admit(self, slot, req, pages, **kw):
+        pass
+
+    def prefill(self, slot, req, chunk, pos, last):
+        pass
+
+    def decode(self, slots):
+        pass
+
+    def evict(self, slot, req):
+        pass
+
+
+def _timed_decode(engine, profile_ticks=None):
+    """Wrap ``engine.decode`` to record each tick's host time (a tick ends
+    in the sync that pulls its tokens) and, for the decode ticks whose
+    index is in ``profile_ticks``, each one's device kernels under its own
+    ``torch.profiler`` window (prefill calls between them stay outside).
+    Returns the record dict the wrapper fills."""
+    from torch.profiler import ProfilerActivity, profile
+    inner = engine.decode
+    rec = {"tick_s": [], "rows": [], "profiled": []}
+
+    def decode(slots):
+        i = len(rec["tick_s"])
+        prof = None
+        if profile_ticks and i in profile_ticks:
+            # device activity only: recording every host op slows the
+            # eager host loop several times over
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        out = inner(slots)
+        wall = time.perf_counter() - t0
+        rec["tick_s"].append(wall)
+        rec["rows"].append(len(slots))
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            kern = {}
+            for ev in prof.events():
+                if ev.device_type == torch.autograd.DeviceType.CUDA:
+                    kern[ev.name] = kern.get(ev.name, 0.0) + \
+                        ev.time_range.elapsed_us()
+            rec["profiled"].append({"rows": len(slots), "wall_s": wall,
+                                    "kernels_us": kern})
+        return out
+    engine.decode = decode
+    return rec
+
+
+def _profile_share(profiled, timed):
+    """Device busy, B6 time and idle share of the profiled decode ticks;
+    the unprofiled idle share holds their device time against the timed
+    run's mean tick at the same row counts."""
+    n = len(profiled)
+    kern = {}
+    for t in profiled:
+        for name, us in t["kernels_us"].items():
+            kern[name] = kern.get(name, 0.0) + us
+    busy = sum(kern.values())
+    b6 = sum(us for name, us in kern.items() if "decode_kernel" in name)
+    wall_us = sum(t["wall_s"] for t in profiled) * 1e6
+    mean_at = {}
+    for s_, m in zip(timed["tick_s"], timed["rows"]):
+        mean_at.setdefault(m, []).append(s_)
+    plain_us = sum(1e6 * sum(mean_at[t["rows"]]) / len(mean_at[t["rows"]])
+                   for t in profiled)
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:12]
+    return {"ticks": n, "rows": [t["rows"] for t in profiled],
+            "ms_per_tick": wall_us / 1e3 / n,
+            "device_busy_ms_per_tick": busy / 1e3 / n,
+            "b6_ms_per_tick": b6 / 1e3 / n,
+            "b6_share_of_tick": b6 / plain_us,
+            "b6_share_of_device": b6 / busy if busy else 0.0,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "unprofiled_ms_per_tick": plain_us / 1e3 / n,
+            "device_idle_share_unprofiled": 1.0 - busy / plain_us,
+            "top_kernels": [{"name": k[:90], "ms_per_tick": us / 1e3 / n,
+                             "share": us / busy} for k, us in top]}
+
+
+def serve_run(S, cfg, params, reqs, *, backend="paged", record=False,
+              profile_ticks=None):
+    """One ``ServeEngine.serve`` on the card with the launch counts set to
+    0 just before it; returns what the run shows."""
+    engine = S.ServeEngine(cfg, params, spec=S.PageSpec(**SERVE_SPEC),
+                           backend=backend, prefill_chunk=SERVE_CHUNK,
+                           record_logits=record)
+    ticks = _timed_decode(engine, profile_ticks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    S.FD.reset_counts()
+    t0 = time.perf_counter()
+    recs = engine.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"recs": recs, "wall_s": wall, "log": engine.log,
+           "stats": dict(engine.stats),
+           "compile_log": list(engine.compile_log),
+           "launches": {k: {v: S.FD.launch_count(k, v) for v in vs}
+                        for k, vs in S.FD.KERNEL_VARIANTS.items()},
+           "b6": S.FD.launch_count("flash_decode_paged"),
+           "plain": S.FD.plain_count(), "ticks": ticks,
+           "peak": torch.cuda.max_memory_allocated()}
+    # the timing wrapper and the engine refer to each other: collect the
+    # cycle so that its KV pool is freed before the next run's peak
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_phase(S):
+    """Phase 12: the paged ServeEngine at the full width of phi3-mini
+    (all 32 layers, bf16 params and compute, f32 pages), B6 in every layer
+    of every decode tick; then the contiguous backend on the same
+    requests."""
+    import numpy as np
+    cfg = S.get_config(SERVE_ARCH)
+    params = S.models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = sum(t.numel() for t in S.tree_leaves(params))
+    reqs = S.synthetic_workload(0, SERVE_REQUESTS, vocab=cfg.vocab_size,
+                                **SERVE_WORKLOAD)
+    spec = S.PageSpec(**SERVE_SPEC)
+    want_log = S.run_serve_loop(reqs, spec, _StubHooks(),
+                                prefill_chunk=SERVE_CHUNK)
+    n_layers = cfg.n_layers
+    runs = {}
+    # the recorded run comes first and warms the card up (cuBLAS handles
+    # and heuristics); the timed run has nothing else in it, the profiled
+    # one runs the first PROFILE_TICKS decode ticks with every slot busy
+    # under torch.profiler
+    full = [i for i, e in enumerate(x for x in want_log if x[0] == "decode")
+            if len(e[2]) == spec.n_slots][:PROFILE_TICKS]
+    for leg, kw in (("paged_recorded", {"record": True}),
+                    ("paged", {}),
+                    ("paged_profiled", {"profile_ticks": set(full)}),
+                    ("contig", {"backend": "contig", "record": True})):
+        r = serve_run(S, cfg, params, reqs, **kw)
+        calls = r["stats"]["decode_calls"]
+        if r["log"] != want_log:
+            raise AssertionError(f"{leg}: the engine's schedule differs from "
+                                 "run_serve_loop's with stub hooks")
+        want_b6 = n_layers * calls if kw.get("backend", "paged") == "paged" \
+            else 0
+        if r["b6"] != want_b6 or r["plain"] or \
+                r["launches"]["flash_decode"]["f32"] + \
+                r["launches"]["flash_decode"]["bf16"]:
+            raise AssertionError(f"{leg}: launches {r['launches']}, plain "
+                                 f"runs {r['plain']}: expected {want_b6} "
+                                 "flash_decode_paged launches "
+                                 f"({n_layers} layers x {calls} decode "
+                                 "calls) and nothing else")
+        for rec, q in zip(r["recs"], sorted(reqs, key=lambda x: x.rid)):
+            if len(rec.tokens) != q.max_new or not all(
+                    0 <= t < cfg.vocab_size for t in rec.tokens):
+                raise AssertionError(f"{leg} rid {rec.rid}: tokens "
+                                     f"{rec.tokens} (max_new {q.max_new})")
+            if kw.get("record") and not all(
+                    np.isfinite(lg).all() for lg in rec.logits):
+                raise AssertionError(f"{leg} rid {rec.rid}: non-finite "
+                                     "logits")
+        runs[leg] = r
+    main = runs["paged"]
+    recs = main["recs"]
+    n_tok = sum(len(x.tokens) for x in recs)
+    ticks = main["ticks"]
+    prof = _profile_share(runs["paged_profiled"]["ticks"]["profiled"],
+                          ticks)
+    out = {"arch": SERVE_ARCH, "params": n_params,
+           "pool_bytes": spec.pool_bytes(cfg), "requests": len(reqs),
+           "generated_tokens": n_tok, "wall_s": main["wall_s"],
+           "tok_per_s": n_tok / main["wall_s"],
+           "mean_ttft_s": float(np.mean([x.ttft_s for x in recs])),
+           "mean_tpot_s": float(np.mean([x.tpot_s for x in recs])),
+           "decode_calls": main["stats"]["decode_calls"],
+           "prefill_calls": main["stats"]["prefill_calls"],
+           "ms_per_decode_tick": 1e3 * float(np.mean(ticks["tick_s"])),
+           "ms_per_decode_tick_8_rows": 1e3 * float(np.mean(
+               [t for t, m in zip(ticks["tick_s"], ticks["rows"])
+                if m == SERVE_SPEC["n_slots"]] or [float("nan")])),
+           "b6_launches": main["b6"], "profile": prof,
+           "peak_bytes": main["peak"],
+           "compile_log": [list(k) for k in main["compile_log"]]}
+    agree = [a == b for ra, rc in zip(runs["paged_recorded"]["recs"],
+                                      runs["contig"]["recs"])
+             for a, b in zip(ra.tokens, rc.tokens)]
+    repeat = [ra.tokens == rb.tokens for ra, rb in
+              zip(recs, runs["paged_recorded"]["recs"])]
+    out.update(contig_wall_s=runs["contig"]["wall_s"],
+               contig_tok_per_s=n_tok / runs["contig"]["wall_s"],
+               paged_contig_token_agreement=sum(agree) / len(agree),
+               paged_repeats_itself=all(repeat))
+    log(f"serving main path: {SERVE_ARCH} full width ({n_params / 1e9:.2f} B "
+        f"params, bf16), {len(reqs)} requests, {n_tok} tokens in "
+        f"{out['wall_s']:.2f} s: {out['tok_per_s']:.1f} tok/s, mean TTFT "
+        f"{out['mean_ttft_s'] * 1e3:.1f} ms, mean TPOT "
+        f"{out['mean_tpot_s'] * 1e3:.2f} ms; {out['decode_calls']} decode "
+        f"ticks ({out['ms_per_decode_tick']:.2f} ms each, "
+        f"{out['ms_per_decode_tick_8_rows']:.2f} ms at 8 rows), "
+        f"{out['prefill_calls']} prefill calls; {main['b6']} B6 launches "
+        f"= {n_layers} x {out['decode_calls']}; peak "
+        f"{main['peak'] / 2**30:.2f} GiB")
+    log(f"  profiled decode ticks {full} (rows {prof['rows']}): "
+        f"{prof['ms_per_tick']:.2f} ms/tick under the "
+        f"profiler, {prof['unprofiled_ms_per_tick']:.2f} ms in the timed run; "
+        f"device busy {prof['device_busy_ms_per_tick']:.2f} ms/tick (idle "
+        f"{prof['device_idle_share_unprofiled']:.0%} of the timed tick), B6 "
+        f"{prof['b6_ms_per_tick']:.3f} ms/tick "
+        f"({prof['b6_share_of_tick']:.1%} of the tick, "
+        f"{prof['b6_share_of_device']:.1%} of device time)")
+    for k in prof["top_kernels"]:
+        log(f"    {k['ms_per_tick']:7.3f} ms/tick {k['share']:6.1%}  "
+            f"{k['name']}")
+    log(f"  contiguous backend (plain attention) on the same requests: "
+        f"{out['contig_tok_per_s']:.1f} tok/s; tokens agreeing with the "
+        f"paged run {out['paged_contig_token_agreement']:.1%}; paged run "
+        f"repeats itself: {out['paged_repeats_itself']}")
+    path = {k: dict(v) for k, v in main["launches"].items()}
+    del runs, params, main
+    torch.cuda.empty_cache()
+    return out, path
+
+
+def serve_parity_phase(S):
+    """Phase 13: the reduced gemma3-4b (uniform window 16) and phi3-mini
+    in f32 on the card against the CPU port, on the churn workload:
+    greedy tokens identical, logits within SERVE_PARITY_BAND; then on the
+    card spec_k=3 and prefix sharing token-identical to one-token
+    decode."""
+    import numpy as np
+    out = {}
+    spec = S.PageSpec(page_len=16, pages_per_slot=4, n_slots=2)
+    threads = torch.get_num_threads()
+    for arch in ("gemma3-4b", "phi3-mini-3.8b"):
+        cfg = S.reduced(S.get_config(arch))
+        p_cpu = S.models.init_params(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+        p_card = S.tree_map(lambda t: t.cuda(), p_cpu)
+        reqs = S.synthetic_workload(1, 8, vocab=cfg.vocab_size,
+                                    prompt_lens=(3, 20), gen_short=(3, 8),
+                                    gen_long=(12, 20), p_long=0.3)
+        torch.backends.cuda.matmul.allow_tf32 = True    # the engine turns
+        S.FD.reset_counts()                             # it off itself
+        card = S.ServeEngine(cfg, p_card, spec=spec, prefill_chunk=8,
+                             record_logits=True)
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("the serving engine left TF32 on")
+        rc = card.serve(reqs)
+        b6 = S.FD.launch_count("flash_decode_paged")
+        if b6 != cfg.n_layers * card.stats["decode_calls"] or \
+                S.FD.plain_count():
+            raise AssertionError(f"{arch} reduced: {b6} B6 launches for "
+                                 f"{card.stats['decode_calls']} decode calls")
+        torch.set_num_threads(1)
+        try:
+            cpu = S.ServeEngine(cfg, p_cpu, spec=spec, prefill_chunk=8,
+                                record_logits=True, device="cpu")
+            rp = cpu.serve(reqs)
+        finally:
+            torch.set_num_threads(threads)
+        same = all(a.tokens == b.tokens for a, b in zip(rc, rp))
+        gap = max(float(np.abs(x - y).max()) for a, b in zip(rc, rp)
+                  for x, y in zip(a.logits, b.logits))
+        margin = min(float(np.diff(np.sort(y)[-2:])[0]) for b in rp
+                     for y in b.logits)
+        log(f"serve parity {arch} reduced (f32, window "
+            f"{cfg.attn_window}), card vs CPU: tokens identical {same}, "
+            f"logit gap {gap:.3g} (band {SERVE_PARITY_BAND:g}), smallest "
+            f"top-2 margin {margin:.3g}; {b6} B6 launches")
+        if not same or gap > SERVE_PARITY_BAND or card.log != cpu.log:
+            raise AssertionError(f"{arch} reduced: the card and the CPU "
+                                 "port disagree")
+        # speculative decode and prefix sharing on the card
+        sspec = S.PageSpec(page_len=8, pages_per_slot=10, n_slots=2)
+        rep = S.repetitive_workload(3, 6, vocab=cfg.vocab_size, prompt_len=12,
+                                    gen=(8, 14))
+        toks = lambda recs: {r.rid: tuple(r.tokens) for r in recs}
+        base = S.ServeEngine(cfg, p_card, spec=sspec, prefill_chunk=8,
+                             record_logits=True)
+        t0 = toks(base.serve(rep))
+        fast = S.ServeEngine(cfg, p_card, spec=sspec, prefill_chunk=8,
+                             spec_k=3)
+        t1 = toks(fast.serve(rep))
+        pspec = S.PageSpec(page_len=8, pages_per_slot=10, n_slots=4)
+        shared = S.shared_prefix_workload(1, 6, vocab=cfg.vocab_size,
+                                          prefix_len=24, suffix_len=6,
+                                          gen=(10, 14), p_dup=0.5,
+                                          arrival_gap=2)
+        plain = S.ServeEngine(cfg, p_card, spec=pspec, prefill_chunk=8)
+        share = S.ServeEngine(cfg, p_card, spec=pspec, prefill_chunk=8,
+                              prefix_share=True)
+        t2, t3 = toks(plain.serve(shared)), toks(share.serve(shared))
+        base_margin = min(float(np.diff(np.sort(y)[-2:])[0])
+                          for r in base.records.values() for y in r.logits)
+        log(f"  on the card: spec_k=3 identical to one-token decode "
+            f"{t0 == t1} (accept rate {fast.accept_rate:.3f}, "
+            f"{fast.stats['spec_dispatches']} verify ticks; smallest top-2 "
+            f"margin of the one-token run {base_margin:.3g}); prefix "
+            f"sharing identical {t2 == t3} (skipped "
+            f"{share.prefill_skip_frac:.1%} of prompt tokens, "
+            f"{share.stats['cow_copies']} COW copies)")
+        if t0 != t1 or t2 != t3 or fast.stats["spec_dispatches"] == 0 or \
+                share.stats["cow_copies"] == 0:
+            raise AssertionError(f"{arch} reduced on the card: speculative "
+                                 "decode or prefix sharing changed the "
+                                 "tokens")
+        out[arch] = {"tokens_identical": same, "logit_gap": gap,
+                     "min_margin": margin, "b6_launches": b6,
+                     "spec_accept_rate": fast.accept_rate,
+                     "spec_margin": base_margin,
+                     "prefix_skip_frac": share.prefill_skip_frac}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -875,7 +1424,37 @@ def main() -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "variants": recs})
+    # 11. B5 and B6 against their plain versions, and their times
+    from repro_torch import serve as serve_pkg
+    from repro_torch.configs import reduced
+    from repro_torch.kernels import flash_decode as FD
+    fd_recs = fd_kernel_phase(FD, rate)
+    log(f"[{time.perf_counter() - t_start:.0f} s] B5/B6 checked")
+
+    # 12. the serving main path at full width, then 13. card vs CPU
+    S = SimpleNamespace(FD=FD, models=models, get_config=get_config,
+                        reduced=reduced, tree_leaves=tree_leaves,
+                        tree_map=tree_map, **{n: getattr(serve_pkg, n)
+                                              for n in serve_pkg.__all__})
+    report["serving"], serve_launches = serving_phase(S)
+    log(f"[{time.perf_counter() - t_start:.0f} s] serving main path done")
+    report["serve_parity"] = serve_parity_phase(S)
+    for kernel, fn_line in FD_INFO.items():
+        recs = fd_recs[kernel]
+        # the main path's form: phi3 geometry, bf16 q, f32 cache, window 0
+        main = next(r for r in recs if r["shape"] == SERVE_ARCH and
+                    r["q"] == "bfloat16" and r["cache"] == "float32" and
+                    "ms" in r)
+        launches = sum(serve_launches[kernel].values())
+        line.append({
+            "name": kernel, "route": "cuda", "source": FD_CSRC,
+            "replaces": f"{FD_REFERENCE}:{fn_line}", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "variants": recs})
     report["kernels"] = line
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

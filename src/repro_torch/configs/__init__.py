@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-Only ``cifar-resnet18`` is ported so far; the LM architectures wait for
-the LM slice (ROADMAP A12)."""
+The port knows ``cifar-resnet18`` (the training slices) and the two
+attention-only LMs of the serving slice, ``phi3-mini-3.8b`` and
+``gemma3-4b``; the other LM configs wait for the LM slice (ROADMAP A12)."""
 from __future__ import annotations
 
 import importlib
@@ -9,18 +10,22 @@ import importlib
 from repro_torch.configs.base import InputShape, ModelConfig, TrainConfig, reduced
 
 _MODULES = {
+    "phi3-mini-3.8b": "phi3_mini_3p8b",
+    "gemma3-4b": "gemma3_4b",
     "cifar-resnet18": "cifar_resnet18",
 }
+
+ARCH_IDS = tuple(k for k in _MODULES if k != "cifar-resnet18")
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; the port knows "
-                       f"{sorted(_MODULES)} (the LM configs wait for "
+                       f"{sorted(_MODULES)} (the other LM configs wait for "
                        "ROADMAP A12)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 
 
-__all__ = ["get_config", "reduced", "ModelConfig", "TrainConfig",
+__all__ = ["ARCH_IDS", "get_config", "reduced", "ModelConfig", "TrainConfig",
            "InputShape"]

@@ -19,6 +19,8 @@ def tensor_from_numpy(arr, device=None) -> torch.Tensor:
     means the card), bits unchanged."""
     device = resolve_device(device)
     arr = np.asarray(arr)
+    if not arr.flags.writeable:           # e.g. a view of a JAX buffer
+        arr = arr.copy()
     if arr.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))
         return bits.view(torch.bfloat16).to(device)
@@ -39,3 +41,37 @@ def params_from_numpy(tree, device=None):
     the same tree of tensors on ``device`` (``None`` means the card)."""
     device = resolve_device(device)
     return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+
+
+def params_to_numpy(tree):
+    """A tree of tensors -> the same tree of numpy arrays with exact
+    dtypes, for the JAX package: bf16 leaves come back as ``ml_dtypes``'
+    bfloat16 (the type JAX hands numpy), bit for bit."""
+    def one(t):
+        a = tensor_to_numpy(t)
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes              # present wherever JAX is
+            a = a.view(ml_dtypes.bfloat16)
+        return a
+    return tree_map(one, tree)
+
+
+def lm_params_from_numpy(tree, cfg, device=None):
+    """The JAX package's LM parameters (``init_params`` of
+    ``repro.models.transformer``, as a numpy tree) -> the port's tree on
+    ``device`` (``None`` means the card).  The two trees share key paths
+    and the stacked ``(count, ...)`` segment layout, so the mapping is
+    leaf for leaf; this checks that the segments stack ``layout(cfg)``."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.transformer import layout
+    segs = layout(cfg)
+    if len(tree["segments"]) != len(segs):
+        raise ValueError(f"{len(tree['segments'])} segments for {cfg.name}, "
+                         f"whose layout has {len(segs)}")
+    for seg, sp in zip(segs, tree["segments"]):
+        for leaf in tree_leaves(sp):
+            if np.shape(leaf)[0] != seg.count:
+                raise ValueError(f"a {seg.kind} segment of {seg.count} "
+                                 f"layers holds a leaf of shape "
+                                 f"{np.shape(leaf)}")
+    return params_from_numpy(tree, device)

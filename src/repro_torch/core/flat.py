@@ -51,6 +51,21 @@ def _sublane(store_dtype) -> int:
     return SUBLANE_BF16 if store_dtype.itemsize == 2 else SUBLANE
 
 
+def sublane_for(store_dtype) -> int:
+    """Public form of the sublane-tile rule: the row-padding granularity a
+    ``(rows, LANE)`` buffer of ``store_dtype`` respects (8 rows for f32,
+    16 for 2-byte dtypes).  The KV page pool (``serve.paged``) sizes its
+    pages off the same rule, as the reference does."""
+    return _sublane(store_dtype)
+
+
+def padded_len(n: int, store_dtype=torch.float32) -> int:
+    """``n`` rounded up to the sublane tile of ``store_dtype`` (the 1D
+    analogue of ``padded_rows``)."""
+    sub = _sublane(store_dtype)
+    return -(-max(int(n), 1) // sub) * sub
+
+
 def padded_rows(n: int, store_dtype=torch.float32) -> int:
     """Rows of the (rows, LANE) buffer holding ``n`` elements: lane- and
     sublane-aligned (8 rows for f32, 16 for 2-byte dtypes), and

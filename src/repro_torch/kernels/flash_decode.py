@@ -1,0 +1,275 @@
+"""One-query decode attention over a KV cache (the serving hot spot).
+
+Two kernels, hand-written in CUDA for Hopper (``csrc/flash_decode.cu``),
+replace the reference's Pallas TPU kernels:
+
+  * ``flash_decode`` (B5) — q ``(B, H, 1, hd)`` over a contiguous cache
+    ``(B, KV, S, hd)`` and one position ``pos``;
+  * ``flash_decode_paged`` (B6) — q ``(S, H, 1, hd)`` over a page pool
+    ``(P, page_len, KV, hd)`` through a page table ``(S, PP)`` and
+    per-row ``lengths`` ``(S,)``: the paged serve step's decode attention.
+
+Both attend to the keys ``j <= pos`` (and ``j > pos - window`` when
+``window > 0``), with the KV head ``h // n_rep`` (GQA), softmax in f32,
+the output in q's dtype.  Page ids are clamped to ``[0, P - 1]`` before
+they are read, as the JAX gather of the reference's CPU path clamps them:
+the serving engine fills unowned table entries with the sentinel ``P``.
+
+For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
+tensor — and only then — it runs the plain PyTorch version
+(``paged_decode_ref`` / ``_xla_decode``), which the kernel matches within
+a tolerance (the softmax's order and ``exp`` differ).  ``launch_count``
+counts kernel launches, ``plain_count`` runs of the plain versions;
+``KERNEL_VARIANTS`` maps each kernel to its variants, named by the cache
+dtype (``f32``, ``bf16``).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels.ref import NEG_INF, flash_decode_ref
+
+KERNEL_VARIANTS = {"flash_decode": ("f32", "bf16"),
+                   "flash_decode_paged": ("f32", "bf16")}
+
+_LAUNCHES: Dict[str, Dict[str, int]] = {
+    k: dict.fromkeys(vs, 0) for k, vs in KERNEL_VARIANTS.items()}
+_PLAIN_RUNS: Dict[str, Dict[str, int]] = {
+    k: dict.fromkeys(vs, 0) for k, vs in KERNEL_VARIANTS.items()}
+
+_FLOATS = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 256
+
+
+def launch_count(kernel: Optional[str] = None,
+                 variant: Optional[str] = None) -> int:
+    """CUDA kernel launches so far (all kernels, one kernel, or one
+    variant of it)."""
+    return _count(_LAUNCHES, kernel, variant)
+
+
+def plain_count(kernel: Optional[str] = None,
+                variant: Optional[str] = None) -> int:
+    """Runs of the plain PyTorch versions (CPU tensors) so far."""
+    return _count(_PLAIN_RUNS, kernel, variant)
+
+
+def reset_counts() -> None:
+    for table in (_LAUNCHES, _PLAIN_RUNS):
+        for per in table.values():
+            for v in per:
+                per[v] = 0
+
+
+def _count(table, kernel, variant) -> int:
+    kernels = KERNEL_VARIANTS if kernel is None else (kernel,)
+    return sum(table[k][v] for k in kernels
+               for v in (KERNEL_VARIANTS[k] if variant is None
+                         else (variant,)))
+
+
+def resolve_impl(impl: str, device) -> str:
+    """``"auto"`` -> ``"cuda"`` (the kernel) for a CUDA device, ``"plain"``
+    (the PyTorch version) for the CPU — the wrappers' own rule, which the
+    serve step reads to decide whether the kernel takes a decode tick.
+    An explicit ``"cuda"`` or ``"plain"`` is returned when the device can
+    run it, and refused otherwise."""
+    dev = torch.device(device).type
+    if impl == "auto":
+        return "cuda" if dev == "cuda" else "plain"
+    if (impl, dev) in (("cuda", "cuda"), ("plain", "cpu")):
+        return impl
+    raise ValueError(f"impl {impl!r} cannot run on {dev}: the kernel needs "
+                     "CUDA tensors, the plain version runs for CPU tensors")
+
+
+# -- plain PyTorch versions --------------------------------------------------
+def _xla_decode(q, k_cache, v_cache, pos, *, window: int = 0):
+    """Plain form of ``flash_decode`` (the reference's XLA form; the same
+    math as ``ref.flash_decode_ref``)."""
+    return flash_decode_ref(q, k_cache, v_cache, pos, window=window)
+
+
+def paged_decode_ref(q, k_pages, v_pages, page_table, lengths, *,
+                     window: int = 0):
+    """Plain form of ``flash_decode_paged``: gather each row's pages into
+    logical order (page ids clamped to the pool, as JAX's gather clamps),
+    then the contiguous decode attention with per-row lengths."""
+    ns, h, _, hd = q.shape
+    n_pages, page_len, kvh = k_pages.shape[:3]
+    pp = page_table.shape[1]
+    s = pp * page_len
+    tbl = page_table.long().clamp(0, n_pages - 1)
+    k = k_pages[tbl].reshape(ns, s, kvh, hd)
+    v = v_pages[tbl].reshape(ns, s, kvh, hd)
+    n_rep = h // kvh
+    k = torch.repeat_interleave(k.transpose(1, 2), n_rep, dim=1)  # (S,H,s,hd)
+    v = torch.repeat_interleave(v.transpose(1, 2), n_rep, dim=1)
+    sc = torch.einsum("bhqd,bhsd->bhqs", q.float(), k.float()) * hd ** -0.5
+    idx = torch.arange(s, device=q.device)
+    lens = lengths.long()
+    valid = idx[None, :] <= lens[:, None]                         # (S, s)
+    if window > 0:
+        valid = torch.logical_and(valid,
+                                  idx[None, :] > lens[:, None] - window)
+    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhqs,bhsd->bhqd", p, v.float()).to(q.dtype)
+
+
+# -- checks and the library ---------------------------------------------------
+def _check_qkv(name, q, k, v, n_kv_heads: int):
+    if q.dim() != 4 or q.shape[2] != 1:
+        raise ValueError(f"{name}: q must be (rows, H, 1, hd), got "
+                         f"{tuple(q.shape)}")
+    h, hd = q.shape[1], q.shape[3]
+    if k.shape != v.shape or k.dtype != v.dtype:
+        raise ValueError(f"{name}: k {tuple(k.shape)} {k.dtype} and v "
+                         f"{tuple(v.shape)} {v.dtype} differ")
+    if q.dtype not in _FLOATS or k.dtype not in _FLOATS:
+        raise ValueError(f"{name}: q and the cache must be float32 or "
+                         f"bfloat16, got {q.dtype} / {k.dtype}")
+    if k.shape[-1] != hd:
+        raise ValueError(f"{name}: head dim {k.shape[-1]} != q's {hd}")
+    if n_kv_heads < 1 or h % n_kv_heads:
+        raise ValueError(f"{name}: {h} query heads over {n_kv_heads} KV "
+                         "heads")
+    if hd % 32 or not 32 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {hd} is not a multiple of 32 "
+                         f"up to {MAX_HEAD_DIM}")
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
+
+
+def _variant(cache: torch.Tensor) -> str:
+    return "bf16" if cache.dtype == torch.bfloat16 else "f32"
+
+
+def _contiguous(name, *ts):
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel reads contiguous tensors; "
+                             f"got strides {t.stride()} for shape "
+                             f"{tuple(t.shape)}")
+
+
+def _lib():
+    from repro_torch.kernels._build import library
+    lib = library("flash_decode")
+    if not getattr(lib, "_repro_bound", False):
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.repro_flash_decode.argtypes = [vp, vp, vp, vp] + [i32] * 7 + [
+            f32, i32, i32, vp]
+        lib.repro_flash_decode.restype = ctypes.c_int
+        lib.repro_flash_decode_paged.argtypes = [vp] * 6 + [i32] * 8 + [
+            f32, i32, i32, vp]
+        lib.repro_flash_decode_paged.restype = ctypes.c_int
+        lib._repro_bound = True
+    return lib
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _is_bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+# -- wrappers ----------------------------------------------------------------
+def flash_decode(q, k_cache, v_cache, pos: int, *, window: int = 0):
+    """q: (B, H, 1, hd); k_cache/v_cache: (B, KV, S, hd); ``pos``: host
+    int, the index of the newest token (keys ``0..pos`` attend, within the
+    last ``window`` when ``window > 0``).  Returns (B, H, 1, hd) in q's
+    dtype (B5).  ``pos`` must be ``>= 0``."""
+    name = "flash_decode"
+    _check_qkv(name, q, k_cache, v_cache, k_cache.shape[1])
+    if k_cache.dim() != 4 or k_cache.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: caches must be (B, KV, S, hd) with q's "
+                         f"B, got {tuple(k_cache.shape)}")
+    if isinstance(pos, torch.Tensor) or int(pos) != pos or pos < 0:
+        raise ValueError(f"{name}: pos must be a host int >= 0, got {pos!r}")
+    pos, window = int(pos), int(window)
+    variant = _variant(k_cache)
+    if q.device.type == "cpu":
+        _PLAIN_RUNS[name][variant] += 1
+        return _xla_decode(q, k_cache, v_cache, pos, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for {q.device}")
+    _contiguous(name, q, k_cache, v_cache)
+    b, h, _, hd = q.shape
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().repro_flash_decode(
+            _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out), b, h, kvh, s,
+            hd, pos, window, hd ** -0.5, _is_bf16(q), _is_bf16(k_cache),
+            ctypes.c_void_p(stream))
+    _raise_on(err, name)
+    _LAUNCHES[name][variant] += 1
+    return out
+
+
+def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
+                       window: int = 0):
+    """Paged decode attention (B6): one query token per row over a
+    block-paged KV pool, each key read straight from its pool page through
+    the page table — no gather materializes.
+
+    q:          (S, H, 1, hd)         one new token per serving row
+    k/v_pages:  (P, page_len, KV, hd) the page pool (one layer's pages)
+    page_table: (S, PP) int32         pool page id of each logical page
+                                      (ids past the pool read page P - 1)
+    lengths:    (S,) int32            per-row position of the newest token
+                                      (mask: logical index <= lengths[s]),
+                                      within ``[0, PP * page_len)``
+
+    Returns (S, H, 1, hd) in q's dtype."""
+    name = "flash_decode_paged"
+    _check_qkv(name, q, k_pages, v_pages, k_pages.shape[2])
+    ns = q.shape[0]
+    if k_pages.dim() != 4:
+        raise ValueError(f"{name}: pages must be (P, page_len, KV, hd), got "
+                         f"{tuple(k_pages.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != ns \
+            or tuple(lengths.shape) != (ns,):
+        raise ValueError(f"{name}: table {tuple(page_table.shape)} and "
+                         f"lengths {tuple(lengths.shape)} must be "
+                         f"({ns}, PP) and ({ns},)")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError(f"{name}: table and lengths must be int32")
+    for t in (page_table, lengths):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
+    window = int(window)
+    variant = _variant(k_pages)
+    if q.device.type == "cpu":
+        _PLAIN_RUNS[name][variant] += 1
+        return paged_decode_ref(q, k_pages, v_pages, page_table, lengths,
+                                window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for {q.device}")
+    _contiguous(name, q, k_pages, v_pages, page_table, lengths)
+    h, hd = q.shape[1], q.shape[3]
+    n_pages, page_len, kvh = k_pages.shape[:3]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().repro_flash_decode_paged(
+            _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),
+            _ptr(lengths), _ptr(out), ns, h, kvh, hd, page_len,
+            page_table.shape[1], n_pages, window, hd ** -0.5, _is_bf16(q),
+            _is_bf16(k_pages), ctypes.c_void_p(stream))
+    _raise_on(err, name)
+    _LAUNCHES[name][variant] += 1
+    return out

@@ -79,14 +79,21 @@ def _entry_points():
     import numpy as np
 
     from repro_torch import convert, models
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced
     from repro_torch.core.flat import flat_spec
-    from repro_torch.models import resnet
+    from repro_torch.models import resnet, transformer
+    from repro_torch.serve import ServeEngine
     cfg = get_config("cifar-resnet18")
+    lm = reduced(get_config("phi3-mini-3.8b"), layers=1, d_model=64,
+                 vocab=32)
     gen = torch.Generator().manual_seed(0)
     arr = np.zeros((2, 3), np.float32)
     spec = flat_spec({"w": torch.zeros(3, 5)})
     return {
+        "transformer.init_params": lambda d: transformer.init_params(
+            lm, gen, device=d),
+        "ServeEngine": lambda d: ServeEngine(
+            lm, transformer.init_params(lm, gen, device="cpu"), device=d),
         "models.init_params": lambda d: models.init_params(cfg, gen,
                                                            device=d),
         "resnet.init_params": lambda d: resnet.init_params(cfg, gen,
