@@ -68,13 +68,37 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 13. serving parity: reduced gemma3-4b (window 16) and phi3-mini in f32 on
     the card against the CPU port on the churn workload, tokens identical
     and logits within ``SERVE_PARITY_BAND``; on the card, speculative
-    decode (k = 3) and prefix sharing token-identical to one-token decode.
+    decode (k = 3) and prefix sharing token-identical to one-token decode;
+14. attention and scan kernels: ``flash_attention`` (B4),
+    ``mamba_ssd_scan`` (B7) and ``wkv6_chunked`` (B8) against their plain
+    versions (``PF_F32_TOL``; bf16 outputs one bf16 ulp more) in f32 and
+    bf16 at the model geometries of
+    ``FA_SHAPES`` / ``SSD_SHAPES`` / ``WKV_SHAPES`` (zamba2-2.7b's shared
+    attention and SSD, phi3-mini-3.8b's and gemma3-4b's attention,
+    rwkv6-7b's WKV, all at 2 x 2048 tokens) and the reduced, ragged and
+    sweep shapes of the CPU tests; each timed at its model geometries
+    beside its plain version, its library call (SDPA for B4; none for B7
+    and B8) and its bound (f32 operations over 67 TFLOP/s or bytes over the
+    memory rate, the larger; the bf16 tensor-core time beside it);
+15. prefill main path: ``launch.steps.make_prefill_step`` at full width in
+    bf16 (weights from a seeded generator on the card) on 2 x 2048 random
+    tokens, zamba2-2.7b (45 B7 and 9 B4 launches a forward) then
+    rwkv6-7b (32 B8), no plain runs, finite (2, vocab) logits; ms per
+    prefill, tokens/s, a profile of one prefill (device idle share, top
+    kernels, B4 / B7 / B8 shares) and peak memory;
+16. prefill parity: reduced f32 zamba2-2.7b (6 layers), rwkv6-7b,
+    gemma3-4b (window 16) and phi3-mini-3.8b on the card (B4 / B7 / B8)
+    against the CPU port (the reference's scans), within
+    ``PREFILL_PARITY_BAND``;
+17. ``kernels/ops.py``: each front end once on the card, one launch of its
+    kernel, against the plain version.
 
 The launch counts are set to 0 just before each path and read just after;
 the ``launches`` in the kernels line are those counts, summed over the
 main path and the short runs (for B5 and B6, the paged serving main
-path's timed run; B5 has no caller on that path, so its count is 0).  Launches made to compare a kernel with its
-plain version are not counted.
+path's timed run; B5 has no caller on that path, so its count is 0; for
+B4, B7 and B8, one forward of each model of phase 15).  Launches made to
+compare a kernel with its plain version are not counted.
 The last three lines of standard output are the card's name and power
 limit (as ``nvidia-smi`` gives them), one JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -1089,6 +1113,431 @@ def serve_parity_phase(S):
     return out
 
 
+# ------------------------------ phases 14-17: prefill -------------------------
+PF_REFERENCE = {"flash_attention": ("src/repro/kernels/flash_attention.py", 83),
+                "mamba_ssd_scan": ("src/repro/kernels/mamba_scan.py", 63),
+                "wkv6_chunked": ("src/repro/kernels/wkv6.py", 46)}
+PF_CSRC = {"flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "mamba_ssd_scan": "src/repro_torch/csrc/mamba_scan.cu",
+           "wkv6_chunked": "src/repro_torch/csrc/wkv6.cu"}
+BF16_RATE = 989e12               # dense bf16 tensor-core rate, for reference
+# the labels of the model geometries, at which the kernels are timed
+PF_MODELS = ("zamba2-2.7b", "phi3-mini-3.8b", "gemma3-4b", "rwkv6-7b")
+# B4: (label, B, H, KV, Sq, Sk, hd, causal, windows) — the model geometries
+# at the prefill main path's 2 x 2048 tokens (zamba2-2.7b's shared
+# attention, phi3-mini-3.8b, gemma3-4b's local and global layers), then
+# the shapes of the CPU tests: a ragged S with hd 64 and 80, the sweep of
+# the reference's tests, and non-causal (cross-attention) ones
+FA_SHAPES = (("zamba2-2.7b", 2, 32, 32, 2048, 2048, 80, True, (0,)),
+             ("phi3-mini-3.8b", 2, 32, 32, 2048, 2048, 96, True, (0,)),
+             ("gemma3-4b", 2, 8, 4, 2048, 2048, 256, True, (1024, 0)),
+             ("reduced-ragged", 2, 4, 2, 45, 45, 64, True, (16, 0)),
+             ("hd80-ragged", 1, 4, 2, 100, 100, 80, True, (0, 32)),
+             ("sweep-gqa8", 2, 8, 1, 256, 256, 128, True, (0, 64)),
+             ("sweep-hd32", 1, 4, 4, 128, 128, 32, True, (0,)),
+             ("noncausal", 1, 2, 2, 128, 128, 64, False, (0,)),
+             ("cross", 2, 4, 2, 50, 77, 64, False, (0,)))
+# B7: (label, Bt, H, S, P, N) — zamba2-2.7b's SSD at 2 x 2048 tokens (80
+# heads of 64, state 64, chunk 256), the reduced zamba2 of the CPU tests at
+# a ragged S, and the reference's sweep
+SSD_SHAPES = (("zamba2-2.7b", 2, 80, 2048, 64, 64),
+              ("reduced-ragged", 2, 16, 45, 32, 16),
+              ("sweep-1", 2, 3, 256, 64, 16), ("sweep-2", 1, 2, 128, 32, 64),
+              ("sweep-3", 2, 1, 192, 64, 32), ("sweep-4", 1, 4, 64, 128, 8))
+# B8: (label, B, H, S, K, V) — rwkv6-7b's WKV at 2 x 2048 tokens, the
+# reduced rwkv6 at a ragged S, and the reference's sweep
+WKV_SHAPES = (("rwkv6-7b", 2, 64, 2048, 64, 64),
+              ("reduced-ragged", 2, 4, 45, 64, 64),
+              ("sweep-1", 2, 2, 128, 32, 32), ("sweep-2", 1, 3, 96, 64, 64),
+              ("sweep-3", 1, 1, 64, 128, 64))
+# kernel against plain, elementwise.  f32: |kernel - plain| <= tol·(1 +
+# |plain|) with tol 2e-5, x5 for the SSD scan (the reference's own tests'
+# atol = rtol): the two sum in other orders, with fused multiply-adds in
+# the kernels.  bf16: both compute in f32 from the same bf16 inputs and
+# round once at the store, so the f32 results lie within that tolerance
+# and each rounding moves a value by at most half a bf16 ulp: the f32
+# tolerance plus one bf16 ulp of the larger of |kernel| and |plain|.
+PF_F32_TOL = 2e-5
+PF_TOL_SCALE = {"flash_attention": 1.0, "mamba_ssd_scan": 5.0,
+                "wkv6_chunked": 1.0}
+# the prefill main path: 2 prompts of 2048 random tokens, bf16, full width
+PREFILL_ARCHS = ("zamba2-2.7b", "rwkv6-7b")
+PREFILL_BATCH, PREFILL_SEQ = 2, 2048
+PREFILL_TIMED = 3
+# card vs CPU port on the reduced configs in f32 at a ragged S (45 tokens;
+# zamba2 at 6 layers so that its shared block runs), last-position logits
+# of magnitude about 4: the kernels sum in other orders than the CPU's
+# scans (B7 step by step where the CPU runs the chunked form)
+PREFILL_PARITY_ARCHS = (("zamba2-2.7b", 6), ("rwkv6-7b", 2),
+                        ("gemma3-4b", 2), ("phi3-mini-3.8b", 2))
+PREFILL_PARITY_SEQ = 45
+PREFILL_PARITY_BAND = 1e-4
+
+
+def _pf_err(kernel, out, ref):
+    """(max abs diff, worst |diff| / limit): the limit tol·(1 + |plain|),
+    plus one bf16 ulp of the larger magnitude for bf16 outputs."""
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    limit = PF_F32_TOL * PF_TOL_SCALE[kernel] * (1.0 + r.abs())
+    if out.dtype == torch.bfloat16:
+        limit = limit + bf16_ulp(torch.maximum(o.abs(), r.abs()))
+    return float(diff.max()), float((diff / limit).max())
+
+
+def _fa_inputs(shape, dtype, seed):
+    _, b, h, kvh, sq, sk, hd, _, _ = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    return mk(b, h, sq, hd), mk(b, kvh, sk, hd), mk(b, kvh, sk, hd)
+
+
+def _ssd_inputs(shape, dtype, seed):
+    """The reference's test distribution: dt = |N| 0.1 + 0.01, A_log =
+    log(linspace(1, 8)), B and C = 0.3 N, D = 1."""
+    _, bt, h, s, p, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = rn(bt, h, s, p).to(dtype)
+    dt = rn(bt, h, s).abs() * 0.1 + 0.01
+    a_log = torch.log(torch.linspace(1.0, 8.0, h, device="cuda"))
+    B = (rn(bt, s, n) * 0.3).to(dtype)
+    C = (rn(bt, s, n) * 0.3).to(dtype)
+    return x, dt, a_log, B, C, torch.ones(h, device="cuda")
+
+
+def _wkv_inputs(shape, dtype, seed):
+    """The reference's test distribution: r, k, v = 0.5 N, w =
+    sigmoid(N)/2 + 1/2, u = 0.3 N."""
+    _, b, h, s, kd, vd = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    r, k = (rn(b, h, s, kd) * 0.5).to(dtype), (rn(b, h, s, kd) * 0.5).to(dtype)
+    v = (rn(b, h, s, vd) * 0.5).to(dtype)
+    w = (torch.sigmoid(rn(b, h, s, kd)) * 0.5 + 0.5).to(dtype)
+    return r, k, v, w, rn(h, kd) * 0.3
+
+
+def _band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a row-wise mask keeps: the work of B4."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk, window) if window > 0 else min(i + 1, sk)
+               for i in range(sq))
+
+
+def _pf_bound(kernel, args, rate, window=0, causal=True):
+    """(bound ms, bound_by, flops, bytes): each input read once, each
+    output written once; the operations the kernel's algorithm does on
+    these inputs (B4: the causal / window band only)."""
+    if kernel == "flash_attention":
+        q, k, v = args
+        b, h, sq, hd = q.shape
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * hd * b * h * _band_pairs(sq, k.shape[2], causal, window)
+    elif kernel == "mamba_ssd_scan":
+        x, dt, a_log, B, C, D = args
+        bt, h, s, p = x.shape
+        n = B.shape[-1]
+        nbytes = (2 * x.numel() + B.numel() + C.numel()) * x.element_size() \
+            + 4 * (dt.numel() + 2 * h)
+        flops = 5 * p * n * s * bt * h        # decay, update, y = h·C
+    else:
+        r, k, v, w, u = args
+        b, h, s, kd = r.shape
+        nbytes = (3 * r.numel() + 2 * v.numel()) * r.element_size() \
+            + 4 * u.numel()
+        flops = 7 * kd * v.shape[-1] * s * b * h
+    t_bytes, t_ops = nbytes / rate, flops / F32_RATE
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+
+
+def _pf_cases():
+    for shape in FA_SHAPES:
+        for w in shape[-1]:
+            yield "flash_attention", shape, w
+    for shape in SSD_SHAPES:
+        yield "mamba_ssd_scan", shape, None
+    for shape in WKV_SHAPES:
+        yield "wkv6_chunked", shape, None
+
+
+def pf_kernel_phase(P, rate):
+    """Phase 14: B4, B7 and B8 against their plain versions at every shape
+    of FA_SHAPES / SSD_SHAPES / WKV_SHAPES in f32 and bf16, and timed at
+    the model geometries (the first shape of each table; B4 at every model
+    geometry) beside the plain version, the library call and the bound.
+    Returns per-kernel lists of records."""
+    import torch.nn.functional as F
+    out = {k: [] for k in PF_REFERENCE}
+    plain_fns = {"flash_attention": P.FA.flash_attention_plain,
+                 "mamba_ssd_scan": P.SSD.mamba_ssd_plain,
+                 "wkv6_chunked": P.WKV.wkv6_plain}
+    kern_fns = {"flash_attention": P.FA.flash_attention,
+                "mamba_ssd_scan": P.SSD.mamba_ssd_scan,
+                "wkv6_chunked": P.WKV.wkv6_chunked}
+    make = {"flash_attention": _fa_inputs, "mamba_ssd_scan": _ssd_inputs,
+            "wkv6_chunked": _wkv_inputs}
+    for ci, (kernel, shape, w) in enumerate(_pf_cases()):
+        label = shape[0]
+        model = label in PF_MODELS
+        kw = {}
+        if kernel == "flash_attention":
+            kw = {"causal": shape[7], "window": w}
+        for dtype in (torch.float32, torch.bfloat16):
+            args = make[kernel](shape, dtype, seed=1000 + ci)
+            got = kern_fns[kernel](*args, **kw)
+            want = plain_fns[kernel](*args, **kw)
+            torch.cuda.synchronize()
+            err, ratio = _pf_err(kernel, got, want)
+            if not ratio <= 1.0 or not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"{kernel} {label} {dtype} {kw}: kernel differs from its "
+                    f"plain version by {err} ({ratio:.3g} x the tolerance)")
+            rec = {"shape": label, "dtype": str(dtype)[6:], "max_abs_err": err,
+                   "err_over_tol": ratio, **kw}
+            if model:
+                bound_ms, bound_by, flops, nbytes = _pf_bound(
+                    kernel, args, rate, **kw)
+                slow = kernel != "flash_attention"   # per-step plain versions
+                rec.update(
+                    ms=cuda_ms(lambda: kern_fns[kernel](*args, **kw)),
+                    plain_ms=cuda_ms(lambda: plain_fns[kernel](*args, **kw),
+                                     per_group=1 if slow else 3,
+                                     groups=3, warmup=1),
+                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                    bytes=nbytes, bf16_tensor_core_ms=1e3 * flops / BF16_RATE,
+                    library_ms=None)
+                if kernel == "flash_attention":
+                    q, k, v = args
+                    if w > 0:
+                        i = torch.arange(q.shape[2], device="cuda")
+                        d = i[:, None] - i[None, :]
+                        mask = (d >= 0) & (d < w)
+                        lib = lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask, enable_gqa=True)
+                    else:
+                        lib = lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, enable_gqa=True)
+                    rec["library_ms"] = cuda_ms(lib)
+                log(f"    {kernel} {label} {rec['dtype']} {kw or ''}: kernel "
+                    f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
+                    "library " + ("-" if rec["library_ms"] is None
+                                  else f"{rec['library_ms']:.3f} ms")
+                    + f", bound {bound_ms:.3f} ms by {bound_by} "
+                    f"({bound_ms / rec['ms']:.1%}; bf16 tensor cores "
+                    f"{rec['bf16_tensor_core_ms']:.3f} ms), err {err:.3g}")
+            out[kernel].append(rec)
+            del args, got, want
+        torch.cuda.empty_cache()
+    for kernel, recs in out.items():
+        log(f"  {kernel}: {len(recs)} cases within tolerance of the plain "
+            f"version (worst {max(r['err_over_tol'] for r in recs):.3g} x "
+            "the tolerance)")
+    return out
+
+
+def _prefill_profile(prefill, params, tokens):
+    """One prefill under torch.profiler (device activity): device busy ms,
+    the top kernels and the share of B4, B7 and B8."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kern[ev.name] = kern.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    busy = sum(kern.values())
+    share = lambda key: sum(us for n, us in kern.items() if key in n) / busy
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (wall * 1e6),
+            "b4_share": share("attention_kernel"),
+            "b7_share": share("ssd_kernel"), "b8_share": share("wkv6_kernel"),
+            "top_kernels": [{"name": n[:90], "ms": us / 1e3,
+                             "share": us / busy} for n, us in top]}
+
+
+def prefill_phase(P):
+    """Phase 15: ``make_prefill_step`` at full width in bf16 on 2 x 2048
+    random tokens: zamba2-2.7b (45 B7 and 9 B4 launches a forward) and
+    rwkv6-7b (32 B8), no plain runs, finite last-position logits; ms per
+    prefill, tokens/s, a profile of one prefill and peak memory.  Returns
+    (records, launches per kernel of one forward)."""
+    import numpy as np
+    out, launches = {}, {k: 0 for k in PF_REFERENCE}
+    for arch in PREFILL_ARCHS:
+        cfg = P.get_config(arch)
+        segs = P.layout(cfg)
+        want = {"flash_attention": sum(s.count for s in segs
+                                       if s.kind in ("attn", "shared_attn")),
+                "mamba_ssd_scan": sum(s.count for s in segs
+                                      if s.kind == "mamba2"),
+                "wkv6_chunked": sum(s.count for s in segs
+                                    if s.kind == "rwkv6")}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = P.models.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in P.tree_leaves(params))
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in P.tree_leaves(params))
+        tokens = torch.from_numpy(np.random.default_rng(7).integers(
+            0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))).cuda()
+        prefill = P.make_prefill_step(cfg)
+        prefill(params, tokens)                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        P.reset_counts()
+        logits = prefill(params, tokens)
+        torch.cuda.synchronize()
+        got = P.counts()
+        peak = torch.cuda.max_memory_allocated()
+        if got["launches"] != want or got["plain"]:
+            raise AssertionError(f"{arch} prefill: launches "
+                                 f"{got['launches']}, plain runs "
+                                 f"{got['plain']}; expected {want} and none")
+        if tuple(logits.shape) != (PREFILL_BATCH, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{arch} prefill: logits "
+                                 f"{tuple(logits.shape)} finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        for k, n in got["launches"].items():
+            launches[k] += n
+        times = []
+        for _ in range(PREFILL_TIMED):
+            t0 = time.perf_counter()
+            prefill(params, tokens)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = 1e3 * statistics.median(times)
+        prof = _prefill_profile(prefill, params, tokens)
+        n_tok = PREFILL_BATCH * PREFILL_SEQ
+        out[arch] = {"params": n_params, "weight_bytes": weight_bytes,
+                     "init_s": init_s, "tokens": n_tok,
+                     "ms_per_prefill": ms,
+                     "ms_per_prefill_runs": [1e3 * t for t in times],
+                     "tokens_per_s": n_tok / (ms / 1e3),
+                     "launches": got["launches"], "peak_bytes": peak,
+                     "profile": prof}
+        log(f"prefill main path: {arch} full width ({n_params / 1e9:.2f} B "
+            f"params, {weight_bytes / 1e9:.2f} GB bf16), {PREFILL_BATCH} x "
+            f"{PREFILL_SEQ} tokens: {ms:.1f} ms per prefill (runs "
+            f"{[round(1e3 * t, 1) for t in times]}), "
+            f"{out[arch]['tokens_per_s']:.0f} tokens/s; launches "
+            f"{got['launches']}; peak {peak / 2**30:.2f} GiB")
+        log(f"  profiled prefill: {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['device_busy_ms']:.1f} ms (idle "
+            f"{prof['device_idle_share']:.1%}); B4 {prof['b4_share']:.1%}, "
+            f"B7 {prof['b7_share']:.1%}, B8 {prof['b8_share']:.1%} of "
+            "device time")
+        for k in prof["top_kernels"]:
+            log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
+        del params, logits, prefill
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def prefill_parity_phase(P):
+    """Phase 16: reduced f32 models on the card (B4 / B7 / B8) against the
+    CPU port (the XLA-scan ports) on the same params and tokens, within
+    PREFILL_PARITY_BAND."""
+    import numpy as np
+    out = {}
+    threads = torch.get_num_threads()
+    for arch, layers in PREFILL_PARITY_ARCHS:
+        cfg = P.reduced(P.get_config(arch), layers=layers)
+        p_cpu = P.models.init_params(cfg, torch.Generator().manual_seed(3),
+                                     device="cpu")
+        p_card = P.tree_map(lambda t: t.cuda(), p_cpu)
+        tok = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (2, PREFILL_PARITY_SEQ)))
+        prefill = P.make_prefill_step(cfg)
+        torch.backends.cuda.matmul.allow_tf32 = True     # the step turns
+        P.reset_counts()                                 # it off itself
+        card = prefill(p_card, tok.cuda()).cpu()
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("the prefill step left TF32 on")
+        got = P.counts()
+        torch.set_num_threads(1)
+        try:
+            cpu = prefill(p_cpu, tok)
+        finally:
+            torch.set_num_threads(threads)
+        gap = float((card - cpu).abs().max())
+        out[arch] = {"layers": layers, "logit_gap": gap,
+                     "logit_max": float(cpu.abs().max()),
+                     "launches": got["launches"]}
+        log(f"prefill parity {arch} reduced ({layers} layers, f32, S "
+            f"{PREFILL_PARITY_SEQ}), card vs CPU: logit gap {gap:.3g} (band "
+            f"{PREFILL_PARITY_BAND:g}, logits up to "
+            f"{out[arch]['logit_max']:.2f}); launches {got['launches']}")
+        if not gap <= PREFILL_PARITY_BAND or got["plain"] or \
+                not sum(got["launches"].values()):
+            raise AssertionError(f"{arch} reduced: the card and the CPU port "
+                                 "disagree, or the card ran no kernel")
+    return out
+
+
+def ops_phase(P):
+    """Phase 17: each front end of ``kernels/ops.py`` once on the card,
+    one launch of its kernel, held against the plain version."""
+    from repro_torch.kernels import dbl_merge as K
+    from repro_torch.kernels import flash_decode as FD
+    ops = P.ops
+    out = {}
+    fa = _fa_inputs(FA_SHAPES[3], torch.float32, 1)
+    ssd = _ssd_inputs(SSD_SHAPES[1], torch.float32, 2)
+    wkv = _wkv_inputs(WKV_SHAPES[1], torch.float32, 3)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    qd = torch.randn(2, 4, 1, 64, generator=gen, device="cuda")
+    kc = torch.randn(2, 2, 64, 64, generator=gen, device="cuda")
+    vc = torch.randn(2, 2, 64, 64, generator=gen, device="cuda")
+    tree = {"a": torch.randn(3, 5, generator=gen, device="cuda"),
+            "b": torch.randn(7, generator=gen, device="cuda")}
+    gl = P.tree_map(lambda t: torch.randn_like(t), tree)
+    gs = P.tree_map(lambda t: torch.randn_like(t), tree)
+    cases = (
+        ("flash_attention", P.FA, "flash_attention",
+         lambda: ops.flash_attention(*fa, window=16),
+         lambda: P.FA.flash_attention_plain(*fa, window=16), 2e-5),
+        ("flash_decode", FD, "flash_decode",
+         lambda: ops.flash_decode(qd, kc, vc, 40, window=8),
+         lambda: FD._xla_decode(qd, kc, vc, 40, window=8), 2e-5),
+        ("mamba_ssd", P.SSD, "mamba_ssd_scan",
+         lambda: ops.mamba_ssd(*ssd, chunk=32),
+         lambda: P.SSD.mamba_ssd_plain(*ssd), 1e-4),
+        ("wkv6", P.WKV, "wkv6_chunked", lambda: ops.wkv6(*wkv),
+         lambda: P.WKV.wkv6_plain(*wkv), 2e-5),
+        ("dbl_merge", K, "dbl_merge_flat2d",
+         lambda: ops.dbl_merge(tree, gl, gs, factor=0.81, lr=0.05),
+         lambda: P.tree_map(lambda p, a, b: P.dbl_merge_ref(
+             p, a, b, factor=0.81, lr=0.05), tree, gl, gs), 1e-6))
+    for front, mod, kernel, call, plain, tol in cases:
+        mod.reset_counts()
+        got = call()
+        n = mod.launch_count(kernel)
+        want = plain()
+        torch.cuda.synchronize()
+        gap = max(float((a.float() - b.float()).abs().max()) for a, b in
+                  zip(P.tree_leaves(got), P.tree_leaves(want)))
+        out[front] = {"kernel": kernel, "launches": n, "max_abs_err": gap}
+        log(f"  ops.{front}: {n} {kernel} launch, {gap:.3g} from the plain "
+            f"version (tolerance {tol:g})")
+        if n != 1 or mod.plain_count() or not gap <= tol:
+            raise AssertionError(f"ops.{front}: {n} launches of {kernel}, "
+                                 f"{gap} from the plain version")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -1453,6 +1902,57 @@ def main() -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "variants": recs})
+
+    # 14. B4, B7 and B8 against their plain versions, and their times
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba_scan as SSD
+    from repro_torch.kernels import ops as ops_mod
+    from repro_torch.kernels import wkv6 as WKV
+    from repro_torch.kernels.ref import dbl_merge_ref
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import layout
+    pf_mods = {"flash_attention": FA, "mamba_ssd_scan": SSD,
+               "wkv6_chunked": WKV}
+
+    def reset_pf():
+        for mod in pf_mods.values():
+            mod.reset_counts()
+
+    def pf_counts():
+        return {"launches": {k: mod.launch_count(k)
+                             for k, mod in pf_mods.items()},
+                "plain": sum(mod.plain_count() for mod in pf_mods.values())}
+    P = SimpleNamespace(FA=FA, SSD=SSD, WKV=WKV, ops=ops_mod, models=models,
+                        get_config=get_config, reduced=reduced, layout=layout,
+                        tree_leaves=tree_leaves, tree_map=tree_map,
+                        make_prefill_step=make_prefill_step,
+                        reset_counts=reset_pf, counts=pf_counts,
+                        dbl_merge_ref=dbl_merge_ref)
+    pf_recs = pf_kernel_phase(P, rate)
+    log(f"[{time.perf_counter() - t_start:.0f} s] B4/B7/B8 checked")
+    # 15. the prefill main path at full width, 16. card vs CPU, 17. ops
+    report["prefill"], pf_launches = prefill_phase(P)
+    log(f"[{time.perf_counter() - t_start:.0f} s] prefill main path done")
+    report["prefill_parity"] = prefill_parity_phase(P)
+    report["ops"] = ops_phase(P)
+    # the main path's form of each: B4 bf16 at zamba2's shared attention,
+    # B7 bf16 at zamba2's SSD, B8 f32 (time_mix casts to f32) at rwkv6's
+    main_form = {"flash_attention": ("zamba2-2.7b", "bfloat16"),
+                 "mamba_ssd_scan": ("zamba2-2.7b", "bfloat16"),
+                 "wkv6_chunked": ("rwkv6-7b", "float32")}
+    for kernel, (ref_file, fn_line) in PF_REFERENCE.items():
+        recs = pf_recs[kernel]
+        shape, dtype = main_form[kernel]
+        main = next(r for r in recs if r["shape"] == shape and
+                    r["dtype"] == dtype and "ms" in r)
+        line.append({
+            "name": kernel, "route": "cuda", "source": PF_CSRC[kernel],
+            "replaces": f"{ref_file}:{fn_line}",
+            "launches": pf_launches[kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "variants": recs})
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:
@@ -1461,7 +1961,12 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
     print(nvidia_smi_line(), flush=True)
-    print(json.dumps({"kernels": line}), flush=True)
+    # the per-variant records stay in the --out report: the line keeps
+    # each kernel's main-path numbers (the whole line must fit the tail
+    # of the output a caller reads)
+    print(json.dumps({"kernels": [{k: v for k, v in r.items()
+                                   if k != "variants"} for r in line]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

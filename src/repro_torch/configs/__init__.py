@@ -1,8 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-The port knows ``cifar-resnet18`` (the training slices) and the two
+The port knows ``cifar-resnet18`` (the training slices), the two
 attention-only LMs of the serving slice, ``phi3-mini-3.8b`` and
-``gemma3-4b``; the other LM configs wait for the LM slice (ROADMAP A12)."""
+``gemma3-4b``, and the recurrent and hybrid LMs of the prefill slice,
+``zamba2-2.7b`` and ``rwkv6-7b``; the other LM configs wait for the LM
+slice (ROADMAP A12)."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +12,8 @@ import importlib
 from repro_torch.configs.base import InputShape, ModelConfig, TrainConfig, reduced
 
 _MODULES = {
+    "zamba2-2.7b": "zamba2_2p7b",
+    "rwkv6-7b": "rwkv6_7b",
     "phi3-mini-3.8b": "phi3_mini_3p8b",
     "gemma3-4b": "gemma3_4b",
     "cifar-resnet18": "cifar_resnet18",

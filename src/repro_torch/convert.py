@@ -60,15 +60,26 @@ def lm_params_from_numpy(tree, cfg, device=None):
     """The JAX package's LM parameters (``init_params`` of
     ``repro.models.transformer``, as a numpy tree) -> the port's tree on
     ``device`` (``None`` means the card).  The two trees share key paths
-    and the stacked ``(count, ...)`` segment layout, so the mapping is
-    leaf for leaf; this checks that the segments stack ``layout(cfg)``."""
+    and the stacked ``(count, ...)`` segment layout — attention, Mamba2
+    and RWKV-6 segments alike, and the empty ``{}`` of each call of a
+    weight-tied shared block, whose parameters sit under ``"shared"`` —
+    so the mapping is leaf for leaf; this checks that the segments stack
+    ``layout(cfg)``."""
+    from repro_torch.configs.base import SHARED_ATTN
     from repro_torch.core.tree import tree_leaves
     from repro_torch.models.transformer import layout
     segs = layout(cfg)
     if len(tree["segments"]) != len(segs):
         raise ValueError(f"{len(tree['segments'])} segments for {cfg.name}, "
                          f"whose layout has {len(segs)}")
+    if bool(cfg.shared_every) != ("shared" in tree):
+        raise ValueError(f"{cfg.name}: shared_every {cfg.shared_every} but "
+                         f"the tree {'has' if 'shared' in tree else 'lacks'} "
+                         "a 'shared' block")
     for seg, sp in zip(segs, tree["segments"]):
+        if seg.kind == SHARED_ATTN and sp:
+            raise ValueError(f"a shared_attn segment holds {sorted(sp)}: its "
+                             "parameters belong under 'shared'")
         for leaf in tree_leaves(sp):
             if np.shape(leaf)[0] != seg.count:
                 raise ValueError(f"a {seg.kind} segment of {seg.count} "

@@ -1,0 +1,87 @@
+"""What the prefill kernels' wrappers share: launch and plain-run counts,
+the checks before a launch, and the ``ctypes`` plumbing."""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+FLOATS = (torch.float32, torch.bfloat16)
+
+
+class Counts:
+    """Kernel launches and plain-version runs per kernel and variant.
+
+    ``launch`` is called where a wrapper launches its kernel and nowhere
+    else; ``plain`` where it runs its plain version for CPU tensors."""
+
+    def __init__(self, variants: Dict[str, Tuple[str, ...]]):
+        self.variants = variants
+        self._launches = {k: dict.fromkeys(vs, 0) for k, vs in variants.items()}
+        self._plain = {k: dict.fromkeys(vs, 0) for k, vs in variants.items()}
+
+    def launch(self, kernel: str, variant: str) -> None:
+        self._launches[kernel][variant] += 1
+
+    def plain(self, kernel: str, variant: str) -> None:
+        self._plain[kernel][variant] += 1
+
+    def launch_count(self, kernel: Optional[str] = None,
+                     variant: Optional[str] = None) -> int:
+        return self._count(self._launches, kernel, variant)
+
+    def plain_count(self, kernel: Optional[str] = None,
+                    variant: Optional[str] = None) -> int:
+        return self._count(self._plain, kernel, variant)
+
+    def reset(self) -> None:
+        for table in (self._launches, self._plain):
+            for per in table.values():
+                for v in per:
+                    per[v] = 0
+
+    def _count(self, table, kernel, variant) -> int:
+        kernels = self.variants if kernel is None else (kernel,)
+        return sum(table[k][v] for k in kernels
+                   for v in (self.variants[k] if variant is None
+                             else (variant,)))
+
+
+def variant_of(t: torch.Tensor) -> str:
+    return "bf16" if t.dtype == torch.bfloat16 else "f32"
+
+
+def check_launchable(name: str, *ts: torch.Tensor) -> None:
+    """Before a launch: every tensor on one CUDA device, contiguous, and
+    none asking for a gradient (the kernels have no backward: training
+    the LMs through them is ROADMAP A12's work)."""
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"no {name} kernel for {dev}")
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel reads contiguous tensors; "
+                             f"got strides {t.stride()} for shape "
+                             f"{tuple(t.shape)}")
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{name}: the CUDA kernel has no backward; training the LMs "
+                "through it waits for ROADMAP A12 (run under "
+                "torch.inference_mode() or detach the inputs)")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    with torch.cuda.device(t.device):
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def raise_on(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -36,12 +36,13 @@ from __future__ import annotations
 
 import ctypes
 import numbers
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.flat import LANE
+from repro_torch.kernels import _common as _c
 
 KERNELS = ("dbl_apply_flat2d", "dbl_merge_flat2d")
 VARIANTS = ("plain", "vel", "master", "master_vel")
@@ -49,37 +50,10 @@ WORKER_VARIANTS = ("plain", "master")
 KERNEL_VARIANTS = {**{k: VARIANTS for k in KERNELS},
                    "dbl_apply_worker_flat2d": WORKER_VARIANTS}
 
-_LAUNCHES: Dict[str, Dict[str, int]] = {
-    k: dict.fromkeys(vs, 0) for k, vs in KERNEL_VARIANTS.items()}
-_PLAIN_RUNS: Dict[str, Dict[str, int]] = {
-    k: dict.fromkeys(vs, 0) for k, vs in KERNEL_VARIANTS.items()}
-
-
-def launch_count(kernel: Optional[str] = None,
-                 variant: Optional[str] = None) -> int:
-    """CUDA kernel launches so far (all kernels, one kernel, or one
-    variant of it)."""
-    return _count(_LAUNCHES, kernel, variant)
-
-
-def plain_count(kernel: Optional[str] = None,
-                variant: Optional[str] = None) -> int:
-    """Runs of the plain PyTorch versions (CPU tensors) so far."""
-    return _count(_PLAIN_RUNS, kernel, variant)
-
-
-def reset_counts() -> None:
-    for table in (_LAUNCHES, _PLAIN_RUNS):
-        for per in table.values():
-            for v in per:
-                per[v] = 0
-
-
-def _count(table, kernel, variant) -> int:
-    kernels = KERNEL_VARIANTS if kernel is None else (kernel,)
-    return sum(table[k][v] for k in kernels
-               for v in (KERNEL_VARIANTS[k] if variant is None
-                         else (variant,)))
+_COUNTS = _c.Counts(KERNEL_VARIANTS)
+launch_count = _COUNTS.launch_count     # CUDA kernel launches so far
+plain_count = _COUNTS.plain_count       # runs of the plain versions
+reset_counts = _COUNTS.reset
 
 
 def _variant(vel2, master2) -> str:
@@ -202,7 +176,7 @@ def dbl_apply_flat2d(p2, g2, *, lr: float, vel2=None, momentum: float = 0.0,
     _check(p2, (g2,), vel2, master2)
     variant = _variant(vel2, master2)
     if p2.device.type == "cpu":
-        _PLAIN_RUNS["dbl_apply_flat2d"][variant] += 1
+        _COUNTS.plain("dbl_apply_flat2d", variant)
         return dbl_apply_plain(p2, g2, lr=lr, vel2=vel2, momentum=momentum,
                                master2=master2)
     if p2.device.type != "cuda":
@@ -215,7 +189,7 @@ def dbl_apply_flat2d(p2, g2, *, lr: float, vel2=None, momentum: float = 0.0,
             _ptr(w, 16), _ptr(shadow, 8), _ptr(g2, 16), _ptr(vel2, 16),
             w.numel(), float(lr), float(momentum), ctypes.c_void_p(stream))
     _raise_on(err, "dbl_apply_flat2d")
-    _LAUNCHES["dbl_apply_flat2d"][variant] += 1
+    _COUNTS.launch("dbl_apply_flat2d", variant)
     return _outputs(p2, vel2, master2)
 
 
@@ -230,7 +204,7 @@ def dbl_merge_flat2d(p2, gl2, gs2, *, factor: float, lr: float, vel2=None,
     _check(p2, (gl2, gs2), vel2, master2)
     variant = _variant(vel2, master2)
     if p2.device.type == "cpu":
-        _PLAIN_RUNS["dbl_merge_flat2d"][variant] += 1
+        _COUNTS.plain("dbl_merge_flat2d", variant)
         return dbl_merge_plain(p2, gl2, gs2, factor=factor, lr=lr, vel2=vel2,
                                momentum=momentum, master2=master2)
     if p2.device.type != "cuda":
@@ -245,7 +219,7 @@ def dbl_merge_flat2d(p2, gl2, gs2, *, factor: float, lr: float, vel2=None,
             _ptr(vel2, 16), w.numel(), float(lr), factor,
             1.0 / (1.0 + factor), float(momentum), ctypes.c_void_p(stream))
     _raise_on(err, "dbl_merge_flat2d")
-    _LAUNCHES["dbl_merge_flat2d"][variant] += 1
+    _COUNTS.launch("dbl_merge_flat2d", variant)
     return _outputs(p2, vel2, master2)
 
 
@@ -325,7 +299,7 @@ def dbl_apply_worker_flat2d(p2, g2, vel3, wid, lr, factor, momentum, *,
                                              momentum, master2)
     variant = "plain" if master2 is None else "master"
     if p2.device.type == "cpu":
-        _PLAIN_RUNS["dbl_apply_worker_flat2d"][variant] += 1
+        _COUNTS.plain("dbl_apply_worker_flat2d", variant)
         return dbl_apply_worker_plain(p2, g2, vel3, wid, lr, factor,
                                       momentum, master2=master2)
     if p2.device.type != "cuda":
@@ -339,7 +313,7 @@ def dbl_apply_worker_flat2d(p2, g2, vel3, wid, lr, factor, momentum, *,
             _ptr(w, 16), _ptr(shadow, 8), _ptr(g2, 16), _ptr(vel3, 16),
             w.numel(), wid, lr, factor, momentum, ctypes.c_void_p(stream))
     _raise_on(err, "dbl_apply_worker_flat2d")
-    _LAUNCHES["dbl_apply_worker_flat2d"][variant] += 1
+    _COUNTS.launch("dbl_apply_worker_flat2d", variant)
     return (p2, vel3) if master2 is None else (p2, master2, vel3)
 
 

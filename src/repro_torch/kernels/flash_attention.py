@@ -1,0 +1,83 @@
+"""Causal + sliding-window GQA attention with an online softmax (B4).
+
+``flash_attention`` runs a kernel hand-written in CUDA for Hopper
+(``csrc/flash_attention.cu``) in place of the reference's Pallas TPU
+kernel (``kernels/flash_attention.py`` ``flash_attention``): q
+``(B, H, Sq, hd)`` against k, v ``(B, KV, Sk, hd)`` with the KV head
+``h // n_rep``, query and key positions both from 0, masked to ``j <= i``
+(and ``i − j < window`` when ``window > 0``) when ``causal``; scores,
+softmax and the product with v in f32, the output in q's dtype.  It skips
+key tiles wholly above the diagonal or before the window, and takes any
+``Sq``/``Sk`` (the TPU kernel asks for multiples of its block).
+
+For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
+tensor — and only then — it runs the plain version, the naive-softmax
+oracle ``ref.flash_attention_ref``.  ``launch_count`` counts kernel
+launches, ``plain_count`` plain runs, per dtype (``f32``, ``bf16``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _common as _c
+from repro_torch.kernels.ref import flash_attention_ref
+
+KERNEL_VARIANTS = {"flash_attention": ("f32", "bf16")}
+_COUNTS = _c.Counts(KERNEL_VARIANTS)
+launch_count = _COUNTS.launch_count
+plain_count = _COUNTS.plain_count
+reset_counts = _COUNTS.reset
+
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+
+
+# the plain form of ``flash_attention``: the naive-softmax oracle
+flash_attention_plain = flash_attention_ref
+
+
+def _lib():
+    from repro_torch.kernels._build import library
+    lib = library("flash_attention")
+    if not getattr(lib, "_repro_bound", False):
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.repro_flash_attention.argtypes = [vp] * 4 + [i32] * 8 + [
+            ctypes.c_float, i32, vp]
+        lib.repro_flash_attention.restype = ctypes.c_int
+        lib._repro_bound = True
+    return lib
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) with H a multiple of KV,
+    one dtype (f32 or bf16).  Returns (B, H, Sq, hd) in q's dtype (B4)."""
+    name = "flash_attention"
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"{name}: q must be (B, H, Sq, hd) and k, v "
+                         f"(B, KV, Sk, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, sq, hd = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if kvh < 1 or h % kvh:
+        raise ValueError(f"{name}: {h} query heads over {kvh} KV heads")
+    if q.dtype not in _c.FLOATS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k, v must share one dtype, float32 or "
+                         f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    window = int(window)
+    variant = _c.variant_of(q)
+    if q.device.type == "cpu":
+        _COUNTS.plain(name, variant)
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} is not one of {HEAD_DIMS}")
+    _c.check_launchable(name, q, k, v)
+    out = torch.empty_like(q)
+    err = _lib().repro_flash_attention(
+        _c.ptr(q), _c.ptr(k), _c.ptr(v), _c.ptr(out), b, h, kvh, sq, sk, hd,
+        int(bool(causal)), window, hd ** -0.5, int(q.dtype == torch.bfloat16),
+        _c.stream_of(q))
+    _c.raise_on(err, name)
+    _COUNTS.launch(name, variant)
+    return out

@@ -26,49 +26,21 @@ dtype (``f32``, ``bf16``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import _common as _c
 from repro_torch.kernels.ref import NEG_INF, flash_decode_ref
 
 KERNEL_VARIANTS = {"flash_decode": ("f32", "bf16"),
                    "flash_decode_paged": ("f32", "bf16")}
 
-_LAUNCHES: Dict[str, Dict[str, int]] = {
-    k: dict.fromkeys(vs, 0) for k, vs in KERNEL_VARIANTS.items()}
-_PLAIN_RUNS: Dict[str, Dict[str, int]] = {
-    k: dict.fromkeys(vs, 0) for k, vs in KERNEL_VARIANTS.items()}
+_COUNTS = _c.Counts(KERNEL_VARIANTS)
+launch_count = _COUNTS.launch_count     # CUDA kernel launches so far
+plain_count = _COUNTS.plain_count       # runs of the plain versions
+reset_counts = _COUNTS.reset
 
-_FLOATS = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
-
-
-def launch_count(kernel: Optional[str] = None,
-                 variant: Optional[str] = None) -> int:
-    """CUDA kernel launches so far (all kernels, one kernel, or one
-    variant of it)."""
-    return _count(_LAUNCHES, kernel, variant)
-
-
-def plain_count(kernel: Optional[str] = None,
-                variant: Optional[str] = None) -> int:
-    """Runs of the plain PyTorch versions (CPU tensors) so far."""
-    return _count(_PLAIN_RUNS, kernel, variant)
-
-
-def reset_counts() -> None:
-    for table in (_LAUNCHES, _PLAIN_RUNS):
-        for per in table.values():
-            for v in per:
-                per[v] = 0
-
-
-def _count(table, kernel, variant) -> int:
-    kernels = KERNEL_VARIANTS if kernel is None else (kernel,)
-    return sum(table[k][v] for k in kernels
-               for v in (KERNEL_VARIANTS[k] if variant is None
-                         else (variant,)))
 
 
 def resolve_impl(impl: str, device) -> str:
@@ -129,7 +101,7 @@ def _check_qkv(name, q, k, v, n_kv_heads: int):
     if k.shape != v.shape or k.dtype != v.dtype:
         raise ValueError(f"{name}: k {tuple(k.shape)} {k.dtype} and v "
                          f"{tuple(v.shape)} {v.dtype} differ")
-    if q.dtype not in _FLOATS or k.dtype not in _FLOATS:
+    if q.dtype not in _c.FLOATS or k.dtype not in _c.FLOATS:
         raise ValueError(f"{name}: q and the cache must be float32 or "
                          f"bfloat16, got {q.dtype} / {k.dtype}")
     if k.shape[-1] != hd:
@@ -143,10 +115,6 @@ def _check_qkv(name, q, k, v, n_kv_heads: int):
     for t in (k, v):
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
-
-
-def _variant(cache: torch.Tensor) -> str:
-    return "bf16" if cache.dtype == torch.bfloat16 else "f32"
 
 
 def _contiguous(name, *ts):
@@ -172,15 +140,6 @@ def _lib():
     return lib
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 
@@ -199,9 +158,9 @@ def flash_decode(q, k_cache, v_cache, pos: int, *, window: int = 0):
     if isinstance(pos, torch.Tensor) or int(pos) != pos or pos < 0:
         raise ValueError(f"{name}: pos must be a host int >= 0, got {pos!r}")
     pos, window = int(pos), int(window)
-    variant = _variant(k_cache)
+    variant = _c.variant_of(k_cache)
     if q.device.type == "cpu":
-        _PLAIN_RUNS[name][variant] += 1
+        _COUNTS.plain(name, variant)
         return _xla_decode(q, k_cache, v_cache, pos, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no {name} kernel for {q.device}")
@@ -209,14 +168,12 @@ def flash_decode(q, k_cache, v_cache, pos: int, *, window: int = 0):
     b, h, _, hd = q.shape
     kvh, s = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().repro_flash_decode(
-            _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out), b, h, kvh, s,
-            hd, pos, window, hd ** -0.5, _is_bf16(q), _is_bf16(k_cache),
-            ctypes.c_void_p(stream))
-    _raise_on(err, name)
-    _LAUNCHES[name][variant] += 1
+    err = _lib().repro_flash_decode(
+        _c.ptr(q), _c.ptr(k_cache), _c.ptr(v_cache), _c.ptr(out), b, h, kvh,
+        s, hd, pos, window, hd ** -0.5, _is_bf16(q), _is_bf16(k_cache),
+        _c.stream_of(q))
+    _c.raise_on(err, name)
+    _COUNTS.launch(name, variant)
     return out
 
 
@@ -252,9 +209,9 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
     window = int(window)
-    variant = _variant(k_pages)
+    variant = _c.variant_of(k_pages)
     if q.device.type == "cpu":
-        _PLAIN_RUNS[name][variant] += 1
+        _COUNTS.plain(name, variant)
         return paged_decode_ref(q, k_pages, v_pages, page_table, lengths,
                                 window=window)
     if q.device.type != "cuda":
@@ -263,13 +220,11 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
     h, hd = q.shape[1], q.shape[3]
     n_pages, page_len, kvh = k_pages.shape[:3]
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().repro_flash_decode_paged(
-            _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),
-            _ptr(lengths), _ptr(out), ns, h, kvh, hd, page_len,
-            page_table.shape[1], n_pages, window, hd ** -0.5, _is_bf16(q),
-            _is_bf16(k_pages), ctypes.c_void_p(stream))
-    _raise_on(err, name)
-    _LAUNCHES[name][variant] += 1
+    err = _lib().repro_flash_decode_paged(
+        _c.ptr(q), _c.ptr(k_pages), _c.ptr(v_pages), _c.ptr(page_table),
+        _c.ptr(lengths), _c.ptr(out), ns, h, kvh, hd, page_len,
+        page_table.shape[1], n_pages, window, hd ** -0.5, _is_bf16(q),
+        _is_bf16(k_pages), _c.stream_of(q))
+    _c.raise_on(err, name)
+    _COUNTS.launch(name, variant)
     return out

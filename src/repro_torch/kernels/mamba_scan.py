@@ -1,0 +1,92 @@
+"""The Mamba2 SSD scan from a zero state (B7).
+
+``mamba_ssd_scan`` runs a kernel hand-written in CUDA for Hopper
+(``csrc/mamba_scan.cu``) in place of the reference's Pallas TPU kernel
+(``kernels/mamba_scan.py`` ``mamba_ssd_scan``): per (b, h) a ``(P, N)``
+state from zero, ``h = exp(dt·a)·h + (dt·x) ⊗ B`` and ``y = h·C + D·x``
+with ``a = −exp(A_log)``, in f32.  The kernel runs this recurrence step by
+step (the cheaper form without tensor cores, see its source note), so
+``chunk`` changes only the float order of the chunked forms it stands in
+for; it is kept for the reference's signature, and any ``S`` is taken.
+
+For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
+tensor — and only then — it runs the plain version, the per-step oracle
+``ref.ssd_scan_ref`` in the kernel's ``(Bt, H, S, P)`` layout.
+``launch_count`` counts kernel launches, ``plain_count`` plain runs, per
+dtype of x (``f32``, ``bf16``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _common as _c
+from repro_torch.kernels.ref import ssd_scan_ref
+
+KERNEL_VARIANTS = {"mamba_ssd_scan": ("f32", "bf16")}
+_COUNTS = _c.Counts(KERNEL_VARIANTS)
+launch_count = _COUNTS.launch_count
+plain_count = _COUNTS.plain_count
+reset_counts = _COUNTS.reset
+
+STATE_DIMS = (8, 16, 32, 64, 128)
+
+
+def mamba_ssd_plain(x, dt, A_log, B, C, D_skip):
+    """Plain form of ``mamba_ssd_scan``: the per-step oracle, transposed
+    around to the kernel's ``(Bt, H, S, P)`` layout."""
+    y, _ = ssd_scan_ref(x.transpose(1, 2), dt.transpose(1, 2), A_log, B, C,
+                        D_skip)
+    return y.transpose(1, 2).contiguous()
+
+
+def _lib():
+    from repro_torch.kernels._build import library
+    lib = library("mamba_scan")
+    if not getattr(lib, "_repro_bound", False):
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.repro_mamba_ssd_scan.argtypes = [vp] * 7 + [i32] * 6 + [vp]
+        lib.repro_mamba_ssd_scan.restype = ctypes.c_int
+        lib._repro_bound = True
+    return lib
+
+
+def mamba_ssd_scan(x, dt, A_log, B, C, D_skip, *, chunk: int = 128):
+    """x: (Bt, H, S, P); dt: (Bt, H, S); A_log, D_skip: (H,); B, C:
+    (Bt, S, N) (one group).  Returns y (Bt, H, S, P) in x's dtype (B7),
+    from a zero state.  x, B and C share one dtype, f32 or bf16; dt,
+    A_log and D_skip are read as f32."""
+    name = "mamba_ssd_scan"
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be (Bt, H, S, P), got "
+                         f"{tuple(x.shape)}")
+    bt, h, s, p = x.shape
+    n = B.shape[-1]
+    if tuple(dt.shape) != (bt, h, s) or tuple(A_log.shape) != (h,) \
+            or tuple(D_skip.shape) != (h,) or tuple(B.shape) != (bt, s, n) \
+            or C.shape != B.shape:
+        raise ValueError(f"{name}: for x {tuple(x.shape)} want dt "
+                         f"({bt}, {h}, {s}), A_log and D ({h},), B and C "
+                         f"({bt}, {s}, N); got {tuple(dt.shape)}, "
+                         f"{tuple(A_log.shape)}, {tuple(D_skip.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    if x.dtype not in _c.FLOATS or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"{name}: x, B, C must share one dtype, float32 or "
+                         f"bfloat16; got {x.dtype}, {B.dtype}, {C.dtype}")
+    variant = _c.variant_of(x)
+    if x.device.type == "cpu":
+        _COUNTS.plain(name, variant)
+        return mamba_ssd_plain(x, dt, A_log, B, C, D_skip)
+    if n not in STATE_DIMS:
+        raise ValueError(f"{name}: N {n} must be one of {STATE_DIMS}")
+    _c.check_launchable(name, x, dt, A_log, B, C, D_skip)
+    dtf, af, df = (t.float().contiguous() for t in (dt, A_log, D_skip))
+    y = torch.empty_like(x)
+    err = _lib().repro_mamba_ssd_scan(
+        _c.ptr(x), _c.ptr(dtf), _c.ptr(af), _c.ptr(B), _c.ptr(C), _c.ptr(df),
+        _c.ptr(y), bt, h, s, p, n, int(x.dtype == torch.bfloat16),
+        _c.stream_of(x))
+    _c.raise_on(err, name)
+    _COUNTS.launch(name, variant)
+    return y

@@ -1,15 +1,21 @@
-"""Decoder-only LM: the layer layout and parameter init (the parts the
-serving slice needs).
+"""Decoder-only LM: the layer layout, parameter init and the prefill
+forward for attention, Mamba2, RWKV-6 and hybrid stacks.
 
 The layer stack is a list of *segments* — maximal runs of identical
 block kinds — each holding stacked ``(count, ...)`` per-layer tensors,
 the reference's tree layout (``params["segments"][i]`` with the same key
 paths), so weights carry over from the JAX package as a plain mapping.
 Local/global attention (gemma3) stays one segment: the sliding window is
-a per-layer value (0 = global).
+a per-layer value (0 = global).  Hybrid stacks (zamba2) alternate Mamba2
+segments with calls of one weight-tied attention block
+(``params["shared"]``), whose segments hold no parameters (``{}``).
 
-The forward pass, loss and ``decode_step`` of the reference wait for the
-LM slice (ROADMAP A12); serving runs its own step (``serve.paged``).
+``forward`` walks each segment's layers in a Python loop (the
+reference's ``lax.scan``; remat has no meaning without a backward).  On
+the card its attention is the kernel B4, its SSD scans B7 and its WKV
+recurrences B8.  The loss waits for the LM training path (ROADMAP A12),
+``init_cache`` / ``decode_step`` for the decode slice (A14); serving runs
+its own step (``serve.paged``).
 """
 from __future__ import annotations
 
@@ -20,8 +26,12 @@ import torch
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA2, ModelConfig,
                                       RWKV6, SHARED_ATTN)
+from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import dtype_of
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as rk
+from repro_torch.models.attention import attention_block
+from repro_torch.models.layers import dtype_of, rms_norm, swiglu
 
 
 @dataclass(frozen=True)
@@ -80,20 +90,25 @@ def _init_block(gen, cfg, kind, dtype, lead=()):
     """One block's parameters, with ``lead`` stacking dims in front (a
     segment draws all its layers at once)."""
     d = cfg.d_model
+    dev = gen.device
+    zeros = lambda: torch.zeros((*lead, d), dtype=torch.float32, device=dev)
+    normal = lambda shape, scale, dt: _normal(gen, shape, scale, dt)
+    if kind == MAMBA2:
+        return {"ln1": zeros(), "mamba": m2.init_mamba2(normal, cfg, dtype,
+                                                        lead)}
+    if kind == RWKV6:
+        return {"ln1": zeros(), "rwkv": rk.init_rwkv6(normal, cfg, dtype,
+                                                      lead),
+                "ln2": zeros()}
     if kind != ATTN:
-        item = ("ROADMAP A14 (recurrent archs)" if kind in (MAMBA2, RWKV6)
-                else "ROADMAP A12 (LM training path)")
-        raise NotImplementedError(
-            f"{cfg.name}: {kind} blocks are not ported yet: they wait for "
-            f"{item}")
+        raise ValueError(f"{cfg.name}: no parameters for a {kind} block")
     if cfg.moe:
         raise NotImplementedError(
             f"{cfg.name}: MoE blocks are not ported yet: they wait for "
             "ROADMAP A12 (models/moe.py) and A19 (MoE serving)")
-    dev = gen.device
-    return {"ln1": torch.zeros((*lead, d), dtype=torch.float32, device=dev),
+    return {"ln1": zeros(),
             "attn": _init_attn_layer(gen, cfg, dtype, lead),
-            "ln2": torch.zeros((*lead, d), dtype=torch.float32, device=dev),
+            "ln2": zeros(),
             "mlp": _init_mlp(gen, cfg, dtype, lead)}
 
 
@@ -116,8 +131,75 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = _normal(gen, (v, d), d ** -0.5, dtype)
     if cfg.shared_every:
-        params["shared"] = _init_block(gen, cfg, SHARED_ATTN, dtype)
+        params["shared"] = _init_block(gen, cfg, ATTN, dtype)
     for seg in layout(cfg):
         params["segments"].append(
-            _init_block(gen, cfg, seg.kind, dtype, (seg.count,)))
+            {} if seg.kind == SHARED_ATTN
+            else _init_block(gen, cfg, seg.kind, dtype, (seg.count,)))
     return params
+
+
+# --------------------------- forward ----------------------------------------
+def _attn_block_body(p, x, cfg, window, positions):
+    h = x + attention_block(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                            cfg, window=window, positions=positions)
+    hin = rms_norm(h, p["ln2"], cfg.norm_eps)
+    return h + swiglu(hin, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
+
+
+def _mamba_block_body(p, x, cfg):
+    return x + m2.mamba2_block(p["mamba"], rms_norm(x, p["ln1"],
+                                                    cfg.norm_eps), cfg)
+
+
+def _rwkv_block_body(p, x, cfg):
+    y, _, _ = rk.time_mix(p["rwkv"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+    h = x + y
+    y, _ = rk.channel_mix(p["rwkv"], rms_norm(h, p["ln2"], cfg.norm_eps), cfg)
+    return h + y
+
+
+def forward(params, cfg: ModelConfig, tokens, *, positions=None,
+            embeddings=None, last_only: bool = False,
+            return_hidden: bool = False):
+    """tokens: (B, S) int -> logits (B, S, V) in the compute dtype (B, 1, V
+    with ``last_only``; the final-normed hidden states with
+    ``return_hidden``).
+
+    embeddings: optional (B, S, D) — overrides the token embedding.
+    Dropout is the identity (rate 0): training waits for ROADMAP A12."""
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE forward waits for ROADMAP A12 "
+            "(models/moe.py)")
+    cdt = dtype_of(cfg.compute_dtype)
+    if embeddings is None:
+        x = params["embed"][tokens].to(cdt)
+    else:
+        x = embeddings.to(cdt)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+
+    for seg, sp in zip(layout(cfg), params["segments"]):
+        if seg.kind == SHARED_ATTN:
+            x = _attn_block_body(params["shared"], x, cfg, 0, positions)
+            continue
+        for i in range(seg.count):
+            p = tree_map(lambda t: t[i], sp)
+            if seg.kind == ATTN:
+                x = _attn_block_body(p, x, cfg, seg.windows[i], positions)
+            elif seg.kind == MAMBA2:
+                x = _mamba_block_body(p, x, cfg)
+            elif seg.kind == RWKV6:
+                x = _rwkv_block_body(p, x, cfg)
+            else:
+                raise ValueError(seg.kind)
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    if return_hidden:
+        return x
+    head = params.get("lm_head", params["embed"])
+    return torch.einsum("bsd,vd->bsv", x, head)

@@ -73,3 +73,86 @@ def test_decode_kernels_match_plain_versions(cuda, kv_dtype):
                                                        window=w),
                                    atol=2e-5, rtol=0)
     assert fd.launch_count() == 4 and fd.plain_count() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernels_match_plain_versions(cuda, dtype):
+    """B4, B7 and B8 on the card against their plain versions at small
+    shapes with a ragged S: f32 within 2e-5·(1 + |plain|), x5 for B7 (the
+    reference's tests' atol = rtol); bf16 within that plus one bf16 ulp,
+    since both round the f32 result once (chip_smoke.py holds them at the
+    model geometries)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ssd
+    from repro_torch.kernels import wkv6 as wkv
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+
+    def close(got, want, scale=1.0):
+        g, p = got.float(), want.float()
+        limit = 2e-5 * scale * (1.0 + p.abs())
+        if dtype == torch.bfloat16:
+            a = torch.maximum(g.abs(), p.abs()).clamp_min(2.0 ** -126)
+            limit = limit + torch.exp2(torch.floor(torch.log2(a)) - 7)
+        assert bool(((g - p).abs() <= limit).all()), \
+            float(((g - p).abs() / limit).max())
+
+    for mod in (fa, ssd, wkv):
+        mod.reset_counts()
+    q, k, v = rn(2, 4, 45, 80).to(dtype), rn(2, 2, 45, 80).to(dtype), \
+        rn(2, 2, 45, 80).to(dtype)
+    for w in (0, 16):
+        close(fa.flash_attention(q, k, v, window=w),
+              fa.flash_attention_plain(q, k, v, window=w))
+    x, B, C = rn(2, 3, 45, 32).to(dtype), (rn(2, 45, 16) * 0.3).to(dtype), \
+        (rn(2, 45, 16) * 0.3).to(dtype)
+    args = (x, rn(2, 3, 45).abs() * 0.1 + 0.01,
+            torch.log(torch.linspace(1.0, 8.0, 3, device=cuda)), B, C,
+            torch.ones(3, device=cuda))
+    close(ssd.mamba_ssd_scan(*args), ssd.mamba_ssd_plain(*args), scale=5.0)
+    r, kk, vv = ((rn(2, 4, 45, 64) * 0.5).to(dtype) for _ in range(3))
+    w = (torch.sigmoid(rn(2, 4, 45, 64)) * 0.5 + 0.5).to(dtype)
+    u = rn(4, 64) * 0.3
+    close(wkv.wkv6_chunked(r, kk, vv, w, u), wkv.wkv6_plain(r, kk, vv, w, u))
+    assert (fa.launch_count(), ssd.launch_count(), wkv.launch_count()) == \
+        (2, 1, 1)
+    assert fa.plain_count() + ssd.plain_count() + wkv.plain_count() == 0
+
+
+def test_prefill_step_launches_the_kernels(cuda):
+    """make_prefill_step on a reduced f32 zamba2 (6 layers) on the card:
+    one B7 launch per Mamba2 layer, one B4 per shared-block call, no plain
+    run, finite logits."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ssd
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = reduced(get_config("zamba2-2.7b"), layers=6)
+    params = models.init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 45), device=cuda)
+    fa.reset_counts()
+    ssd.reset_counts()
+    logits = make_prefill_step(cfg)(params, tok)
+    assert logits.shape == (2, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert (ssd.launch_count(), fa.launch_count()) == (5, 1)
+    assert ssd.plain_count() + fa.plain_count() == 0
+
+
+def test_stateful_paths_refused_on_the_card(cuda):
+    """A WKV state to start from and causal attention with a query offset
+    raise on CUDA tensors, naming their items (B8 and B4 start from 0)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import attention, rwkv6
+    cfg = reduced(get_config("rwkv6-7b"))
+    x = torch.zeros(1, 4, cfg.d_model, device=cuda)
+    state = torch.zeros(1, cfg.n_heads, cfg.head_dim, cfg.head_dim,
+                        device=cuda)
+    with pytest.raises(NotImplementedError, match="A14"):
+        rwkv6.time_mix({}, x, cfg, wkv_state=state)
+    q = torch.zeros(1, 2, 4, 16, device=cuda)
+    kv = torch.zeros(1, 6, 2, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="A12"):
+        attention.chunked_attention(q, kv, kv, q_offset=4)
