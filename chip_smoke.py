@@ -16,8 +16,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    ResNet-18 flat-store shape, and timed at the full store with CUDA
    events (median of 7 groups of 20 back-to-back launches, after warm-up)
    beside the plain version, the one-call PyTorch equivalent where there
-   is one, and the least time the card could take (bytes moved over the
-   memory rate);
+   is one (and, paired, in turns with it: kernel, library, library,
+   kernel, three times), and the least time the card could take (bytes
+   moved over the memory rate);
 3. main path: ``repro_torch.api.run`` on the hybrid dual-batch x CPL
    schedule at the full width of ``cifar-resnet18`` (stem 64, 100
    classes, 24 -> 32 px, global batch 512 at 32 px, 40 steps): one B1
@@ -78,8 +79,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     rwkv6-7b's WKV, all at 2 x 2048 tokens) and the reduced, ragged and
     sweep shapes of the CPU tests; each timed at its model geometries
     beside its plain version, its library call (SDPA for B4; none for B7
-    and B8) and its bound (f32 operations over 67 TFLOP/s or bytes over the
-    memory rate, the larger; the bf16 tensor-core time beside it);
+    and B8) and its bound (operations over the rate of the units the form
+    runs on — 989 TFLOP/s of bf16 tensor cores for B4's bf16 form, 67
+    TFLOP/s of f32 otherwise — or bytes over the memory rate, the larger);
 15. prefill main path: ``launch.steps.make_prefill_step`` at full width in
     bf16 (weights from a seeded generator on the card) on 2 x 2048 random
     tokens, zamba2-2.7b (45 B7 and 9 B4 launches a forward) then
@@ -329,13 +331,25 @@ def kernel_phase(K, rows: int, rate: float):
                                              plain=True))
             lib = _library_call(kernel, variant, plain)
             library_ms = cuda_ms(lib) if lib is not None else None
+            paired = None
+            if lib is not None:
+                # kernel and library call in turns (k, l, l, k) x 3, each
+                # a cuda_ms median, so that drift lands on both alike
+                kern = lambda: _call(K, kernel, variant, ref, plain=False)
+                turns = [(f, cuda_ms(f)) for _ in range(3)
+                         for f in (kern, lib, lib, kern)]
+                paired = {
+                    "kernel_ms": statistics.median(
+                        t for f, t in turns if f is kern),
+                    "library_ms": statistics.median(
+                        t for f, t in turns if f is lib)}
             bound_ms = max(n * nbytes / rate, n * nops / F32_RATE) * 1e3
             rec = {"variant": variant, "replaces": f"{REFERENCE}:{line}",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": "bytes"
                    if n * nbytes / rate >= n * nops / F32_RATE
                    else "operations", "library_ms": library_ms,
-                   "bytes": n * nbytes}
+                   "paired": paired, "bytes": n * nbytes}
             out.append((kernel, fn_line, rec))
             log(f"  {kernel}[{variant}]: bit-equal to plain at "
                 f"{CHECK_ROWS + (rows,)} rows; kernel "
@@ -343,6 +357,11 @@ def kernel_phase(K, rows: int, rate: float):
                 f"library {'-' if library_ms is None else f'{library_ms * 1e3:.1f} us'}"
                 f", bound {bound_ms * 1e3:.1f} us "
                 f"({bound_ms / ms:.0%} of the memory roofline)")
+            if paired is not None:
+                log(f"    paired (kernel, library, library, kernel) x 3: "
+                    f"kernel {paired['kernel_ms'] * 1e3:.2f} us, library "
+                    f"{paired['library_ms'] * 1e3:.2f} us "
+                    f"({paired['kernel_ms'] / paired['library_ms']:.3f} x)")
             del ref, plain
     torch.cuda.empty_cache()
     return out
@@ -1120,14 +1139,16 @@ PF_REFERENCE = {"flash_attention": ("src/repro/kernels/flash_attention.py", 83),
 PF_CSRC = {"flash_attention": "src/repro_torch/csrc/flash_attention.cu",
            "mamba_ssd_scan": "src/repro_torch/csrc/mamba_scan.cu",
            "wkv6_chunked": "src/repro_torch/csrc/wkv6.cu"}
-BF16_RATE = 989e12               # dense bf16 tensor-core rate, for reference
+BF16_RATE = 989e12               # dense bf16 tensor-core rate (data sheet)
 # the labels of the model geometries, at which the kernels are timed
 PF_MODELS = ("zamba2-2.7b", "phi3-mini-3.8b", "gemma3-4b", "rwkv6-7b")
 # B4: (label, B, H, KV, Sq, Sk, hd, causal, windows) — the model geometries
 # at the prefill main path's 2 x 2048 tokens (zamba2-2.7b's shared
 # attention, phi3-mini-3.8b, gemma3-4b's local and global layers), then
 # the shapes of the CPU tests: a ragged S with hd 64 and 80, the sweep of
-# the reference's tests, and non-causal (cross-attention) ones
+# the reference's tests, and non-causal (cross-attention) ones; then the
+# edges of the tensor-core form: hd 96 and 256 with GQA at a ragged S and a
+# window (100) that is no multiple of a key tile
 FA_SHAPES = (("zamba2-2.7b", 2, 32, 32, 2048, 2048, 80, True, (0,)),
              ("phi3-mini-3.8b", 2, 32, 32, 2048, 2048, 96, True, (0,)),
              ("gemma3-4b", 2, 8, 4, 2048, 2048, 256, True, (1024, 0)),
@@ -1136,7 +1157,9 @@ FA_SHAPES = (("zamba2-2.7b", 2, 32, 32, 2048, 2048, 80, True, (0,)),
              ("sweep-gqa8", 2, 8, 1, 256, 256, 128, True, (0, 64)),
              ("sweep-hd32", 1, 4, 4, 128, 128, 32, True, (0,)),
              ("noncausal", 1, 2, 2, 128, 128, 64, False, (0,)),
-             ("cross", 2, 4, 2, 50, 77, 64, False, (0,)))
+             ("cross", 2, 4, 2, 50, 77, 64, False, (0,)),
+             ("hd96-gqa-ragged", 1, 8, 2, 200, 200, 96, True, (0, 100)),
+             ("hd256-gqa-ragged", 1, 8, 2, 200, 200, 256, True, (0, 100)))
 # B7: (label, Bt, H, S, P, N) — zamba2-2.7b's SSD at 2 x 2048 tokens (80
 # heads of 64, state 64, chunk 256), the reduced zamba2 of the CPU tests at
 # a ragged S, and the reference's sweep
@@ -1227,14 +1250,19 @@ def _band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
 
 
 def _pf_bound(kernel, args, rate, window=0, causal=True):
-    """(bound ms, bound_by, flops, bytes): each input read once, each
-    output written once; the operations the kernel's algorithm does on
-    these inputs (B4: the causal / window band only)."""
+    """(bound ms, bound_by, flops, bytes, op rate): each input read once,
+    each output written once; the operations the kernel's algorithm does
+    on these inputs (B4: the causal / window band only) at the rate of the
+    units it runs on — B4's bf16 form the dense bf16 tensor-core rate, the
+    rest the f32 rate of the CUDA cores."""
+    op_rate = F32_RATE
     if kernel == "flash_attention":
         q, k, v = args
         b, h, sq, hd = q.shape
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 4 * hd * b * h * _band_pairs(sq, k.shape[2], causal, window)
+        if q.dtype == torch.bfloat16:
+            op_rate = BF16_RATE
     elif kernel == "mamba_ssd_scan":
         x, dt, a_log, B, C, D = args
         bt, h, s, p = x.shape
@@ -1248,9 +1276,10 @@ def _pf_bound(kernel, args, rate, window=0, causal=True):
         nbytes = (3 * r.numel() + 2 * v.numel()) * r.element_size() \
             + 4 * u.numel()
         flops = 7 * kd * v.shape[-1] * s * b * h
-    t_bytes, t_ops = nbytes / rate, flops / F32_RATE
+    t_bytes, t_ops = nbytes / rate, flops / op_rate
     return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
+            op_rate)
 
 
 def _pf_cases():
@@ -1298,7 +1327,7 @@ def pf_kernel_phase(P, rate):
             rec = {"shape": label, "dtype": str(dtype)[6:], "max_abs_err": err,
                    "err_over_tol": ratio, **kw}
             if model:
-                bound_ms, bound_by, flops, nbytes = _pf_bound(
+                bound_ms, bound_by, flops, nbytes, op_rate = _pf_bound(
                     kernel, args, rate, **kw)
                 slow = kernel != "flash_attention"   # per-step plain versions
                 rec.update(
@@ -1307,7 +1336,8 @@ def pf_kernel_phase(P, rate):
                                      per_group=1 if slow else 3,
                                      groups=3, warmup=1),
                     bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                    bytes=nbytes, bf16_tensor_core_ms=1e3 * flops / BF16_RATE,
+                    bytes=nbytes, op_rate=op_rate,
+                    bf16_tensor_core_ms=1e3 * flops / BF16_RATE,
                     library_ms=None)
                 if kernel == "flash_attention":
                     q, k, v = args
@@ -1321,12 +1351,17 @@ def pf_kernel_phase(P, rate):
                         lib = lambda: F.scaled_dot_product_attention(
                             q, k, v, is_causal=True, enable_gqa=True)
                     rec["library_ms"] = cuda_ms(lib)
+                    rec["vs_library"] = rec["ms"] / rec["library_ms"]
+                by = bound_by if bound_by == "bytes" else (
+                    "bf16 tensor-core" if op_rate == BF16_RATE
+                    else "f32") + " operations"
                 log(f"    {kernel} {label} {rec['dtype']} {kw or ''}: kernel "
                     f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
                     "library " + ("-" if rec["library_ms"] is None
-                                  else f"{rec['library_ms']:.3f} ms")
-                    + f", bound {bound_ms:.3f} ms by {bound_by} "
-                    f"({bound_ms / rec['ms']:.1%}; bf16 tensor cores "
+                                  else f"{rec['library_ms']:.3f} ms (kernel "
+                                  f"{rec['vs_library']:.2f} x)")
+                    + f", bound {bound_ms:.3f} ms by {by} "
+                    f"({bound_ms / rec['ms']:.1%} of it; bf16 tensor cores "
                     f"{rec['bf16_tensor_core_ms']:.3f} ms), err {err:.3g}")
             out[kernel].append(rec)
             del args, got, want
@@ -1353,11 +1388,12 @@ def _prefill_profile(prefill, params, tokens):
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             kern[ev.name] = kern.get(ev.name, 0.0) + ev.time_range.elapsed_us()
     busy = sum(kern.values())
-    share = lambda key: sum(us for n, us in kern.items() if key in n) / busy
+    share = lambda *keys: sum(us for n, us in kern.items()
+                              if any(k in n for k in keys)) / busy
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / (wall * 1e6),
-            "b4_share": share("attention_kernel"),
+            "b4_share": share("attention_kernel", "attention_wgmma_kernel"),
             "b7_share": share("ssd_kernel"), "b8_share": share("wkv6_kernel"),
             "top_kernels": [{"name": n[:90], "ms": us / 1e3,
                              "share": us / busy} for n, us in top]}
@@ -1440,6 +1476,9 @@ def prefill_phase(P):
             "device time")
         for k in prof["top_kernels"]:
             log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
+        if got["launches"]["flash_attention"] and not prof["b4_share"] > 0:
+            raise AssertionError(f"{arch} prefill launched B4 but the "
+                                 "profile finds no time under its names")
         del params, logits, prefill
         gc.collect()
         torch.cuda.empty_cache()

@@ -4,9 +4,10 @@ Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds.  Libraries land in ``build/repro_torch/`` at the
 root of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides it), named by a
-hash of the source, the flags and the compiler path, so an edited source
-builds afresh and an unchanged one loads at once.  All sources compile in
-parallel, one ``nvcc`` each.  Nothing is built when the package is
+hash of the source, the shared headers (``csrc/*.cuh``), the flags and
+the compiler path, so an edited source or header builds afresh and an
+unchanged one loads at once.  All sources compile in parallel, one
+``nvcc`` each.  Nothing is built when the package is
 imported: the first launch (or ``build_all``) builds.
 """
 from __future__ import annotations
@@ -50,6 +51,8 @@ def _nvcc() -> str:
 def _target(src: Path, nvcc: str) -> Path:
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + [nvcc]).encode())
     return build_dir() / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 

@@ -10,6 +10,11 @@ softmax and the product with v in f32, the output in q's dtype.  It skips
 key tiles wholly above the diagonal or before the window, and takes any
 ``Sq``/``Sk`` (the TPU kernel asks for multiples of its block).
 
+Two routes, by dtype: bf16 on the tensor cores (``wgmma`` on bf16 q and
+k, the scores scaled in f32 after the product, and P·V with P split into
+``bf16(P) + bf16(P − bf16(P))``), f32 on the CUDA cores.  Neither falls
+back to the other.
+
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor — and only then — it runs the plain version, the naive-softmax
 oracle ``ref.flash_attention_ref``.  ``launch_count`` counts kernel
@@ -73,6 +78,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} is not one of {HEAD_DIMS}")
     _c.check_launchable(name, q, k, v)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: the bf16 kernel loads by TMA from "
+                         "16-byte-aligned tensors")
     out = torch.empty_like(q)
     err = _lib().repro_flash_attention(
         _c.ptr(q), _c.ptr(k), _c.ptr(v), _c.ptr(out), b, h, kvh, sq, sk, hd,

@@ -18,6 +18,12 @@ versions are the per-step oracles; the Pallas kernels the chunked
 forms).  Measured here at most 2.2e-6 (B4), 1.0e-6 (B7) and 2.4e-6 (B8)
 in f32.
 
+B4's bf16 form on the card computes S from the bf16 operands in f32 and
+P·V with P split into two bf16 parts (tensor-core ``wgmma``); that
+arithmetic, emulated in plain PyTorch, is held against the Pallas kernel
+within ``chip_smoke.py``'s bf16 limit (2e-5·(1 + |ref|) plus one bf16
+ulp), and P rounded to bf16 once is shown to break it.
+
 The wrappers, given CPU tensors, run their plain versions and count a
 plain run, never a launch; they refuse other devices.  On the card
 ``chip_smoke.py`` (phase 14) holds the kernels to the same plain versions
@@ -38,6 +44,7 @@ from repro.kernels import wkv6 as jwkv
 from repro.models.mamba2 import ssd_chunked as jssd_chunked
 from repro_torch.convert import tensor_from_numpy, tensor_to_numpy
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref as fa_ref
 from repro_torch.kernels import mamba_scan as ssd
 from repro_torch.kernels import ops
 from repro_torch.kernels import wkv6 as wkv
@@ -106,6 +113,70 @@ def test_flash_attention_noncausal(sk):
         want = flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
                                    jnp.asarray(v), causal=False)
     _close(got, want, TOL["f32"])
+
+
+def _wgmma_arithmetic(q, k, v, *, causal=True, window=0, split=True):
+    """The arithmetic of B4's bf16 tensor-core form in plain PyTorch: S from
+    the bf16 operands in f32 (each product exact), times hd^-0.5 after;
+    an online softmax over key tiles of 128 (64 at hd 256); P·V with P in
+    f32 split into bf16(P) + bf16(P − bf16(P)) — or, with ``split=False``,
+    rounded to bf16 once; the output rounded once to bf16."""
+    b, h, sq, hd = q.shape
+    sk, n_rep = k.shape[2], h // k.shape[1]
+    kf = torch.repeat_interleave(k.float(), n_rep, dim=1)
+    vf = torch.repeat_interleave(v.float(), n_rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * hd ** -0.5
+    if causal:
+        i = torch.arange(sq)[:, None]
+        j = torch.arange(sk)[None, :]
+        keep = j <= i
+        if window > 0:
+            keep = keep & (i - j < window)
+        s = torch.where(keep, s, fa_ref.NEG_INF)
+    bk = 64 if hd > 128 else 128
+    m = torch.full((b, h, sq, 1), fa_ref.NEG_INF)
+    l = torch.zeros(b, h, sq, 1)
+    acc = torch.zeros(b, h, sq, hd)
+    for k0 in range(0, sk, bk):
+        st = s[..., k0:k0 + bk]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        parts = (hi, (p - hi).bfloat16().float()) if split else (hi,)
+        acc = acc * alpha
+        for part in parts:
+            acc = acc + part @ vf[..., k0:k0 + bk, :]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+def _bf16_limit_ratio(got, want):
+    """Worst |got − want| over phase 14's bf16 limit: 2e-5·(1 + |want|)
+    plus one bf16 ulp of the larger magnitude."""
+    g, w = got.float(), want.float()
+    a = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    limit = 2e-5 * (1 + w.abs()) + torch.exp2(torch.floor(torch.log2(a)) - 7)
+    return float(((g - w).abs() / limit).max())
+
+
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("b,h,kv,s,hd", FA_CASES)
+def test_tensor_core_arithmetic_matches_pallas(b, h, kv, s, hd, window):
+    """B4's bf16 form computes S from bf16 operands and P·V with P split
+    in two bf16 parts: emulated here, it lies within phase 14's bf16 limit
+    of the Pallas kernel (interpret mode, all f32 inside); rounding P to
+    bf16 once instead breaks that limit."""
+    q, k, v = _fa_inputs(b, h, kv, s, hd, "bf16")
+    want = torch.from_numpy(np.asarray(jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, interpret=True), np.float32))
+    args = (_t(q), _t(k), _t(v))
+    assert _bf16_limit_ratio(_wgmma_arithmetic(*args, window=window),
+                             want) <= 1.0
+    assert _bf16_limit_ratio(_wgmma_arithmetic(*args, window=window,
+                                               split=False), want) > 1.0
 
 
 # -- B7 -------------------------------------------------------------------------

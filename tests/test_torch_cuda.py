@@ -75,10 +75,24 @@ def test_decode_kernels_match_plain_versions(cuda, kv_dtype):
     assert fd.launch_count() == 4 and fd.plain_count() == 0
 
 
+# B4 cases: (B, H, KV, Sq, Sk, hd, causal, window) — every head dim with
+# GQA at a ragged S, causal with and without a window of no multiple of a
+# key tile, and non-causal with Sq != Sk
+FA_CUDA_CASES = [(2, 4, 2, 45, 45, 80, True, 0), (2, 4, 2, 45, 45, 80, True, 16),
+                 (1, 8, 2, 200, 200, 32, True, 100),
+                 (1, 8, 2, 200, 200, 64, True, 0),
+                 (1, 8, 2, 200, 200, 96, True, 100),
+                 (1, 8, 2, 200, 200, 128, True, 0),
+                 (1, 8, 2, 200, 200, 256, True, 100),
+                 (2, 4, 2, 50, 77, 64, False, 0),
+                 (1, 4, 1, 130, 70, 256, False, 0)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_prefill_kernels_match_plain_versions(cuda, dtype):
     """B4, B7 and B8 on the card against their plain versions at small
-    shapes with a ragged S: f32 within 2e-5·(1 + |plain|), x5 for B7 (the
+    shapes with a ragged S (B4 at every head dim, with GQA, windows and
+    non-causal Sq != Sk): f32 within 2e-5·(1 + |plain|), x5 for B7 (the
     reference's tests' atol = rtol); bf16 within that plus one bf16 ulp,
     since both round the f32 result once (chip_smoke.py holds them at the
     model geometries)."""
@@ -99,11 +113,11 @@ def test_prefill_kernels_match_plain_versions(cuda, dtype):
 
     for mod in (fa, ssd, wkv):
         mod.reset_counts()
-    q, k, v = rn(2, 4, 45, 80).to(dtype), rn(2, 2, 45, 80).to(dtype), \
-        rn(2, 2, 45, 80).to(dtype)
-    for w in (0, 16):
-        close(fa.flash_attention(q, k, v, window=w),
-              fa.flash_attention_plain(q, k, v, window=w))
+    for b, h, kvh, sq, sk, hd, causal, w in FA_CUDA_CASES:
+        q = rn(b, h, sq, hd).to(dtype)
+        k, v = rn(b, kvh, sk, hd).to(dtype), rn(b, kvh, sk, hd).to(dtype)
+        close(fa.flash_attention(q, k, v, causal=causal, window=w),
+              fa.flash_attention_plain(q, k, v, causal=causal, window=w))
     x, B, C = rn(2, 3, 45, 32).to(dtype), (rn(2, 45, 16) * 0.3).to(dtype), \
         (rn(2, 45, 16) * 0.3).to(dtype)
     args = (x, rn(2, 3, 45).abs() * 0.1 + 0.01,
@@ -115,7 +129,7 @@ def test_prefill_kernels_match_plain_versions(cuda, dtype):
     u = rn(4, 64) * 0.3
     close(wkv.wkv6_chunked(r, kk, vv, w, u), wkv.wkv6_plain(r, kk, vv, w, u))
     assert (fa.launch_count(), ssd.launch_count(), wkv.launch_count()) == \
-        (2, 1, 1)
+        (len(FA_CUDA_CASES), 1, 1)
     assert fa.plain_count() + ssd.plain_count() + wkv.plain_count() == 0
 
 
