@@ -75,12 +75,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     versions (``PF_F32_TOL``; bf16 outputs one bf16 ulp more) in f32 and
     bf16 at the model geometries of
     ``FA_SHAPES`` / ``SSD_SHAPES`` / ``WKV_SHAPES`` (zamba2-2.7b's shared
-    attention and SSD, phi3-mini-3.8b's and gemma3-4b's attention,
-    rwkv6-7b's WKV, all at 2 x 2048 tokens) and the reduced, ragged and
-    sweep shapes of the CPU tests; each timed at its model geometries
-    beside its plain version, its library call (SDPA for B4; none for B7
-    and B8) and its bound (operations over the rate of the units the form
-    runs on — 989 TFLOP/s of bf16 tensor cores for B4's bf16 form, 67
+    attention and SSD — the SSD also on the strided views ``mamba2_block``
+    passes — phi3-mini-3.8b's and gemma3-4b's attention, rwkv6-7b's WKV,
+    all at 2 x 2048 tokens) and the reduced, ragged and sweep shapes of
+    the CPU tests; each timed at its model geometries beside its plain
+    version, its library call (SDPA for B4; none for B7 and B8) and its
+    bound (operations over the rate of the units the form runs on — 989
+    TFLOP/s of bf16 tensor cores for the bf16 forms of B4 and B7, 67
     TFLOP/s of f32 otherwise — or bytes over the memory rate, the larger);
 15. prefill main path: ``launch.steps.make_prefill_step`` at full width in
     bf16 (weights from a seeded generator on the card) on 2 x 2048 random
@@ -1161,9 +1162,12 @@ FA_SHAPES = (("zamba2-2.7b", 2, 32, 32, 2048, 2048, 80, True, (0,)),
              ("hd96-gqa-ragged", 1, 8, 2, 200, 200, 96, True, (0, 100)),
              ("hd256-gqa-ragged", 1, 8, 2, 200, 200, 256, True, (0, 100)))
 # B7: (label, Bt, H, S, P, N) — zamba2-2.7b's SSD at 2 x 2048 tokens (80
-# heads of 64, state 64, chunk 256), the reduced zamba2 of the CPU tests at
-# a ragged S, and the reference's sweep
+# heads of 64, state 64, chunk 256) on contiguous tensors and on the views
+# ``mamba2_block`` passes (SSD_VIEWS), the reduced zamba2 of the CPU tests
+# at a ragged S, and the reference's sweep
+SSD_VIEWS = "zamba2-2.7b views"
 SSD_SHAPES = (("zamba2-2.7b", 2, 80, 2048, 64, 64),
+              (SSD_VIEWS, 2, 80, 2048, 64, 64),
               ("reduced-ragged", 2, 16, 45, 32, 16),
               ("sweep-1", 2, 3, 256, 64, 16), ("sweep-2", 1, 2, 128, 32, 64),
               ("sweep-3", 2, 1, 192, 64, 32), ("sweep-4", 1, 4, 64, 128, 8))
@@ -1217,13 +1221,23 @@ def _fa_inputs(shape, dtype, seed):
 
 def _ssd_inputs(shape, dtype, seed):
     """The reference's test distribution: dt = |N| 0.1 + 0.01, A_log =
-    log(linspace(1, 8)), B and C = 0.3 N, D = 1."""
-    _, bt, h, s, p, n = shape
+    log(linspace(1, 8)), B and C = 0.3 N, D = 1.  For SSD_VIEWS, the views
+    ``mamba2_block`` passes: x, B and C the columns of one (Bt, S, H·P +
+    2N) conv output (x as its (Bt, H, S, P) transpose), dt the (Bt, H, S)
+    transpose of a (Bt, S, H) tensor."""
+    label, bt, h, s, p, n = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    a_log = torch.log(torch.linspace(1.0, 8.0, h, device="cuda"))
+    if label == SSD_VIEWS:
+        conv = torch.cat([rn(bt, s, h * p), rn(bt, s, 2 * n) * 0.3],
+                         dim=-1).to(dtype)
+        x = conv[..., :h * p].view(bt, s, h, p).transpose(1, 2)
+        dt = (rn(bt, s, h).abs() * 0.1 + 0.01).transpose(1, 2)
+        B, C = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+        return x, dt, a_log, B, C, torch.ones(h, device="cuda")
     x = rn(bt, h, s, p).to(dtype)
     dt = rn(bt, h, s).abs() * 0.1 + 0.01
-    a_log = torch.log(torch.linspace(1.0, 8.0, h, device="cuda"))
     B = (rn(bt, s, n) * 0.3).to(dtype)
     C = (rn(bt, s, n) * 0.3).to(dtype)
     return x, dt, a_log, B, C, torch.ones(h, device="cuda")
@@ -1249,12 +1263,24 @@ def _band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
                for i in range(sq))
 
 
+def _ssd_chunked_flops(bt, h, s, p, n, q=64):
+    """The products of B7's bf16 form: per (b, h) and chunk of q steps,
+    C·Bᵀ (q x q x N), the masked decay matrix's two bf16 parts times x (q x
+    q x P), C times the state's two parts (q x N x P, from the second chunk
+    on) and xᵀ times W's two parts (P x q x N), 2 operations a
+    multiply-add; a ragged last chunk runs whole."""
+    nc = -(-s // q)
+    per_chunk = 2 * q * q * n + 2 * (2 * q * q * p) + 2 * (2 * p * q * n)
+    return bt * h * (nc * per_chunk + (nc - 1) * 2 * (2 * q * n * p))
+
+
 def _pf_bound(kernel, args, rate, window=0, causal=True):
     """(bound ms, bound_by, flops, bytes, op rate): each input read once,
     each output written once; the operations the kernel's algorithm does
     on these inputs (B4: the causal / window band only) at the rate of the
-    units it runs on — B4's bf16 form the dense bf16 tensor-core rate, the
-    rest the f32 rate of the CUDA cores."""
+    units it runs on — the bf16 forms of B4 and B7 the dense bf16
+    tensor-core rate (B7's chunked products, splits included), the rest
+    the f32 rate of the CUDA cores (B7's f32 form the step recurrence)."""
     op_rate = F32_RATE
     if kernel == "flash_attention":
         q, k, v = args
@@ -1269,7 +1295,11 @@ def _pf_bound(kernel, args, rate, window=0, causal=True):
         n = B.shape[-1]
         nbytes = (2 * x.numel() + B.numel() + C.numel()) * x.element_size() \
             + 4 * (dt.numel() + 2 * h)
-        flops = 5 * p * n * s * bt * h        # decay, update, y = h·C
+        if x.dtype == torch.bfloat16:
+            flops = _ssd_chunked_flops(bt, h, s, p, n)
+            op_rate = BF16_RATE
+        else:
+            flops = 5 * p * n * s * bt * h    # decay, update, y = h·C
     else:
         r, k, v, w, u = args
         b, h, s, kd = r.shape
@@ -1310,7 +1340,7 @@ def pf_kernel_phase(P, rate):
             "wkv6_chunked": _wkv_inputs}
     for ci, (kernel, shape, w) in enumerate(_pf_cases()):
         label = shape[0]
-        model = label in PF_MODELS
+        model = label.split()[0] in PF_MODELS
         kw = {}
         if kernel == "flash_attention":
             kw = {"causal": shape[7], "window": w}
@@ -1394,7 +1424,8 @@ def _prefill_profile(prefill, params, tokens):
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / (wall * 1e6),
             "b4_share": share("attention_kernel", "attention_wgmma_kernel"),
-            "b7_share": share("ssd_kernel"), "b8_share": share("wkv6_kernel"),
+            "b7_share": share("ssd_kernel", "ssd_wgmma_kernel"),
+            "b8_share": share("wkv6_kernel"),
             "top_kernels": [{"name": n[:90], "ms": us / 1e3,
                              "share": us / busy} for n, us in top]}
 
@@ -1975,9 +2006,10 @@ def main() -> int:
     report["prefill_parity"] = prefill_parity_phase(P)
     report["ops"] = ops_phase(P)
     # the main path's form of each: B4 bf16 at zamba2's shared attention,
-    # B7 bf16 at zamba2's SSD, B8 f32 (time_mix casts to f32) at rwkv6's
+    # B7 bf16 at zamba2's SSD on the block's views, B8 f32 (time_mix casts
+    # to f32) at rwkv6's
     main_form = {"flash_attention": ("zamba2-2.7b", "bfloat16"),
-                 "mamba_ssd_scan": ("zamba2-2.7b", "bfloat16"),
+                 "mamba_ssd_scan": (SSD_VIEWS, "bfloat16"),
                  "wkv6_chunked": ("rwkv6-7b", "float32")}
     for kernel, (ref_file, fn_line) in PF_REFERENCE.items():
         recs = pf_recs[kernel]

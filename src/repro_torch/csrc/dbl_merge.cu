@@ -23,10 +23,18 @@
 // bytes (plain, vel, master, master+vel); B3 20 (f32: read w, g, v[wid],
 // write w, v[wid]) or 22 (master: the bf16 shadow is written, never read).  At the full ResNet-18 store
 // (88,064 × 128 elements) that is 135–293 MB a step, a 40–87 µs bound at
-// the 3.35 TB/s of an H100 SXM.  The design therefore only has to stream:
-// one thread per 4 floats (16-byte float4 loads/stores, 8-byte stores of 4
-// bf16), a grid-stride loop over the whole contiguous buffer, and enough
-// blocks to keep every SM's load queue full.  The TPU's whole-buffer /
+// the 3.35 TB/s of an H100 SXM.  The design therefore only has to stream,
+// with as many loads in flight as the memory system takes: a thread owns
+// kUnroll = 2 float4 groups (16-byte loads/stores, 8-byte stores of 4
+// bf16) a pass and issues every load of both before it computes or stores
+// either; the grid covers the buffer in one pass (2752 blocks of 256 at
+// the full store), so no thread loops.  This form, PyTorch's add_ and a
+// ring of bulk async copies (TMA) through shared memory all stream the
+// plain form at about the same rate, some 84 % of the bytes bound: that
+// rate is the card's for two reads and a write in place.  Evict-first
+// cache hints looked faster only when the same buffers were swept back to
+// back, so they are not used.  chip_smoke.py phase 2 times the kernel in
+// turns with add_ and _fused_sgd_ (PERF.md §6).  The TPU's whole-buffer /
 // 1024-row tiling existed for VMEM and is not carried over.
 //
 // B3 is the same sweep over one worker's row block of the velocity (the
@@ -46,7 +54,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;   // 8 × 256 threads = an SM's 2048 threads
+constexpr int kUnroll = 2;        // float4 groups a thread loads before it stores
 
 __device__ __forceinline__ float4 load4(const float* p, int64_t i) {
   return reinterpret_cast<const float4*>(p)[i];
@@ -85,6 +93,13 @@ __device__ __forceinline__ float apply1(float w, float g, float lr) {
   return __fsub_rn(w, __fmul_rn(lr, g));
 }
 
+// Group u of a thread: float4 index blockIdx.x·kThreads·kUnroll +
+// u·kThreads + threadIdx.x, so each of the kUnroll loads is coalesced.
+__device__ __forceinline__ int64_t group_index(int u) {
+  return (static_cast<int64_t>(blockIdx.x) * kUnroll + u) * kThreads +
+         threadIdx.x;
+}
+
 // w: f32 params (or the f32 master when kMaster); shadow: bf16 store
 // written from the updated master (kMaster only); ga: the gradient (g_L when
 // kMerge); gb: g_S (kMerge only); v: f32 velocity (kVel only).  n4 counts
@@ -95,34 +110,44 @@ dbl_sweep(float* __restrict__ w, __nv_bfloat16* __restrict__ shadow,
           const float* __restrict__ ga, const float* __restrict__ gb,
           float* __restrict__ v, int64_t n4, float lr, float factor,
           float inv, float momentum) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n4; i += stride) {
-    float4 g = load4(ga, i);
+  float4 g[kUnroll], s[kUnroll], vv[kUnroll], p[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int64_t i = group_index(u);
+    if (i < n4) {
+      g[u] = load4(ga, i);
+      if constexpr (kMerge) s[u] = load4(gb, i);
+      if constexpr (kVel) vv[u] = load4(v, i);
+      p[u] = load4(w, i);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int64_t i = group_index(u);
+    if (i >= n4) continue;
+    float4 gu = g[u];
     if constexpr (kMerge) {
-      const float4 s = load4(gb, i);
-      g.x = merge1(g.x, s.x, factor, inv);
-      g.y = merge1(g.y, s.y, factor, inv);
-      g.z = merge1(g.z, s.z, factor, inv);
-      g.w = merge1(g.w, s.w, factor, inv);
+      gu.x = merge1(gu.x, s[u].x, factor, inv);
+      gu.y = merge1(gu.y, s[u].y, factor, inv);
+      gu.z = merge1(gu.z, s[u].z, factor, inv);
+      gu.w = merge1(gu.w, s[u].w, factor, inv);
     }
     if constexpr (kVel) {
-      float4 vv = load4(v, i);
-      vv.x = vel1(vv.x, g.x, momentum);
-      vv.y = vel1(vv.y, g.y, momentum);
-      vv.z = vel1(vv.z, g.z, momentum);
-      vv.w = vel1(vv.w, g.w, momentum);
-      store4(v, i, vv);
-      g = vv;
+      float4 vu = vv[u];
+      vu.x = vel1(vu.x, gu.x, momentum);
+      vu.y = vel1(vu.y, gu.y, momentum);
+      vu.z = vel1(vu.z, gu.z, momentum);
+      vu.w = vel1(vu.w, gu.w, momentum);
+      store4(v, i, vu);
+      gu = vu;
     }
-    float4 p = load4(w, i);
-    p.x = apply1(p.x, g.x, lr);
-    p.y = apply1(p.y, g.y, lr);
-    p.z = apply1(p.z, g.z, lr);
-    p.w = apply1(p.w, g.w, lr);
-    store4(w, i, p);
-    if constexpr (kMaster) store4_bf16(shadow, i, p);
+    float4 pu = p[u];
+    pu.x = apply1(pu.x, gu.x, lr);
+    pu.y = apply1(pu.y, gu.y, lr);
+    pu.z = apply1(pu.z, gu.z, lr);
+    pu.w = apply1(pu.w, gu.w, lr);
+    store4(w, i, pu);
+    if constexpr (kMaster) store4_bf16(shadow, i, pu);
   }
 }
 
@@ -135,34 +160,41 @@ dbl_worker_sweep(float* __restrict__ w, __nv_bfloat16* __restrict__ shadow,
                  const float* __restrict__ g, float* __restrict__ v,
                  int64_t n4, float lr, float factor, float momentum) {
   const float neg_lr = -lr;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n4; i += stride) {
-    const float4 gg = load4(g, i);
-    float4 vv = load4(v, i);
-    vv.x = vel1(vv.x, gg.x, momentum);
-    vv.y = vel1(vv.y, gg.y, momentum);
-    vv.z = vel1(vv.z, gg.z, momentum);
-    vv.w = vel1(vv.w, gg.w, momentum);
-    store4(v, i, vv);
-    float4 p = load4(w, i);
-    p.x = __fadd_rn(p.x, __fmul_rn(factor, __fmul_rn(neg_lr, vv.x)));
-    p.y = __fadd_rn(p.y, __fmul_rn(factor, __fmul_rn(neg_lr, vv.y)));
-    p.z = __fadd_rn(p.z, __fmul_rn(factor, __fmul_rn(neg_lr, vv.z)));
-    p.w = __fadd_rn(p.w, __fmul_rn(factor, __fmul_rn(neg_lr, vv.w)));
-    store4(w, i, p);
-    if constexpr (kMaster) store4_bf16(shadow, i, p);
+  float4 gg[kUnroll], vv[kUnroll], p[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int64_t i = group_index(u);
+    if (i < n4) {
+      gg[u] = load4(g, i);
+      vv[u] = load4(v, i);
+      p[u] = load4(w, i);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int64_t i = group_index(u);
+    if (i >= n4) continue;
+    float4 vu = vv[u];
+    vu.x = vel1(vu.x, gg[u].x, momentum);
+    vu.y = vel1(vu.y, gg[u].y, momentum);
+    vu.z = vel1(vu.z, gg[u].z, momentum);
+    vu.w = vel1(vu.w, gg[u].w, momentum);
+    store4(v, i, vu);
+    float4 pu = p[u];
+    pu.x = __fadd_rn(pu.x, __fmul_rn(factor, __fmul_rn(neg_lr, vu.x)));
+    pu.y = __fadd_rn(pu.y, __fmul_rn(factor, __fmul_rn(neg_lr, vu.y)));
+    pu.z = __fadd_rn(pu.z, __fmul_rn(factor, __fmul_rn(neg_lr, vu.z)));
+    pu.w = __fadd_rn(pu.w, __fmul_rn(factor, __fmul_rn(neg_lr, vu.w)));
+    store4(w, i, pu);
+    if constexpr (kMaster) store4_bf16(shadow, i, pu);
   }
 }
 
+// one pass: every thread handles kUnroll groups and no thread loops
 int grid_for(int64_t n4) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t want = (n4 + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
-  return static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
+  const int64_t per_block = static_cast<int64_t>(kThreads) * kUnroll;
+  const int64_t want = (n4 + per_block - 1) / per_block;
+  return static_cast<int>(want > 0 ? want : 1);
 }
 
 template <bool kMerge>

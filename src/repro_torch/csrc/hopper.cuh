@@ -68,6 +68,31 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// one box of a 4-D tensor map, as tma_load_3d
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// make this thread's shared-memory stores visible to the async proxy
+// (a wgmma that reads them), before the barrier that orders the two
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the byte offset of element (row, col) of a 32-byte-swizzled tile of
+// `rows` rows stored as chunks of 16 columns (the layout TMA writes)
+__device__ __forceinline__ uint32_t sw32_offset(int rows, int row, int col) {
+  return static_cast<uint32_t>((col / 16) * rows * 32 + row * 32 +
+                               (((col % 16) * 2) ^ (((row >> 2) & 1) << 4)));
+}
+
 // ---- wgmma -------------------------------------------------------------------
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -100,7 +125,8 @@ __device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo,
 }
 
 // D (64 x N, f32, in registers) = D·accumulate + A (64 x 16) · B (16 x N):
-//   ss: A and B from shared memory, both K-major (N = 64: a score tile);
+//   ss: A and B from shared memory, K-major by default; TA = 1 / TB = 1
+//       read A / B MN-major (the transpose flags of wgmma);
 //   rs: A from registers (the f32 accumulator layout of a 16-bit wgmma,
 //       four bf16x2 registers a thread), B from shared memory, MN-major
 //       (N = a head dim).
@@ -110,7 +136,39 @@ template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<16> {
+  template <int TA = 0, int TB = 0>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+
+};
+
+template <>
 struct Wgmma<32> {
+  template <int TA = 0, int TB = 0>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+
   static __device__ __forceinline__ void rs(float (&d)[16],
                                             const uint32_t* a, uint64_t b,
                                             int accumulate) {
@@ -129,6 +187,7 @@ struct Wgmma<32> {
 
 template <>
 struct Wgmma<64> {
+  template <int TA = 0, int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
                                             uint64_t b, int accumulate) {
     asm volatile(
@@ -136,7 +195,7 @@ struct Wgmma<64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -145,8 +204,9 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
   }
+
   static __device__ __forceinline__ void rs(float (&d)[32],
                                             const uint32_t* a, uint64_t b,
                                             int accumulate) {
@@ -224,6 +284,36 @@ struct Wgmma<96> {
 
 template <>
 struct Wgmma<128> {
+  template <int TA = 0, int TB = 0>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+
   static __device__ __forceinline__ void rs(float (&d)[64],
                                             const uint32_t* a, uint64_t b,
                                             int accumulate) {
@@ -340,26 +430,50 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A bf16 tensor of rank 2 to 5 whose innermost dimension is contiguous, as
+// a tensor map read in boxes of `box` (innermost 16 columns) under the
+// 32-byte swizzle.  dims innermost first; strides[i] the bytes between
+// steps of dimension i + 1 (each a multiple of 16).  Elements past a
+// dimension's end read as zeros.  Returns false if it cannot be made.
+inline bool bf16_map_sw32_strided(CUtensorMap* map, const void* base,
+                                  int rank, const uint64_t* dims,
+                                  const uint64_t* strides,
+                                  const uint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || rank < 2 || rank > 5 || box[0] != 16 ||
+      (reinterpret_cast<uintptr_t>(base) & 15) != 0)
+    return false;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], estride[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    estride[i] = 1;
+    if (i + 1 < rank) {
+      if (strides[i] % 16 != 0) return false;
+      st[i] = strides[i];
+    }
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(base), d, st, bx, estride,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A bf16 tensor of `mats` row-major (rows, cols) matrices as a 3-D tensor
 // map (cols, rows, mats) read in boxes of (16 columns, box_rows rows, 1)
 // under the 32-byte swizzle; rows past `rows` read as zeros, so a ragged
 // box never reaches the next matrix.  Returns false if it cannot be made.
 inline bool bf16_map_sw32(CUtensorMap* map, const void* base, int mats,
                           int rows, int cols, int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0)
-    return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(mats)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(rows) * cols * 2};
-  const cuuint32_t box[3] = {16, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t estride[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const uint64_t dims[3] = {static_cast<uint64_t>(cols),
+                            static_cast<uint64_t>(rows),
+                            static_cast<uint64_t>(mats)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(cols) * 2,
+                               static_cast<uint64_t>(rows) * cols * 2};
+  const uint32_t box[3] = {16, static_cast<uint32_t>(box_rows), 1};
+  return bf16_map_sw32_strided(map, base, 3, dims, strides, box);
 }
 
 }  // namespace hopper_host

@@ -52,9 +52,11 @@ def variant_of(t: torch.Tensor) -> str:
     return "bf16" if t.dtype == torch.bfloat16 else "f32"
 
 
-def check_launchable(name: str, *ts: torch.Tensor) -> None:
-    """Before a launch: every tensor on one CUDA device, contiguous, and
-    none asking for a gradient (the kernels have no backward: training
+def check_launchable(name: str, *ts: torch.Tensor,
+                     contiguous: bool = True) -> None:
+    """Before a launch: every tensor on one CUDA device, contiguous (unless
+    the kernel reads strides and checks them itself: ``contiguous=False``),
+    and none asking for a gradient (the kernels have no backward: training
     the LMs through them is ROADMAP A12's work)."""
     dev = ts[0].device
     if dev.type != "cuda":
@@ -62,7 +64,7 @@ def check_launchable(name: str, *ts: torch.Tensor) -> None:
     for t in ts:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: the kernel reads contiguous tensors; "
                              f"got strides {t.stride()} for shape "
                              f"{tuple(t.shape)}")

@@ -73,11 +73,12 @@ def _check(p2, grads, vel2, master2):
     elif p2.dtype != torch.bfloat16:
         raise ValueError(f"the master forms keep a bf16 shadow, got "
                          f"{p2.dtype}")
+    shape, dev = p2.shape, p2.device
     for t in [p2, *f32]:
-        if t.shape != p2.shape:
-            raise ValueError(f"shape {tuple(t.shape)} != {tuple(p2.shape)}")
-        if t.device != p2.device:
-            raise ValueError(f"buffers on {t.device} and {p2.device}")
+        if t.shape != shape:
+            raise ValueError(f"shape {tuple(t.shape)} != {tuple(shape)}")
+        if t.device != dev:
+            raise ValueError(f"buffers on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError("flat buffers must be contiguous")
         if t.requires_grad:
@@ -88,13 +89,20 @@ def _check(p2, grads, vel2, master2):
             raise ValueError(f"expected float32 buffer, got {t.dtype}")
 
 
-def _ptr(t: Optional[torch.Tensor], align: int):
+def _ptr(t: Optional[torch.Tensor], align: int) -> Optional[int]:
     if t is None:
         return None
     p = t.data_ptr()
     if p % align:
         raise ValueError(f"buffer not {align}-byte aligned")
-    return ctypes.c_void_p(p)
+    return p
+
+
+def _launch(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` on ``dev``'s current stream, with ``dev`` the
+    current device."""
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def _lib():
@@ -183,11 +191,9 @@ def dbl_apply_flat2d(p2, g2, *, lr: float, vel2=None, momentum: float = 0.0,
         raise ValueError(f"no dbl_apply_flat2d kernel for {p2.device}")
     w = p2 if master2 is None else master2
     shadow = None if master2 is None else p2
-    with torch.cuda.device(p2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().repro_dbl_apply_flat2d(
-            _ptr(w, 16), _ptr(shadow, 8), _ptr(g2, 16), _ptr(vel2, 16),
-            w.numel(), float(lr), float(momentum), ctypes.c_void_p(stream))
+    err = _launch(p2.device, _lib().repro_dbl_apply_flat2d, _ptr(w, 16),
+                  _ptr(shadow, 8), _ptr(g2, 16), _ptr(vel2, 16), w.numel(),
+                  float(lr), float(momentum))
     _raise_on(err, "dbl_apply_flat2d")
     _COUNTS.launch("dbl_apply_flat2d", variant)
     return _outputs(p2, vel2, master2)
@@ -212,12 +218,10 @@ def dbl_merge_flat2d(p2, gl2, gs2, *, factor: float, lr: float, vel2=None,
     factor = float(factor)
     w = p2 if master2 is None else master2
     shadow = None if master2 is None else p2
-    with torch.cuda.device(p2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().repro_dbl_merge_flat2d(
-            _ptr(w, 16), _ptr(shadow, 8), _ptr(gl2, 16), _ptr(gs2, 16),
-            _ptr(vel2, 16), w.numel(), float(lr), factor,
-            1.0 / (1.0 + factor), float(momentum), ctypes.c_void_p(stream))
+    err = _launch(p2.device, _lib().repro_dbl_merge_flat2d, _ptr(w, 16),
+                  _ptr(shadow, 8), _ptr(gl2, 16), _ptr(gs2, 16),
+                  _ptr(vel2, 16), w.numel(), float(lr), factor,
+                  1.0 / (1.0 + factor), float(momentum))
     _raise_on(err, "dbl_merge_flat2d")
     _COUNTS.launch("dbl_merge_flat2d", variant)
     return _outputs(p2, vel2, master2)
@@ -307,11 +311,9 @@ def dbl_apply_worker_flat2d(p2, g2, vel3, wid, lr, factor, momentum, *,
                          f"{p2.device}")
     w = p2 if master2 is None else master2
     shadow = None if master2 is None else p2
-    with torch.cuda.device(p2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().repro_dbl_apply_worker_flat2d(
-            _ptr(w, 16), _ptr(shadow, 8), _ptr(g2, 16), _ptr(vel3, 16),
-            w.numel(), wid, lr, factor, momentum, ctypes.c_void_p(stream))
+    err = _launch(p2.device, _lib().repro_dbl_apply_worker_flat2d,
+                  _ptr(w, 16), _ptr(shadow, 8), _ptr(g2, 16), _ptr(vel3, 16),
+                  w.numel(), wid, lr, factor, momentum)
     _raise_on(err, "dbl_apply_worker_flat2d")
     _COUNTS.launch("dbl_apply_worker_flat2d", variant)
     return (p2, vel3) if master2 is None else (p2, master2, vel3)

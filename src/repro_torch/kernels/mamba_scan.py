@@ -4,10 +4,26 @@
 (``csrc/mamba_scan.cu``) in place of the reference's Pallas TPU kernel
 (``kernels/mamba_scan.py`` ``mamba_ssd_scan``): per (b, h) a ``(P, N)``
 state from zero, ``h = exp(dt·a)·h + (dt·x) ⊗ B`` and ``y = h·C + D·x``
-with ``a = −exp(A_log)``, in f32.  The kernel runs this recurrence step by
-step (the cheaper form without tensor cores, see its source note), so
-``chunk`` changes only the float order of the chunked forms it stands in
-for; it is kept for the reference's signature, and any ``S`` is taken.
+with ``a = −exp(A_log)``, in f32.  It has two routes, chosen by dtype,
+and neither falls back to the other:
+
+* bf16 runs the chunked SSD decomposition on the tensor cores (``wgmma``)
+  over chunks of 64 steps, with the f32 factors (decays, dt, the state)
+  folded onto one side of each product and split into two bf16 parts;
+* f32 runs the recurrence step by step on the CUDA cores.
+
+Either way ``chunk`` changes only the float order of the chunked forms
+(the kernel's chunk is 64 whatever it says); it is kept for the
+reference's signature, and any ``S`` is taken.  One call launches one
+CUDA kernel.
+
+The kernel reads x, dt, B and C through their strides and writes y in
+``(Bt, S, H, P)`` memory order, returned as the ``(Bt, H, S, P)`` view, so
+``models.mamba2.mamba2_block`` hands over its views of the conv output
+and gets y back without a copy either way.  What a load needs is checked,
+never repaired by a copy: the last dimension of x, B and C contiguous,
+and for the bf16 route (TMA) their bases and outer strides 16-byte
+aligned.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor — and only then — it runs the plain version, the per-step oracle
@@ -46,17 +62,49 @@ def _lib():
     lib = library("mamba_scan")
     if not getattr(lib, "_repro_bound", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_mamba_ssd_scan.argtypes = [vp] * 7 + [i32] * 6 + [vp]
+        lib.repro_mamba_ssd_scan.argtypes = [vp] * 8 + [i32] * 6 + [vp]
         lib.repro_mamba_ssd_scan.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
 
 
+def _strides(t: torch.Tensor, dims) -> list:
+    """Element strides of ``t`` over ``dims``; a dimension of size 1 takes
+    the stride of the dimension inside it times that one's size (its own
+    stride is never used, and may be anything)."""
+    st = list(t.stride())
+    for d in range(t.dim() - 2, -1, -1):
+        if t.shape[d] == 1:
+            st[d] = st[d + 1] * t.shape[d + 1]
+    return [st[d] for d in dims]
+
+
+def _check_loads(name, x, B, C, bf16: bool) -> None:
+    """What the kernel's loads need of x, B and C: the last dimension
+    contiguous; for the bf16 route (TMA) a 16-byte-aligned base and outer
+    strides of whole 16-byte units.  Anything else is refused."""
+    for label, t in (("x", x), ("B", B), ("C", C)):
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"{name}: {label} must have a contiguous last "
+                             f"dimension; got strides {t.stride()} for shape "
+                             f"{tuple(t.shape)}")
+        if not bf16:
+            continue
+        outer = _strides(t, range(t.dim() - 1))
+        if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in outer):
+            raise ValueError(f"{name}: the bf16 kernel loads {label} by TMA, "
+                             "which needs a 16-byte-aligned base and strides "
+                             f"of whole 16 bytes; got strides {t.stride()} and "
+                             f"base offset {t.data_ptr() % 16} for shape "
+                             f"{tuple(t.shape)}")
+
+
 def mamba_ssd_scan(x, dt, A_log, B, C, D_skip, *, chunk: int = 128):
     """x: (Bt, H, S, P); dt: (Bt, H, S); A_log, D_skip: (H,); B, C:
-    (Bt, S, N) (one group).  Returns y (Bt, H, S, P) in x's dtype (B7),
-    from a zero state.  x, B and C share one dtype, f32 or bf16; dt,
-    A_log and D_skip are read as f32."""
+    (Bt, S, N) (one group), any of them strided views.  Returns y
+    (Bt, H, S, P) in x's dtype (B7), from a zero state; on the card the
+    ``(Bt, H, S, P)`` view of ``(Bt, S, H, P)`` memory.  x, B and C share
+    one dtype, f32 or bf16; dt, A_log and D_skip are read as f32."""
     name = "mamba_ssd_scan"
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be (Bt, H, S, P), got "
@@ -80,13 +128,20 @@ def mamba_ssd_scan(x, dt, A_log, B, C, D_skip, *, chunk: int = 128):
         return mamba_ssd_plain(x, dt, A_log, B, C, D_skip)
     if n not in STATE_DIMS:
         raise ValueError(f"{name}: N {n} must be one of {STATE_DIMS}")
-    _c.check_launchable(name, x, dt, A_log, B, C, D_skip)
-    dtf, af, df = (t.float().contiguous() for t in (dt, A_log, D_skip))
-    y = torch.empty_like(x)
+    _c.check_launchable(name, x, dt, A_log, B, C, D_skip, contiguous=False)
+    bf16 = x.dtype == torch.bfloat16
+    _check_loads(name, x, B, C, bf16)
+    dtf = dt.float()
+    af, df = (t.float().contiguous() for t in (A_log, D_skip))
+    y = torch.empty((bt, s, h, p), dtype=x.dtype,
+                    device=x.device).transpose(1, 2)
+    strides = (ctypes.c_int64 * 13)(
+        *_strides(x, (0, 1, 2)), *_strides(dtf, (0, 1, 2)),
+        *_strides(B, (0, 1)), *_strides(C, (0, 1)), *_strides(y, (0, 1, 2)))
     err = _lib().repro_mamba_ssd_scan(
         _c.ptr(x), _c.ptr(dtf), _c.ptr(af), _c.ptr(B), _c.ptr(C), _c.ptr(df),
-        _c.ptr(y), bt, h, s, p, n, int(x.dtype == torch.bfloat16),
-        _c.stream_of(x))
+        _c.ptr(y), ctypes.cast(strides, ctypes.c_void_p), bt, h, s, p, n,
+        int(bf16), _c.stream_of(x))
     _c.raise_on(err, name)
     _COUNTS.launch(name, variant)
     return y

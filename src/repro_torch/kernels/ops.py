@@ -13,8 +13,9 @@ that take ``(B, S, H, ·)``, which the port does not copy).
 
 ``backend`` and ``chunk`` exist for the reference's signatures only: the
 tensor's device picks the branch (``backend`` can only confirm it or
-raise), and B7 and B8 loop over the whole sequence in one block, so
-``chunk`` changes nothing.
+raise), and ``chunk`` changes nothing: B7 runs chunks of 64 steps in bf16
+and the recurrence step by step in f32, B8 loops over the whole sequence
+in one block.
 """
 from __future__ import annotations
 

@@ -5,9 +5,13 @@ depthwise convolution and the block around them.
 the output is a masked ``(C_i·B_j)·decay`` product, across chunks a
 ``(heads, head_dim, d_state)`` state carries the chunk's total decay.  On
 CUDA tensors ``mamba2_block`` launches the hand-written kernel B7
-(``kernels.mamba_scan``) instead, on ``(Bt, H, S, P)`` copies of the
-heads: it runs the same recurrence step by step in f32, which the chunked
-form equals up to float order; on the CPU the block runs ``ssd_chunked``.
+(``kernels.mamba_scan``) instead — in bf16 the same chunked form on the
+tensor cores (chunks of 64), in f32 the recurrence step by step, each
+equal to ``ssd_chunked`` up to float order — on views of the heads
+(``(Bt, H, S, P)`` transposes of the conv output's columns, dt and the B
+and C columns as they are) and takes y back as a view of ``(Bt, S, H,
+P)`` memory, so no copy is made on either side; on the CPU the block
+runs ``ssd_chunked``.
 The one-token decode step (``ssd_decode_step``, ``mamba2_decode``) waits
 for the decode slice (ROADMAP A14).
 """
@@ -123,10 +127,11 @@ def mamba2_block(p, x, cfg):
     xs, Bv, Cv = torch.split(conv_out, [d_in, n, n], dim=-1)
     xh = xs.reshape(bt, s, nh, s_cfg.head_dim)
     if x.device.type == "cuda":
+        # views in, a view out: B7 reads the strides of the conv output's
+        # columns and writes y in (Bt, S, H, P) memory
         y = _ssd.mamba_ssd_scan(
-            xh.transpose(1, 2).contiguous(), dt.transpose(1, 2).contiguous(),
-            p["A_log"], Bv.contiguous(), Cv.contiguous(), p["D"],
-            chunk=s_cfg.chunk).transpose(1, 2)
+            xh.transpose(1, 2), dt.transpose(1, 2), p["A_log"], Bv, Cv,
+            p["D"], chunk=s_cfg.chunk).transpose(1, 2)
     else:
         y, _ = ssd_chunked(xh, dt, p["A_log"], Bv, Cv, p["D"],
                            chunk=s_cfg.chunk)

@@ -19,10 +19,12 @@ forms).  Measured here at most 2.2e-6 (B4), 1.0e-6 (B7) and 2.4e-6 (B8)
 in f32.
 
 B4's bf16 form on the card computes S from the bf16 operands in f32 and
-P·V with P split into two bf16 parts (tensor-core ``wgmma``); that
-arithmetic, emulated in plain PyTorch, is held against the Pallas kernel
-within ``chip_smoke.py``'s bf16 limit (2e-5·(1 + |ref|) plus one bf16
-ulp), and P rounded to bf16 once is shown to break it.
+P·V with P split into two bf16 parts (tensor-core ``wgmma``); B7's bf16
+form runs the chunked SSD with each f32 factor (decay, dt, the state)
+folded onto one side of a product and split the same way.  Both, emulated
+in plain PyTorch, are held against the Pallas kernels within
+``chip_smoke.py``'s bf16 limit (2e-5·(1 + |ref|), x5 for B7, plus one bf16
+ulp), and rounding those operands to bf16 once is shown to break it.
 
 The wrappers, given CPU tensors, run their plain versions and count a
 plain run, never a launch; they refuse other devices.  On the card
@@ -152,12 +154,13 @@ def _wgmma_arithmetic(q, k, v, *, causal=True, window=0, split=True):
     return (acc / l.clamp_min(1e-30)).bfloat16()
 
 
-def _bf16_limit_ratio(got, want):
-    """Worst |got − want| over phase 14's bf16 limit: 2e-5·(1 + |want|)
-    plus one bf16 ulp of the larger magnitude."""
+def _bf16_limit_ratio(got, want, scale=1.0):
+    """Worst |got − want| over phase 14's bf16 limit: 2e-5·scale·(1 +
+    |want|) plus one bf16 ulp of the larger magnitude."""
     g, w = got.float(), want.float()
     a = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
-    limit = 2e-5 * (1 + w.abs()) + torch.exp2(torch.floor(torch.log2(a)) - 7)
+    limit = 2e-5 * scale * (1 + w.abs()) \
+        + torch.exp2(torch.floor(torch.log2(a)) - 7)
     return float(((g - w).abs() / limit).max())
 
 
@@ -208,6 +211,64 @@ def test_mamba_ssd_matches_pallas(bt, h, s, p, n, chunk, dt):
     _close(got, want, SSD_SCALE * TOL[dt])
     assert ssd.plain_count("mamba_ssd_scan", dt) == 1
     assert ssd.launch_count() == 0
+
+
+def _ssd_wgmma_arithmetic(x, dt, A_log, B, C, D_skip, *, split=True, q=64):
+    """The arithmetic of B7's bf16 tensor-core form in plain PyTorch, over
+    chunks of q = 64 steps (a ragged last chunk padded with zero rows):
+    cum the running sum of dt·a in the chunk; C·Bᵀ from the bf16 operands
+    in f32 (each product exact); the decay exp(cum_i − cum_j) selected for
+    j ≤ i, times C·Bᵀ and dt_j, split into bf16(M) + bf16(M − bf16(M)) and
+    multiplied into bf16 x; C times the f32 state's two bf16 parts, times
+    exp(cum_i); the state times exp(cum_Q) plus xᵀ times the two parts of B
+    ⊙ dt_j·exp(cum_Q − cum_j); + D·x, rounded once to bf16.  With
+    ``split=False`` each f32 operand is rounded to bf16 once instead."""
+    bt, h, s, p = x.shape
+    bf = lambda v: v.bfloat16().float()
+    parts = (lambda v: (bf(v), bf(v - bf(v)))) if split else (
+        lambda v: (bf(v),))
+    a = -torch.exp(A_log.float())
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    state = torch.zeros(bt, h, p, B.shape[-1])
+    keep = torch.arange(q)[:, None] >= torch.arange(q)[None, :]
+    ys = []
+    for c0 in range(0, s, q):
+        n = min(q, s - c0)
+        pad = lambda t, dim: torch.nn.functional.pad(
+            t[(slice(None),) * dim + (slice(c0, c0 + n),)],
+            [0, 0] * (t.dim() - 1 - dim) + [0, q - n])
+        xc, dc = pad(xf, 2), pad(dtf, 2)                # (bt,h,q,p), (bt,h,q)
+        Bc, Cc = pad(Bf, 1), pad(Cf, 1)                 # (bt,q,N)
+        cum = torch.cumsum(dc * a[None, :, None], -1)   # (bt,h,q)
+        diff = torch.where(keep, cum[..., :, None] - cum[..., None, :], 0.0)
+        cb = (Cc @ Bc.transpose(1, 2))[:, None]         # (bt,1,q,q)
+        m = torch.where(keep, cb * torch.exp(diff) * dc[..., None, :], 0.0)
+        y = sum(Cc[:, None] @ part.transpose(-1, -2) for part in parts(state))
+        y = y * torch.exp(cum)[..., None]
+        for part in parts(m):
+            y = y + part @ xc
+        w = Bc[:, None] * (dc * torch.exp(cum[..., -1:] - cum))[..., None]
+        state = state * torch.exp(cum[..., -1])[..., None, None]
+        for part in parts(w):
+            state = state + xc.transpose(-1, -2) @ part
+        ys.append((y + xc * D_skip.float()[None, :, None, None])[:, :, :n])
+    return torch.cat(ys, 2).to(x.dtype)
+
+
+@pytest.mark.parametrize("bt,h,s,p,n,chunk", SSD_CASES)
+def test_ssd_tensor_core_arithmetic_matches_pallas(bt, h, s, p, n, chunk):
+    """B7's bf16 form, emulated here, lies within phase 14's bf16 limit of
+    the Pallas kernel (interpret mode, all f32 inside) with the SSD scale of
+    5; rounding each f32 operand to bf16 once instead breaks that limit
+    (measured 2.1-13x it at these cases)."""
+    args = _ssd_inputs(bt, h, s, p, n, "bf16")
+    want = torch.from_numpy(np.asarray(jssd.mamba_ssd_scan(
+        *map(jnp.asarray, args), chunk=chunk, interpret=True), np.float32))
+    ts = [_t(a) for a in args]
+    assert _bf16_limit_ratio(_ssd_wgmma_arithmetic(*ts), want,
+                             SSD_SCALE) <= 1.0
+    assert _bf16_limit_ratio(_ssd_wgmma_arithmetic(*ts, split=False), want,
+                             SSD_SCALE) > 1.0
 
 
 def test_mamba_ssd_where_the_chunk_must_shrink():

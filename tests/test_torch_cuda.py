@@ -133,6 +133,70 @@ def test_prefill_kernels_match_plain_versions(cuda, dtype):
     assert fa.plain_count() + ssd.plain_count() + wkv.plain_count() == 0
 
 
+def _close_ssd(got, want, dtype):
+    """Phase 14's B7 limit: 1e-4·(1 + |plain|), plus one bf16 ulp of the
+    larger magnitude for bf16 outputs."""
+    g, p = got.float(), want.float()
+    limit = 1e-4 * (1.0 + p.abs())
+    if dtype == torch.bfloat16:
+        a = torch.maximum(g.abs(), p.abs()).clamp_min(2.0 ** -126)
+        limit = limit + torch.exp2(torch.floor(torch.log2(a)) - 7)
+    assert bool(((g - p).abs() <= limit).all()), \
+        float(((g - p).abs() / limit).max())
+
+
+def _ssd_views(cuda, dtype, bt=2, s=150, h=6, p=64, n=32, offset=0):
+    """The views ``mamba2_block`` hands B7: x, B and C columns of one
+    (Bt, S, H·P + 2N) conv output (x as its (Bt, H, S, P) transpose; the
+    columns start ``offset`` elements in), dt the transpose of a (Bt, S, H)
+    f32 tensor."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rn = lambda *sh: torch.randn(*sh, generator=gen, device=cuda)
+    conv = torch.cat([rn(bt, s, offset), rn(bt, s, h * p),
+                      rn(bt, s, 2 * n) * 0.3], dim=-1).to(dtype)
+    o = offset
+    x = conv[..., o:o + h * p].view(bt, s, h, p).transpose(1, 2)
+    dt = (rn(bt, s, h).abs() * 0.1 + 0.01).transpose(1, 2)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=cuda))
+    return (x, dt, a_log, conv[..., o + h * p:o + h * p + n],
+            conv[..., o + h * p + n:], torch.ones(h, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_reads_the_block_views(cuda, dtype):
+    """B7 on the strided views ``mamba2_block`` passes (S ragged to the
+    bf16 route's chunks of 64) equals B7 on contiguous copies bit for bit,
+    hands y back as the (Bt, H, S, P) view of (Bt, S, H, P) memory, and
+    lies within phase 14's limit of the plain version."""
+    from repro_torch.kernels import mamba_scan as ssd
+    args = _ssd_views(cuda, dtype)
+    assert not args[0].is_contiguous() and not args[3].is_contiguous()
+    ssd.reset_counts()
+    got = ssd.mamba_ssd_scan(*args)
+    assert got.transpose(1, 2).is_contiguous()
+    copies = ssd.mamba_ssd_scan(*(t.contiguous() for t in args))
+    assert torch.equal(got, copies)
+    _close_ssd(got, ssd.mamba_ssd_plain(*args), dtype)
+    assert ssd.launch_count() == 2 and ssd.plain_count() == 0
+
+
+def test_ssd_refuses_views_it_cannot_read(cuda):
+    """A last dimension that is not contiguous, or (bf16, loaded by TMA) a
+    base and row stride off 16 bytes, is refused with a ValueError, never
+    copied."""
+    from repro_torch.kernels import mamba_scan as ssd
+    x, dt, a_log, B, C, D = _ssd_views(cuda, torch.float32, p=32)
+    x_cols = x.transpose(2, 3).contiguous().transpose(2, 3)   # P strided
+    b_cols = B.transpose(1, 2).contiguous().transpose(1, 2)   # N strided
+    ssd.reset_counts()
+    for bad in ((x_cols, dt, a_log, B, C, D), (x, dt, a_log, b_cols, C, D)):
+        with pytest.raises(ValueError, match="contiguous last dimension"):
+            ssd.mamba_ssd_scan(*bad)
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd.mamba_ssd_scan(*_ssd_views(cuda, torch.bfloat16, offset=1))
+    assert ssd.launch_count() == 0
+
+
 def test_prefill_step_launches_the_kernels(cuda):
     """make_prefill_step on a reduced f32 zamba2 (6 layers) on the card:
     one B7 launch per Mamba2 layer, one B4 per shared-block call, no plain
