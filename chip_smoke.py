@@ -55,7 +55,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     scrambled page table, a dead sentinel row and the windows of
     ``FD_SHAPES``; each timed at its first window beside its plain
     version, its library call (SDPA for B5; for B6 none, with gather +
-    SDPA as a note) and its bytes bound;
+    SDPA as a note) and its bytes bound, f32 and bf16 pages side by side;
+    B6 also at every cluster size of ``CLUSTER_SIZES`` (checked at every
+    shape, timed at the two full geometries);
 12. serving main path: ``ServeEngine(backend="paged")`` on
     ``phi3-mini-3.8b`` at full width (32 layers, bf16 params, f32 pages,
     weights from a seeded generator on the card) serving the 16 requests
@@ -77,18 +79,21 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     ``FA_SHAPES`` / ``SSD_SHAPES`` / ``WKV_SHAPES`` (zamba2-2.7b's shared
     attention and SSD — the SSD also on the strided views ``mamba2_block``
     passes — phi3-mini-3.8b's and gemma3-4b's attention, rwkv6-7b's WKV,
-    all at 2 x 2048 tokens) and the reduced, ragged and sweep shapes of
-    the CPU tests; each timed at its model geometries beside its plain
+    also in the model's form: bf16 views of r, k, v, an f32 decay and an
+    f32 output, as ``time_mix`` passes them — all at 2 x 2048 tokens), a
+    strong-decay WKV (w down to 1e-20) and the reduced, ragged and sweep
+    shapes of the CPU tests (B8's bf16 cases keep w in f32, as the card's
+    kernel takes it); each timed at its model geometries beside its plain
     version, its library call (SDPA for B4; none for B7 and B8) and its
     bound (operations over the rate of the units the form runs on — 989
-    TFLOP/s of bf16 tensor cores for the bf16 forms of B4 and B7, 67
+    TFLOP/s of bf16 tensor cores for the bf16 forms of B4, B7 and B8, 67
     TFLOP/s of f32 otherwise — or bytes over the memory rate, the larger);
 15. prefill main path: ``launch.steps.make_prefill_step`` at full width in
     bf16 (weights from a seeded generator on the card) on 2 x 2048 random
     tokens, zamba2-2.7b (45 B7 and 9 B4 launches a forward) then
     rwkv6-7b (32 B8), no plain runs, finite (2, vocab) logits; ms per
     prefill, tokens/s, a profile of one prefill (device idle share, top
-    kernels, B4 / B7 / B8 shares) and peak memory;
+    kernels, B4 / B7 / B8 shares, the copy kernels' time) and peak memory;
 16. prefill parity: reduced f32 zamba2-2.7b (6 layers), rwkv6-7b,
     gemma3-4b (window 16) and phi3-mini-3.8b on the card (B4 / B7 / B8)
     against the CPU port (the reference's scans), within
@@ -225,6 +230,24 @@ def cuda_ms(fn, per_group: int = 20, groups: int = 7,
         b.synchronize()
         times.append(a.elapsed_time(b) / per_group)
     return statistics.median(times)
+
+
+def device_ms(fn, names, n: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: ``torch.profiler``'s CUDA
+    time of the kernels whose names hold one of ``names``, over ``n``
+    calls after one warm-up.  Unlike ``cuda_ms`` it does not count the gaps
+    in which the card waits for the host between two short calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in ev.name for k in names))
+    return us / 1e3 / n
 
 
 # ------------------------------ phase 2: kernels -----------------------------
@@ -740,6 +763,10 @@ def fd_kernel_phase(FD, rate):
                             rec.update(_fd_times(
                                 FD, name, q, kp, vp, tbl, lens, kc, vc, pos,
                                 w, lengths, n_keys, rate))
+                        if name == "flash_decode_paged":
+                            rec.update(_fd_splits(
+                                FD, q, kp, vp, tbl, lens, w, r6, label,
+                                timed=wi == 0 and si < 2))
                         out[name].append(rec)
                 del q, kp, vp, tbl, lens, kc, vc
         log(f"  B5/B6 {label}: rows {rows}, heads {h}/{kvh}, hd {hd}, "
@@ -747,19 +774,57 @@ def fd_kernel_phase(FD, rate):
             "tolerance of the plain versions (q and cache bf16 / f32)")
         for name in out:
             for r in out[name]:
+                if r["shape"] == label and "split_ms" in r:
+                    log(f"    flash_decode_paged q {r['q']} cache "
+                        f"{r['cache']} by cluster size (chosen "
+                        f"{r['split']}), event / device time: " + ", ".join(
+                            f"{c}: {t * 1e3:.1f} / "
+                            f"{r['split_device_ms'][c] * 1e3:.1f} us "
+                            f"({r['bound_ms'] / r['split_device_ms'][c]:.0%}"
+                            " of bound)" for c, t in r["split_ms"].items()))
                 if r["shape"] == label and "ms" in r:
                     log(f"    {name} q {r['q']} cache {r['cache']}: kernel "
-                        f"{r['ms'] * 1e3:.1f} us, plain "
+                        f"{r['ms'] * 1e3:.1f} us (device "
+                        f"{r['device_ms'] * 1e3:.1f} us), plain "
                         f"{r['plain_ms'] * 1e3:.1f} us, library "
                         + ("-" if r["library_ms"] is None
                            else f"{r['library_ms'] * 1e3:.1f} us")
                         + (f" (gather + SDPA {r['gather_sdpa_ms'] * 1e3:.1f}"
                            " us)" if "gather_sdpa_ms" in r else "")
                         + f", bound {r['bound_ms'] * 1e3:.1f} us by "
-                        f"{r['bound_by']} ({r['bound_ms'] / r['ms']:.0%}), "
+                        f"{r['bound_by']} ({r['bound_ms'] / r['ms']:.0%}; "
+                        f"device {r['bound_ms'] / r['device_ms']:.0%}), "
                         f"err {r['max_abs_err']:.3g}")
     torch.cuda.empty_cache()
     return out
+
+
+def _fd_splits(FD, q, kp, vp, tbl, lens, w, ref, label, timed):
+    """B6 at every cluster size the wrapper can choose, each against the
+    plain version (within the phase's tolerance) and, where ``timed``,
+    each timed; the size the wrapper chooses itself."""
+    n_pages, page_len, kvh = kp.shape[:3]
+    rec = {"split": FD.cluster_size(
+        q.shape[0], q.shape[1], kvh, tbl.shape[1] * page_len,
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        q.shape[3], kp.element_size())}
+    times, dev = {}, {}
+    for c in FD.CLUSTER_SIZES:
+        call = lambda: FD.flash_decode_paged(q, kp, vp, tbl, lens, window=w,
+                                             split=c)
+        out = call()
+        torch.cuda.synchronize()
+        err, ok, worst = _fd_err(out, ref)
+        if not ok:
+            raise AssertionError(
+                f"flash_decode_paged {label} window {w} cluster {c}: kernel "
+                f"differs from its plain version by {err}; worst {worst}")
+        if timed:
+            times[c] = cuda_ms(call)
+            dev[c] = device_ms(call, ("paged_kernel",))
+    if timed:
+        rec.update(split_ms=times, split_device_ms=dev)
+    return rec
 
 
 def _fd_times(FD, name, q, kp, vp, tbl, lens, kc, vc, pos, w, lengths,
@@ -782,6 +847,9 @@ def _fd_times(FD, name, q, kp, vp, tbl, lens, kc, vc, pos, w, lengths,
     nops = sum(live) * h * hd * 4
     bound_s = max(nbytes / rate, nops / F32_RATE)
     rec = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+           "device_ms": device_ms(kern, ("paged_kernel" if name ==
+                                         "flash_decode_paged" else
+                                         "decode_kernel",)),
            "bound_ms": bound_s * 1e3,
            "bound_by": "bytes" if nbytes / rate >= nops / F32_RATE
            else "operations", "bytes": nbytes, "live_keys": sum(live)}
@@ -877,7 +945,7 @@ def _profile_share(profiled, timed):
         for name, us in t["kernels_us"].items():
             kern[name] = kern.get(name, 0.0) + us
     busy = sum(kern.values())
-    b6 = sum(us for name, us in kern.items() if "decode_kernel" in name)
+    b6 = sum(us for name, us in kern.items() if "paged_kernel" in name)
     wall_us = sum(t["wall_s"] for t in profiled) * 1e6
     mean_at = {}
     for s_, m in zip(timed["tick_s"], timed["rows"]):
@@ -1171,9 +1239,16 @@ SSD_SHAPES = (("zamba2-2.7b", 2, 80, 2048, 64, 64),
               ("reduced-ragged", 2, 16, 45, 32, 16),
               ("sweep-1", 2, 3, 256, 64, 16), ("sweep-2", 1, 2, 128, 32, 64),
               ("sweep-3", 2, 1, 192, 64, 32), ("sweep-4", 1, 4, 64, 128, 8))
-# B8: (label, B, H, S, K, V) — rwkv6-7b's WKV at 2 x 2048 tokens, the
-# reduced rwkv6 at a ragged S, and the reference's sweep
+# B8: (label, B, H, S, K, V) — rwkv6-7b's WKV at 2 x 2048 tokens on
+# contiguous tensors and in the model's form (WKV_VIEWS: the views
+# ``time_mix`` passes, f32 output), strong decays (WKV_STRONG, the model's
+# form, w = exp(−exp(U(−3, ln 46))) down to 1e-20), the reduced rwkv6 at
+# a ragged S, and the reference's sweep
+WKV_VIEWS = "rwkv6-7b views"
+WKV_STRONG = "strong-decay views"
 WKV_SHAPES = (("rwkv6-7b", 2, 64, 2048, 64, 64),
+              (WKV_VIEWS, 2, 64, 2048, 64, 64),
+              (WKV_STRONG, 2, 8, 300, 64, 64),
               ("reduced-ragged", 2, 4, 45, 64, 64),
               ("sweep-1", 2, 2, 128, 32, 32), ("sweep-2", 1, 3, 96, 64, 64),
               ("sweep-3", 1, 1, 64, 128, 64))
@@ -1244,14 +1319,27 @@ def _ssd_inputs(shape, dtype, seed):
 
 
 def _wkv_inputs(shape, dtype, seed):
-    """The reference's test distribution: r, k, v = 0.5 N, w =
-    sigmoid(N)/2 + 1/2, u = 0.3 N."""
-    _, b, h, s, kd, vd = shape
+    """The reference's test distribution: r, k, v = 0.5 N in ``dtype``, w
+    = sigmoid(N)/2 + 1/2 in f32 (the card's kernel reads the decay in f32,
+    as the model makes it), u = 0.3 N.  For WKV_VIEWS and WKV_STRONG, the
+    views ``time_mix`` passes: (B, H, S, ·) transposes of (B, S, H, ·)
+    tensors; WKV_STRONG's w = exp(−exp(U(−3, ln 46)))."""
+    label, b, h, s, kd, vd = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    if label in (WKV_VIEWS, WKV_STRONG):
+        t = lambda x: x.transpose(1, 2)
+        r, k = (t((rn(b, s, h, kd) * 0.5).to(dtype)) for _ in range(2))
+        v = t((rn(b, s, h, vd) * 0.5).to(dtype))
+        if label == WKV_STRONG:
+            x = torch.rand(b, s, h, kd, generator=gen, device="cuda")
+            w = t(torch.exp(-torch.exp(-3.0 + x * (math.log(46.0) + 3.0))))
+        else:
+            w = t(torch.sigmoid(rn(b, s, h, kd)) * 0.5 + 0.5)
+        return r, k, v, w, rn(h, kd) * 0.3
     r, k = (rn(b, h, s, kd) * 0.5).to(dtype), (rn(b, h, s, kd) * 0.5).to(dtype)
     v = (rn(b, h, s, vd) * 0.5).to(dtype)
-    w = (torch.sigmoid(rn(b, h, s, kd)) * 0.5 + 0.5).to(dtype)
+    w = torch.sigmoid(rn(b, h, s, kd)) * 0.5 + 0.5
     return r, k, v, w, rn(h, kd) * 0.3
 
 
@@ -1274,7 +1362,22 @@ def _ssd_chunked_flops(bt, h, s, p, n, q=64):
     return bt * h * (nc * per_chunk + (nc - 1) * 2 * (2 * q * n * p))
 
 
-def _pf_bound(kernel, args, rate, window=0, causal=True):
+def _wkv_chunked_flops(b, h, s, kd, vd, q=64, sub=16, parts=3):
+    """The products of B8's tensor-core form: per (b, h) and chunk of q
+    steps, with K padded to 64 and each f32 operand in ``parts`` bf16
+    parts (6 products of two split sides, 3 against an exact one): y_inter
+    (q x K x V, from the second chunk on), the 3 off-diagonal block
+    columns of A (q x K x 16 each), A·v (q x q x V) and the state update
+    (K x q x V), 2 operations a multiply-add; a ragged last chunk runs
+    whole."""
+    kp, nc = 64, -(-s // q)
+    two, one = parts * (parts + 1) // 2, parts
+    per_chunk = (2 * (q // sub - 1) * two * q * kp * sub
+                 + 2 * one * q * q * vd + 2 * one * kp * q * vd)
+    return b * h * (nc * per_chunk + (nc - 1) * 2 * two * q * kp * vd)
+
+
+def _pf_bound(kernel, args, rate, window=0, causal=True, out_dtype=None):
     """(bound ms, bound_by, flops, bytes, op rate): each input read once,
     each output written once; the operations the kernel's algorithm does
     on these inputs (B4: the causal / window band only) at the rate of the
@@ -1303,9 +1406,15 @@ def _pf_bound(kernel, args, rate, window=0, causal=True):
     else:
         r, k, v, w, u = args
         b, h, s, kd = r.shape
-        nbytes = (3 * r.numel() + 2 * v.numel()) * r.element_size() \
+        y_size = (out_dtype or r.dtype).itemsize
+        nbytes = (2 * r.numel() + v.numel()) * r.element_size() \
+            + w.numel() * w.element_size() + v.numel() * y_size \
             + 4 * u.numel()
-        flops = 7 * kd * v.shape[-1] * s * b * h
+        if r.dtype == torch.bfloat16 and kd <= 64:
+            flops = _wkv_chunked_flops(b, h, s, kd, v.shape[-1])
+            op_rate = BF16_RATE
+        else:
+            flops = 7 * kd * v.shape[-1] * s * b * h
     t_bytes, t_ops = nbytes / rate, flops / op_rate
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
@@ -1344,6 +1453,8 @@ def pf_kernel_phase(P, rate):
         kw = {}
         if kernel == "flash_attention":
             kw = {"causal": shape[7], "window": w}
+        if label in (WKV_VIEWS, WKV_STRONG):
+            kw = {"out_dtype": torch.float32}         # as time_mix asks
         for dtype in (torch.float32, torch.bfloat16):
             args = make[kernel](shape, dtype, seed=1000 + ci)
             got = kern_fns[kernel](*args, **kw)
@@ -1355,7 +1466,9 @@ def pf_kernel_phase(P, rate):
                     f"{kernel} {label} {dtype} {kw}: kernel differs from its "
                     f"plain version by {err} ({ratio:.3g} x the tolerance)")
             rec = {"shape": label, "dtype": str(dtype)[6:], "max_abs_err": err,
-                   "err_over_tol": ratio, **kw}
+                   "err_over_tol": ratio,
+                   **{k: str(v)[6:] if isinstance(v, torch.dtype) else v
+                      for k, v in kw.items()}}
             if model:
                 bound_ms, bound_by, flops, nbytes, op_rate = _pf_bound(
                     kernel, args, rate, **kw)
@@ -1413,10 +1526,11 @@ def _prefill_profile(prefill, params, tokens):
         prefill(params, tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = {}
+    kern, n_copy = {}, 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             kern[ev.name] = kern.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            n_copy += "copy" in ev.name
     busy = sum(kern.values())
     share = lambda *keys: sum(us for n, us in kern.items()
                               if any(k in n for k in keys)) / busy
@@ -1425,7 +1539,9 @@ def _prefill_profile(prefill, params, tokens):
             "device_idle_share": 1.0 - busy / (wall * 1e6),
             "b4_share": share("attention_kernel", "attention_wgmma_kernel"),
             "b7_share": share("ssd_kernel", "ssd_wgmma_kernel"),
-            "b8_share": share("wkv6_kernel"),
+            "b8_share": share("wkv6_kernel", "wkv_wgmma_kernel"),
+            "copy_launches": n_copy,
+            "copy_ms": share("copy") * busy / 1e3, "copy_share": share("copy"),
             "top_kernels": [{"name": n[:90], "ms": us / 1e3,
                              "share": us / busy} for n, us in top]}
 
@@ -1505,6 +1621,10 @@ def prefill_phase(P):
             f"{prof['device_idle_share']:.1%}); B4 {prof['b4_share']:.1%}, "
             f"B7 {prof['b7_share']:.1%}, B8 {prof['b8_share']:.1%} of "
             "device time")
+        log(f"  copy kernels (names with 'copy': casts, transposes made "
+            f"contiguous): {prof['copy_launches']} launches, "
+            f"{prof['copy_ms']:.2f} ms ({prof['copy_share']:.1%} of device "
+            "time)")
         for k in prof["top_kernels"]:
             log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
         if got["launches"]["flash_attention"] and not prof["b4_share"] > 0:
@@ -1566,7 +1686,7 @@ def ops_phase(P):
     out = {}
     fa = _fa_inputs(FA_SHAPES[3], torch.float32, 1)
     ssd = _ssd_inputs(SSD_SHAPES[1], torch.float32, 2)
-    wkv = _wkv_inputs(WKV_SHAPES[1], torch.float32, 3)
+    wkv = _wkv_inputs(WKV_SHAPES[3], torch.float32, 3)   # reduced-ragged
     gen = torch.Generator(device="cuda").manual_seed(4)
     qd = torch.randn(2, 4, 1, 64, generator=gen, device="cuda")
     kc = torch.randn(2, 2, 64, 64, generator=gen, device="cuda")
@@ -2006,11 +2126,11 @@ def main() -> int:
     report["prefill_parity"] = prefill_parity_phase(P)
     report["ops"] = ops_phase(P)
     # the main path's form of each: B4 bf16 at zamba2's shared attention,
-    # B7 bf16 at zamba2's SSD on the block's views, B8 f32 (time_mix casts
-    # to f32) at rwkv6's
+    # B7 bf16 at zamba2's SSD on the block's views, B8 on time_mix's bf16
+    # views with an f32 decay and output at rwkv6's
     main_form = {"flash_attention": ("zamba2-2.7b", "bfloat16"),
                  "mamba_ssd_scan": (SSD_VIEWS, "bfloat16"),
-                 "wkv6_chunked": ("rwkv6-7b", "float32")}
+                 "wkv6_chunked": (WKV_VIEWS, "bfloat16")}
     for kernel, (ref_file, fn_line) in PF_REFERENCE.items():
         recs = pf_recs[kernel]
         shape, dtype = main_form[kernel]

@@ -93,6 +93,12 @@ __device__ __forceinline__ uint32_t sw32_offset(int rows, int row, int col) {
                                (((col % 16) * 2) ^ (((row >> 2) & 1) << 4)));
 }
 
+// the element offset of (row, col) of an f32 tile of 32-column rows under
+// the 128-byte swizzle (the layout f32_map_sw128_strided's TMA writes)
+__device__ __forceinline__ int f32_sw128_offset(int row, int col) {
+  return row * 32 + ((((col >> 2) ^ (row & 7)) << 2) | (col & 3));
+}
+
 // ---- wgmma -------------------------------------------------------------------
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -150,6 +156,33 @@ struct Wgmma<16> {
         : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
   }
 
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+
+  // B K-major (rs's B transpose flag 0): B is a (16 x 16) tile of 16 rows
+  // of k values, as the ss form reads it by default
+  static __device__ __forceinline__ void rs_kmajor(float (&d)[8],
+                                                   const uint32_t* a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
 };
 
 template <>
@@ -457,6 +490,39 @@ inline bool bf16_map_sw32_strided(CUtensorMap* map, const void* base,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(base), d, st, bx, estride,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An f32 tensor of rank 2 to 5 whose innermost dimension is contiguous, as
+// a tensor map read in boxes of `box` with box[0] = 32 (128-byte rows)
+// under the 128-byte swizzle: row t of a box lands at byte 128·t of it,
+// with its 16-byte chunk c at chunk c ^ (t % 8) (f32_sw128_offset).  dims
+// innermost first; strides[i] the bytes between steps of dimension i + 1
+// (each a multiple of 16).  Elements past a dimension's end read as zeros.
+// Returns false if it cannot be made.
+inline bool f32_map_sw128_strided(CUtensorMap* map, const void* base,
+                                  int rank, const uint64_t* dims,
+                                  const uint64_t* strides,
+                                  const uint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || rank < 2 || rank > 5 || box[0] != 32 ||
+      (reinterpret_cast<uintptr_t>(base) & 15) != 0)
+    return false;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], estride[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    estride[i] = 1;
+    if (i + 1 < rank) {
+      if (strides[i] % 16 != 0) return false;
+      st[i] = strides[i];
+    }
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+            const_cast<void*>(base), d, st, bx, estride,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -75,13 +75,43 @@ def check_launchable(name: str, *ts: torch.Tensor,
                 "torch.inference_mode() or detach the inputs)")
 
 
+def strides_of(t: torch.Tensor, dims) -> list:
+    """Element strides of ``t`` over ``dims``; a dimension of size 1 takes
+    the stride of the dimension inside it times that one's size (its own
+    stride is never used, and may be anything)."""
+    st = list(t.stride())
+    for d in range(t.dim() - 2, -1, -1):
+        if t.shape[d] == 1:
+            st[d] = st[d + 1] * t.shape[d + 1]
+    return [st[d] for d in dims]
+
+
+def check_tma(name: str, label: str, t: torch.Tensor) -> None:
+    """What a TMA load needs of ``t``: a 16-byte-aligned base and outer
+    strides of whole 16-byte units (the last dimension contiguous is
+    checked by the caller).  Anything else is refused."""
+    outer = strides_of(t, range(t.dim() - 1))
+    if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in outer):
+        raise ValueError(f"{name}: the kernel loads {label} by TMA, which "
+                         "needs a 16-byte-aligned base and strides of whole "
+                         f"16 bytes; got strides {t.stride()} and base "
+                         f"offset {t.data_ptr() % 16} for shape "
+                         f"{tuple(t.shape)}")
+
+
+def check_last_contiguous(name: str, label: str, t: torch.Tensor) -> None:
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"{name}: {label} must have a contiguous last "
+                         f"dimension; got strides {t.stride()} for shape "
+                         f"{tuple(t.shape)}")
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    with torch.cuda.device(t.device):
-        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def raise_on(err: int, name: str) -> None:

@@ -8,6 +8,10 @@ replace the reference's Pallas TPU kernels:
   * ``flash_decode_paged`` (B6) — q ``(S, H, 1, hd)`` over a page pool
     ``(P, page_len, KV, hd)`` through a page table ``(S, PP)`` and
     per-row ``lengths`` ``(S,)``: the paged serve step's decode attention.
+    One launch splits each row's live keys over the blocks of a
+    thread-block cluster (``cluster_size``), each block staging its keys in
+    shared memory, and the cluster's leader merges the partial softmax
+    states through distributed shared memory.
 
 Both attend to the keys ``j <= pos`` (and ``j > pos - window`` when
 ``window > 0``), with the KV head ``h // n_rep`` (GQA), softmax in f32,
@@ -26,6 +30,7 @@ dtype (``f32``, ``bf16``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,6 +46,55 @@ plain_count = _COUNTS.plain_count       # runs of the plain versions
 reset_counts = _COUNTS.reset
 
 MAX_HEAD_DIM = 256
+
+# B6 splits each row's live keys over the blocks of a thread-block cluster
+CLUSTER_SIZES = (1, 2, 4, 8)
+STAGE_KEYS = 32          # keys a block stages at a time (csrc kStageKeys)
+_STAGES, _WARPS = 3, 4   # csrc kStages, kWarps
+_SMEM_PER_SM = 233472    # bytes of shared memory an H100 SM gives its blocks
+_SM_COUNT = {}
+
+
+def _group(n_rep: int) -> int:
+    """Query heads a block serves (csrc ``dispatch``: kRep)."""
+    return 1 if n_rep == 1 else 2 if n_rep == 2 else 4 if n_rep <= 4 else 8
+
+
+def _block_smem(hd: int, kv_bytes: int, rep: int) -> int:
+    """A block's shared memory (csrc ``Smem::bytes``): q, then the larger
+    of the K/V ring and the warps' partial states."""
+    ring = 2 * _STAGES * STAGE_KEYS * hd * kv_bytes
+    return rep * hd * 4 + max(ring, _WARPS * rep * (hd + 2) * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def cluster_size(rows: int, heads: int, kv_heads: int, n_keys: int,
+                 n_sm: int, hd: int, kv_bytes: int) -> int:
+    """The blocks of B6's cluster a row's keys are split over: the fewest of
+    ``CLUSTER_SIZES`` that give the grid two thirds of the blocks the SMs
+    hold at once (by shared memory, at most 8 an SM), and no more than one
+    stage of ``STAGE_KEYS`` keys a block at the longest row (``n_keys``
+    keys).  A block serves one KV head's query heads, up to 8 of them;
+    ``hd`` and ``kv_bytes`` (a page element's size) set its shared
+    memory."""
+    rep = _group(heads // kv_heads)
+    clusters = rows * kv_heads * -(-(heads // kv_heads) // rep)
+    per_sm = max(1, min(8, _SMEM_PER_SM // (_block_smem(hd, kv_bytes, rep)
+                                             + 1024)))
+    target = 2 * per_sm * n_sm / 3
+    most = -(-n_keys // STAGE_KEYS)
+    for c in CLUSTER_SIZES:
+        if clusters * c >= target or 2 * c > most:
+            return c
+    return CLUSTER_SIZES[-1]
+
+
+def _sm_count(device) -> int:
+    idx = torch.device(device).index or 0
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def resolve_impl(impl: str, device) -> str:
@@ -134,7 +188,7 @@ def _lib():
             f32, i32, i32, vp]
         lib.repro_flash_decode.restype = ctypes.c_int
         lib.repro_flash_decode_paged.argtypes = [vp] * 6 + [i32] * 8 + [
-            f32, i32, i32, vp]
+            f32, i32, i32, i32, vp]
         lib.repro_flash_decode_paged.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
@@ -178,7 +232,7 @@ def flash_decode(q, k_cache, v_cache, pos: int, *, window: int = 0):
 
 
 def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
-                       window: int = 0):
+                       window: int = 0, split=None):
     """Paged decode attention (B6): one query token per row over a
     block-paged KV pool, each key read straight from its pool page through
     the page table — no gather materializes.
@@ -191,8 +245,15 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
                                       (mask: logical index <= lengths[s]),
                                       within ``[0, PP * page_len)``
 
+    ``split``: the blocks of the kernel's cluster that share a row's keys
+    (one of ``CLUSTER_SIZES``; ``None`` chooses by ``cluster_size``).  It
+    changes the float order only; the plain version does not read it.
+
     Returns (S, H, 1, hd) in q's dtype."""
     name = "flash_decode_paged"
+    if split is not None and split not in CLUSTER_SIZES:
+        raise ValueError(f"{name}: split must be one of {CLUSTER_SIZES} or "
+                         f"None, got {split!r}")
     _check_qkv(name, q, k_pages, v_pages, k_pages.shape[2])
     ns = q.shape[0]
     if k_pages.dim() != 4:
@@ -217,14 +278,23 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
     if q.device.type != "cuda":
         raise ValueError(f"no {name} kernel for {q.device}")
     _contiguous(name, q, k_pages, v_pages, page_table, lengths)
+    for t in (k_pages, v_pages):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel copies pages in 16-byte "
+                             "pieces and needs 16-byte-aligned pools; got "
+                             f"base offset {t.data_ptr() % 16}")
     h, hd = q.shape[1], q.shape[3]
     n_pages, page_len, kvh = k_pages.shape[:3]
+    pp = page_table.shape[1]
+    if split is None:
+        split = cluster_size(ns, h, kvh, pp * page_len, _sm_count(q.device),
+                             hd, k_pages.element_size())
     out = torch.empty_like(q)
     err = _lib().repro_flash_decode_paged(
         _c.ptr(q), _c.ptr(k_pages), _c.ptr(v_pages), _c.ptr(page_table),
-        _c.ptr(lengths), _c.ptr(out), ns, h, kvh, hd, page_len,
-        page_table.shape[1], n_pages, window, hd ** -0.5, _is_bf16(q),
-        _is_bf16(k_pages), _c.stream_of(q))
+        _c.ptr(lengths), _c.ptr(out), ns, h, kvh, hd, page_len, pp, n_pages,
+        window, hd ** -0.5, _is_bf16(q), _is_bf16(k_pages), int(split),
+        _c.stream_of(q))
     _c.raise_on(err, name)
     _COUNTS.launch(name, variant)
     return out

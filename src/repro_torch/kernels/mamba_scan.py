@@ -68,35 +68,14 @@ def _lib():
     return lib
 
 
-def _strides(t: torch.Tensor, dims) -> list:
-    """Element strides of ``t`` over ``dims``; a dimension of size 1 takes
-    the stride of the dimension inside it times that one's size (its own
-    stride is never used, and may be anything)."""
-    st = list(t.stride())
-    for d in range(t.dim() - 2, -1, -1):
-        if t.shape[d] == 1:
-            st[d] = st[d + 1] * t.shape[d + 1]
-    return [st[d] for d in dims]
-
-
 def _check_loads(name, x, B, C, bf16: bool) -> None:
     """What the kernel's loads need of x, B and C: the last dimension
     contiguous; for the bf16 route (TMA) a 16-byte-aligned base and outer
     strides of whole 16-byte units.  Anything else is refused."""
     for label, t in (("x", x), ("B", B), ("C", C)):
-        if t.stride(-1) != 1 and t.shape[-1] > 1:
-            raise ValueError(f"{name}: {label} must have a contiguous last "
-                             f"dimension; got strides {t.stride()} for shape "
-                             f"{tuple(t.shape)}")
-        if not bf16:
-            continue
-        outer = _strides(t, range(t.dim() - 1))
-        if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in outer):
-            raise ValueError(f"{name}: the bf16 kernel loads {label} by TMA, "
-                             "which needs a 16-byte-aligned base and strides "
-                             f"of whole 16 bytes; got strides {t.stride()} and "
-                             f"base offset {t.data_ptr() % 16} for shape "
-                             f"{tuple(t.shape)}")
+        _c.check_last_contiguous(name, label, t)
+        if bf16:
+            _c.check_tma(name, label, t)
 
 
 def mamba_ssd_scan(x, dt, A_log, B, C, D_skip, *, chunk: int = 128):
@@ -136,8 +115,9 @@ def mamba_ssd_scan(x, dt, A_log, B, C, D_skip, *, chunk: int = 128):
     y = torch.empty((bt, s, h, p), dtype=x.dtype,
                     device=x.device).transpose(1, 2)
     strides = (ctypes.c_int64 * 13)(
-        *_strides(x, (0, 1, 2)), *_strides(dtf, (0, 1, 2)),
-        *_strides(B, (0, 1)), *_strides(C, (0, 1)), *_strides(y, (0, 1, 2)))
+        *_c.strides_of(x, (0, 1, 2)), *_c.strides_of(dtf, (0, 1, 2)),
+        *_c.strides_of(B, (0, 1)), *_c.strides_of(C, (0, 1)),
+        *_c.strides_of(y, (0, 1, 2)))
     err = _lib().repro_mamba_ssd_scan(
         _c.ptr(x), _c.ptr(dtf), _c.ptr(af), _c.ptr(B), _c.ptr(C), _c.ptr(df),
         _c.ptr(y), ctypes.cast(strides, ctypes.c_void_p), bt, h, s, p, n,

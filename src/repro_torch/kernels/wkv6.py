@@ -4,14 +4,33 @@
 (``csrc/wkv6.cu``) in place of the reference's Pallas TPU kernel
 (``kernels/wkv6.py`` ``wkv6_chunked``): per (b, h) a ``(K, V)`` state
 ``S`` from zero, and at each step ``y = r·(S + u·kᵀv)``, then
-``S = S·w + kᵀv``, in f32.  The TPU kernel's chunk grid is a loop inside
-one block per (b, h) here, so ``chunk`` does not change the math (it is
-kept for the reference's signature).
+``S = S·w + kᵀv``, in f32.  It has two routes, chosen by dtype and key
+width, and neither falls back to the other:
+
+* bf16 r, k, v with K of 32 or 64 (the model's form) run a chunked form
+  on the tensor cores (``wgmma``) over chunks of 64 steps in sub-chunks
+  of 16, every decay a product of w, each f32 operand split into three
+  bf16 parts;
+* f32 r, k, v, and bf16 with K = 128, run the recurrence step by step on
+  the CUDA cores.
+
+``chunk`` changes nothing (the kernel's chunk is 64 whatever it says);
+it is kept for the reference's signature, and any ``S`` is taken.  One
+call launches one CUDA kernel.
+
+The kernel reads r, k, v and w through their strides and writes y in
+``(B, S, H, V)`` memory order, returned as the ``(B, H, S, V)`` view, so
+``models.rwkv6.time_mix`` hands over its ``(B, S, H, ·)`` projections as
+``(B, H, S, ·)`` views and gets y back in the layout its group norm reads,
+without a copy either way.  On the card w must be f32 (the model's decay
+is); what a load needs is checked, never repaired by a copy: the last
+dimension of every input contiguous, and for the tensor-core route (TMA)
+16-byte-aligned bases and outer strides.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor — and only then — it runs the plain version, the per-step oracle
 ``ref.wkv6_ref`` in the kernel's ``(B, H, S, ·)`` layout.  ``launch_count``
-counts kernel launches, ``plain_count`` plain runs, per input dtype
+counts kernel launches, ``plain_count`` plain runs, per dtype of r
 (``f32``, ``bf16``).
 """
 from __future__ import annotations
@@ -31,13 +50,14 @@ reset_counts = _COUNTS.reset
 
 KEY_DIMS = (32, 64, 128)
 VALUE_DIMS = (32, 64)
+TENSOR_CORE_KEY_DIMS = (32, 64)
 
 
-def wkv6_plain(r, k, v, w, u):
+def wkv6_plain(r, k, v, w, u, *, out_dtype=None):
     """Plain form of ``wkv6_chunked``: the per-step oracle, transposed
     around to the kernel's ``(B, H, S, ·)`` layout."""
     tr = lambda t: t.transpose(1, 2)
-    y, _ = wkv6_ref(tr(r), tr(k), tr(v), tr(w), u)
+    y, _ = wkv6_ref(tr(r), tr(k), tr(v), tr(w), u, out_dtype=out_dtype)
     return tr(y).contiguous()
 
 
@@ -46,16 +66,25 @@ def _lib():
     lib = library("wkv6")
     if not getattr(lib, "_repro_bound", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_wkv6.argtypes = [vp] * 6 + [i32] * 6 + [vp]
+        lib.repro_wkv6.argtypes = [vp] * 7 + [i32] * 7 + [vp]
         lib.repro_wkv6.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
 
 
-def wkv6_chunked(r, k, v, w, u, *, chunk: int = 128):
-    """r, k, w: (B, H, S, K); v: (B, H, S, V); u: (H, K).  Returns y
-    (B, H, S, V) in r's dtype (B8), from a zero state.  r, k, v and w
-    share one dtype, f32 or bf16; u is read as f32."""
+def tensor_core_route(r, k) -> bool:
+    """Whether the kernel runs the chunked form on the tensor cores for
+    these inputs (else the step recurrence)."""
+    return r.dtype == torch.bfloat16 and k.shape[-1] in TENSOR_CORE_KEY_DIMS
+
+
+def wkv6_chunked(r, k, v, w, u, *, chunk: int = 128, out_dtype=None):
+    """r, k, w: (B, H, S, K); v: (B, H, S, V); u: (H, K); any of them
+    strided views.  Returns y (B, H, S, V) in ``out_dtype`` (r's dtype
+    when None: the reference's contract), from a zero state; on the card
+    the ``(B, H, S, V)`` view of ``(B, S, H, V)`` memory.  r, k and v
+    share one dtype, f32 or bf16; on the card w is f32; u is read as
+    f32."""
     name = "wkv6_chunked"
     if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape \
             or v.dim() != 4 or v.shape[:3] != r.shape[:3]:
@@ -68,23 +97,41 @@ def wkv6_chunked(r, k, v, w, u, *, chunk: int = 128):
     if tuple(u.shape) != (h, kd):
         raise ValueError(f"{name}: u must be ({h}, {kd}), got "
                          f"{tuple(u.shape)}")
-    if r.dtype not in _c.FLOATS or any(t.dtype != r.dtype for t in (k, v, w)):
-        raise ValueError(f"{name}: r, k, v, w must share one dtype, float32 "
-                         f"or bfloat16; got {r.dtype}, {k.dtype}, {v.dtype}, "
-                         f"{w.dtype}")
+    if r.dtype not in _c.FLOATS or any(t.dtype != r.dtype for t in (k, v)) \
+            or w.dtype not in _c.FLOATS:
+        raise ValueError(f"{name}: r, k, v must share one dtype, float32 "
+                         f"or bfloat16, and w be one of those; got "
+                         f"{r.dtype}, {k.dtype}, {v.dtype}, {w.dtype}")
+    out_dtype = out_dtype or r.dtype
+    if out_dtype not in _c.FLOATS:
+        raise ValueError(f"{name}: out_dtype must be float32 or bfloat16, "
+                         f"got {out_dtype}")
     variant = _c.variant_of(r)
     if r.device.type == "cpu":
         _COUNTS.plain(name, variant)
-        return wkv6_plain(r, k, v, w, u)
+        return wkv6_plain(r, k, v, w, u, out_dtype=out_dtype)
+    _c.check_launchable(name, r, k, v, w, u, contiguous=False)
     if kd not in KEY_DIMS or vd not in VALUE_DIMS:
         raise ValueError(f"{name}: K {kd} must be one of {KEY_DIMS} and V "
                          f"{vd} one of {VALUE_DIMS}")
-    _c.check_launchable(name, r, k, v, w, u)
+    if w.dtype != torch.float32:
+        raise ValueError(f"{name}: the kernel reads w as float32 (the "
+                         f"model's decay); got {w.dtype}")
+    tc = tensor_core_route(r, k)
+    for label, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        _c.check_last_contiguous(name, label, t)
+        if tc:
+            _c.check_tma(name, label, t)
     uf = u.float().contiguous()
-    y = torch.empty_like(v)
-    err = _lib().repro_wkv6(_c.ptr(r), _c.ptr(k), _c.ptr(v), _c.ptr(w),
-                            _c.ptr(uf), _c.ptr(y), b, h, s, kd, vd,
-                            int(r.dtype == torch.bfloat16), _c.stream_of(r))
+    y = torch.empty((b, s, h, vd), dtype=out_dtype,
+                    device=r.device).transpose(1, 2)
+    strides = (ctypes.c_int64 * 15)(
+        *(st for t in (r, k, v, w, y) for st in _c.strides_of(t, (0, 1, 2))))
+    err = _lib().repro_wkv6(
+        _c.ptr(r), _c.ptr(k), _c.ptr(v), _c.ptr(w), _c.ptr(uf), _c.ptr(y),
+        ctypes.cast(strides, ctypes.c_void_p), b, h, s, kd, vd,
+        int(r.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        _c.stream_of(r))
     _c.raise_on(err, name)
     _COUNTS.launch(name, variant)
     return y

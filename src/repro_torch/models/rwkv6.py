@@ -3,11 +3,13 @@ channel-mix.
 
 ``wkv6_scan`` is the reference's scan over time (the WKV recurrence) line
 for line.  On CUDA tensors ``time_mix`` launches the hand-written kernel
-B8 (``kernels.wkv6``) instead, on f32 ``(B, H, S, ·)`` copies of r, k, v
-and w — f32 as the reference's scan casts them, so the kernel's output
-is f32 like the scan's and the per-head group norm runs on it unchanged.
-On the CPU ``time_mix`` runs ``wkv6_scan``, from a given state too; on
-the card a given state raises.  The one-token decode step (``wkv6_step``)
+B8 (``kernels.wkv6``) instead, on the ``(B, H, S, ·)`` views of its
+``(B, S, H, ·)`` projections as they are (r, k, v in the model's dtype,
+the decay w in f32) and with an f32 output, as the reference's scan
+returns f32; the kernel writes y in ``(B, S, H, V)`` memory, so the
+per-head group norm reads it without a copy, and nothing is cast or
+transposed around B8.  On the CPU ``time_mix`` runs ``wkv6_scan``, from
+a given state too; on the card a given state raises.  The one-token decode step (``wkv6_step``)
 and a stateful WKV on the card wait for the decode slice (ROADMAP A14).
 """
 from __future__ import annotations
@@ -52,7 +54,9 @@ def _mix(x, xx, mu):
 def time_mix(p, x, cfg, *, shift_state=None, wkv_state=None):
     """Prefill time-mix.  Returns (out, last input, final WKV state); the
     state is None where B8 ran (the kernel starts from zero and keeps no
-    final state).  A ``wkv_state`` to start from runs only on the CPU: B8
+    final state).  On the card B8 reads r, k, v and the f32 decay as the
+    views the projections give and returns y (B, S, H, V) f32 in memory
+    order, which the group norm reads as it is.  A ``wkv_state`` to start from runs only on the CPU: B8
     has no initial state, and that path is the decode slice's (ROADMAP
     A14)."""
     if wkv_state is not None and x.device.type != "cpu":
@@ -71,9 +75,9 @@ def time_mix(p, x, cfg, *, shift_state=None, wkv_state=None):
 
     r, k, v, w = (t.reshape(b, s, h, hd) for t in (r, k, v, w))
     if x.device.type != "cpu":
-        t = lambda a: a.float().transpose(1, 2).contiguous()
-        y = _wkv.wkv6_chunked(t(r), t(k), t(v), t(w),
-                              p["u"]).transpose(1, 2)         # (B,S,H,V) f32
+        t = lambda a: a.transpose(1, 2)                      # (B,H,S,·) views
+        y = _wkv.wkv6_chunked(t(r), t(k), t(v), t(w), p["u"],
+                              out_dtype=torch.float32).transpose(1, 2)
     else:
         y, wkv_state = wkv6_scan(r, k, v, w, p["u"], wkv_state)
     # per-head group norm

@@ -313,6 +313,291 @@ def test_wkv6_matches_pallas(b, h, s, kd, vd, chunk, dt):
     assert wkv.launch_count() == 0
 
 
+def _parts(x, n):
+    """x as n bf16 parts, each the bf16 rounding of what the ones before
+    leave (hi, mid, lo for n = 3)."""
+    out = []
+    for _ in range(n):
+        out.append(x.bfloat16().float())
+        x = x - out[-1]
+    return out
+
+
+def _split_mm(a, b, na, nb):
+    """a @ b on the tensor cores' terms: each f32 side split into na / nb
+    bf16 parts (0: an exact bf16 operand, taken whole), the products of
+    part orders i + j <= 2 summed in f32."""
+    pa = _parts(a, na) if na else [a]
+    pb = _parts(b, nb) if nb else [b]
+    return sum(x @ y for i, x in enumerate(pa) for j, y in enumerate(pb)
+               if i + j <= 2)
+
+
+def _wkv_tc_arithmetic(r, k, v, w, u, *, parts=3, q=64, sub=16):
+    """The arithmetic of B8's tensor-core form in plain PyTorch, over
+    chunks of q = 64 steps (a ragged last chunk padded with zeros) in
+    sub-chunks of 16: fp / fq the products of w over a sub-chunk's steps
+    before / after each step, T a sub-chunk's whole product;
+    y = (r ⊙ fp ⊙ Π_{m<I} T_m)·S + A·v with A's blocks below the diagonal
+    (r ⊙ fp ⊙ Π_{J<m<I} T_m)·(k ⊙ fq)ᵀ and its diagonal blocks by running
+    products of w in f32 (u on the diagonal); S' = (Π T)·S + (k ⊙ fq ⊙
+    Π_{m>J} T_m)ᵀ·v.  Each f32 operand is split into ``parts`` bf16 parts
+    (``_split_mm``); r, k and v are exact bf16 values."""
+    b, h, s, kd = r.shape
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()
+    state = torch.zeros(b, h, kd, v.shape[-1])
+    ns = q // sub
+    rows = lambda i: slice(i * sub, (i + 1) * sub)
+    ys = []
+    for c0 in range(0, s, q):
+        n = min(q, s - c0)
+        pad = lambda t: torch.nn.functional.pad(t[:, :, c0:c0 + n],
+                                                [0, 0, 0, q - n])
+        rc, kc, vc, wc = pad(r), pad(k), pad(v), pad(w)
+        ws = wc.view(b, h, ns, sub, kd)
+        fp, fq = [None] * sub, [None] * sub
+        run = torch.ones(b, h, ns, kd)
+        for t in range(sub):
+            fp[t], run = run, run * ws[:, :, :, t]
+        T = run
+        run = torch.ones(b, h, ns, kd)
+        for t in reversed(range(sub)):
+            fq[t], run = run, run * ws[:, :, :, t]
+        fp = torch.stack(fp, 3).view(b, h, q, kd)
+        fq = torch.stack(fq, 3).view(b, h, q, kd)
+        tprod = lambda lo, hi: torch.stack(
+            [torch.ones(b, h, kd)] + [T[:, :, m] for m in range(lo, hi)]
+        ).prod(0)[:, :, None]
+        rb, kq = rc * fp, kc * fq
+        y = _split_mm(torch.cat([rb[:, :, rows(i)] * tprod(0, i)
+                                 for i in range(ns)], 2), state, parts, parts)
+        A = torch.zeros(b, h, q, q)
+        for i in range(ns):
+            for j in range(i):
+                A[:, :, rows(i), rows(j)] = _split_mm(
+                    rb[:, :, rows(i)] * tprod(j + 1, i),
+                    kq[:, :, rows(j)].transpose(-1, -2), parts, parts)
+            ri, ki, wi = rc[:, :, rows(i)], kc[:, :, rows(i)], wc[:, :, rows(i)]
+            for sl in range(sub):
+                e = torch.ones(b, h, kd)
+                A[:, :, i * sub + sl, i * sub + sl] = \
+                    (ri[:, :, sl] * u * ki[:, :, sl]).sum(-1)
+                for tl in range(sl + 1, sub):
+                    A[:, :, i * sub + tl, i * sub + sl] = \
+                        (ri[:, :, tl] * ki[:, :, sl] * e).sum(-1)
+                    e = e * wi[:, :, tl]
+        y = y + _split_mm(A, vc, parts, 0)
+        W = torch.cat([kq[:, :, rows(j)] * tprod(j + 1, ns)
+                       for j in range(ns)], 2)
+        state = state * tprod(0, ns).transpose(-1, -2) \
+            + _split_mm(W.transpose(-1, -2), vc, parts, 0)
+        ys.append(y[:, :, :n])
+    return torch.cat(ys, 2)
+
+
+def _wkv_model_inputs(b, h, s, kd, vd, decay, seed=0):
+    """The model's form of B8's inputs, numpy arrays: r, k, v bf16 values,
+    w f32, u f32.  ``decay``: ``"reference"`` the reference tests'
+    sigmoid(N)/2 + 1/2; ``"model"`` the RWKV-6 block's own
+    ``_ddecay`` = exp(−exp(w0 + lora)) on its init's scales (d_model =
+    h·kd, seeded random input); ``"strong"`` exp(−exp(U(−3, ln 46))),
+    down to exp(−46) ≈ 1e-20."""
+    rng = np.random.default_rng(seed)
+    bf = lambda a: a.astype(ml_dtypes.bfloat16)
+    r, k = (bf(rng.standard_normal((b, h, s, kd)) * 0.5) for _ in range(2))
+    v = bf(rng.standard_normal((b, h, s, vd)) * 0.5)
+    if decay == "reference":
+        w = 1 / (1 + np.exp(-rng.standard_normal((b, h, s, kd)))) * 0.5 + 0.5
+    elif decay == "strong":
+        w = np.exp(-np.exp(rng.uniform(-3.0, np.log(46.0), (b, h, s, kd))))
+    else:
+        from repro_torch.models.rwkv6 import _ddecay
+        d = h * kd
+        lora = max(16, d // 64)
+        p = {"w_lora_a": torch.from_numpy(
+                 rng.standard_normal((d, lora)) * d ** -0.5).float(),
+             "w_lora_b": torch.from_numpy(
+                 rng.standard_normal((lora, d)) * lora ** -0.5).float(),
+             "w0": torch.full((d,), -2.0)}
+        xw = torch.from_numpy(rng.standard_normal((b, s, d))).float()
+        w = _ddecay(p, xw).view(b, s, h, kd).transpose(1, 2).numpy()
+    u = rng.standard_normal((h, kd)) * 0.3
+    return r, k, v, w.astype(np.float32), u.astype(np.float32)
+
+
+def _wkv_pallas_f32(r, k, v, w, u):
+    """The Pallas kernel (interpret mode) on f32 casts of the inputs: the
+    bf16 values of r, k, v are exact in f32, so this is B8's function."""
+    f = lambda a: jnp.asarray(np.asarray(a, np.float32))
+    s = r.shape[2]
+    return torch.from_numpy(np.array(jwkv.wkv6_chunked(
+        f(r), f(k), f(v), f(w), f(u), chunk=128 if s % 128 == 0 else s,
+        interpret=True), np.float32))
+
+
+def _f32_limit_ratio(got, want):
+    """Worst |got − want| over phase 14's f32 limit 2e-5·(1 + |want|)."""
+    return float(((got.float() - want).abs()
+                  / (2e-5 * (1 + want.abs()))).max())
+
+
+# (B, H, S, K, V, decay): the model's K = V = 64 over several chunks, a
+# ragged S, K = V = 32 (K padded to 64 on the card), strong decays
+WKV_TC_CASES = [(1, 2, 256, 64, 64, "model"), (2, 2, 100, 64, 64, "model"),
+                (1, 3, 96, 32, 32, "reference"),
+                (1, 2, 128, 64, 64, "strong"), (2, 2, 45, 64, 32, "strong")]
+
+
+@pytest.mark.parametrize("b,h,s,kd,vd,decay", WKV_TC_CASES)
+def test_wkv6_tensor_core_arithmetic_matches_pallas(b, h, s, kd, vd, decay):
+    """B8's bf16 form on the model's inputs (bf16 r, k, v; f32 w), emulated
+    here, lies within phase 14's f32 limit of the Pallas kernel (interpret
+    mode, all f32 inside), strong decays included (measured at most 0.074
+    of the limit with three parts)."""
+    args = _wkv_model_inputs(b, h, s, kd, vd, decay)
+    want = _wkv_pallas_f32(*args)
+    got = _wkv_tc_arithmetic(*(torch.from_numpy(np.asarray(a, np.float32))
+                               for a in args))
+    assert _f32_limit_ratio(got, want) <= 0.2
+
+
+def test_wkv6_tensor_core_needs_three_parts():
+    """Two bf16 parts of each f32 operand break phase 14's f32 limit on the
+    model's own decays (measured 1.23x here, 1.41x at S = 100): the kernel
+    splits in three."""
+    args = [torch.from_numpy(np.asarray(a, np.float32)) for a in
+            _wkv_model_inputs(1, 2, 256, 64, 64, "model")]
+    want = _wkv_pallas_f32(*args)
+    assert _f32_limit_ratio(_wkv_tc_arithmetic(*args, parts=2), want) > 1.0
+
+
+def test_wkv6_one_level_factorisation_overflows_on_strong_decay():
+    """The factorised form (r ⊙ e^c)·(k ⊙ e^−c)ᵀ over a whole chunk of 64,
+    c the running sum of log w, overflows once decays are strong; the
+    sub-chunked products of w stay finite and within the limit."""
+    args = [torch.from_numpy(np.asarray(a, np.float32)) for a in
+            _wkv_model_inputs(1, 2, 64, 64, 64, "strong")]
+    r, k, _, w, _ = args
+    c = torch.cumsum(torch.log(w), 2)
+    a_one = (r * torch.exp(c - torch.log(w))) @ (k * torch.exp(-c)) \
+        .transpose(-1, -2)
+    assert not bool(torch.isfinite(torch.tril(a_one, -1)).all())
+    got = _wkv_tc_arithmetic(*args)
+    assert bool(torch.isfinite(got).all())
+    assert _f32_limit_ratio(got, _wkv_pallas_f32(*args)) <= 0.2
+
+
+def test_wkv6_reads_the_model_views():
+    """The wrapper takes what ``time_mix`` hands it — (B, H, S, K) views of
+    (B, S, H, K) bf16 r, k, v and f32 w, with ``out_dtype`` f32 — and
+    returns the same as on contiguous f32 copies, in f32."""
+    b, h, s, kd = 2, 3, 40, 32
+    rng = np.random.default_rng(5)
+    mk = lambda dt: torch.from_numpy(
+        rng.standard_normal((b, s, h, kd)).astype(np.float32) * 0.5).to(dt)
+    r, k, v = (mk(torch.bfloat16) for _ in range(3))
+    w = torch.sigmoid(mk(torch.float32)) * 0.5 + 0.5
+    u = torch.from_numpy(rng.standard_normal((h, kd)).astype(np.float32))
+    views = [t.transpose(1, 2) for t in (r, k, v, w)]
+    assert not any(t.is_contiguous() for t in views)
+    wkv.reset_counts()
+    got = wkv.wkv6_chunked(*views, u, out_dtype=torch.float32)
+    want = wkv.wkv6_chunked(*(t.float().contiguous() for t in views), u)
+    assert got.dtype == torch.float32 and got.shape == (b, h, s, kd)
+    assert torch.equal(got, want)
+    assert wkv.plain_count() == 2 and wkv.launch_count() == 0
+
+
+# -- B6's split over a cluster ---------------------------------------------------
+def _paged_split_arithmetic(q, kp, vp, table, lengths, *, window, n_split,
+                            stage=32, warps=4):
+    """The arithmetic of B6's cluster kernel in plain PyTorch: each row's
+    live keys [lo, hi] cut into stages of 32 and the stages into
+    ``n_split`` contiguous shares (a share may be empty); inside a block
+    each of 4 warps takes 8 keys of every stage and keeps its own online
+    softmax (m, l, acc); the leader merges every (block, warp) state, m =
+    −inf contributing nothing; zeros for a row with no key in range."""
+    ns, h, _, hd = q.shape
+    n_pages, page_len, kvh = kp.shape[:3]
+    n_rep, n_keys = h // kvh, table.shape[1] * page_len
+    out = torch.zeros(ns, h, 1, hd)
+    per_warp = stage // warps
+    for row in range(ns):
+        pos = int(lengths[row])
+        hi = min(pos, n_keys - 1)
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        n_st = -(-(hi - lo + 1) // stage) if hi >= lo else 0
+        per = -(-n_st // n_split)
+        qf = q[row, :, 0].float() * hd ** -0.5                    # (h, hd)
+        states = []
+        for rank in range(n_split):
+            st0 = min(n_st, rank * per)
+            st1 = min(n_st, st0 + per)
+            for wp in range(warps):
+                m = torch.full((h,), -float("inf"))
+                l, acc = torch.zeros(h), torch.zeros(h, hd)
+                for st in range(st0, st1):
+                    j = lo + st * stage + wp * per_warp + torch.arange(
+                        per_warp)
+                    valid = j <= hi
+                    jj = j.clamp(max=hi)
+                    page = table[row, jj // page_len].long().clamp(
+                        0, n_pages - 1)
+                    kk = kp[page, jj % page_len].float()          # (8,kv,hd)
+                    vv = vp[page, jj % page_len].float()
+                    kk = torch.repeat_interleave(kk, n_rep, 1)    # (8, h, hd)
+                    vv = torch.repeat_interleave(vv, n_rep, 1)
+                    sc = torch.einsum("hd,jhd->hj", qf, kk)
+                    sc = torch.where(valid[None], sc, -float("inf"))
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    live = m_new > -float("inf")
+                    safe = torch.where(live, m_new, 0.0)
+                    p = torch.where(live[:, None], torch.exp(
+                        sc - safe[:, None]), 0.0)
+                    alpha = torch.where(live, torch.exp(m - safe), 1.0)
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + torch.einsum(
+                        "hj,jhd->hd", p, vv)
+                    m = m_new
+                states.append((m, l, acc))
+        ms = torch.stack([x[0] for x in states])
+        m_all = ms.amax(0)
+        if n_st == 0:
+            continue
+        wt = torch.exp(ms - m_all[None])
+        num = sum(wt[i][:, None] * x[2] for i, x in enumerate(states))
+        den = sum(wt[i] * x[1] for i, x in enumerate(states))
+        out[row, :, 0] = num / den[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 8])
+@pytest.mark.parametrize("n_rep,window", [(1, 0), (2, 8), (2, 0)])
+def test_paged_split_merge_matches_pallas(n_split, n_rep, window):
+    """B6's split of each row's keys over a cluster and the leader's merge,
+    emulated, lie within 2e-5 of the Pallas kernel in interpret mode, at 1,
+    2 and 8 blocks a cluster; the short rows leave most of the 8 shares
+    empty, and the dead row (all sentinel ids, length 0) reads page P − 1
+    as the reference's gather does."""
+    rng = np.random.default_rng(11)
+    ns, kvh, hd, page_len, pp, n_pages = 4, 2, 64, 16, 8, 40
+    h = kvh * n_rep
+    q = rng.standard_normal((ns, h, 1, hd)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, page_len, kvh, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, page_len, kvh, hd)).astype(np.float32)
+    table = rng.permutation(n_pages)[:ns * pp].reshape(ns, pp) \
+        .astype(np.int32)
+    table[1] = n_pages
+    lengths = np.array([127, 0, 40, 5], np.int32)
+    want = np.asarray(jfd.flash_decode_paged(
+        *map(jnp.asarray, (q, kp, vp, table, lengths)), window=window,
+        interpret=True), np.float32)
+    got = _paged_split_arithmetic(*map(_t, (q, kp, vp, table, lengths)),
+                                  window=window, n_split=n_split)
+    _close(got, want, TOL["f32"])
+
+
 # -- the other front ends and the rules of ops ----------------------------------
 def test_ops_flash_decode_matches_pallas():
     rng = np.random.default_rng(4)

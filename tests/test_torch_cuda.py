@@ -125,7 +125,7 @@ def test_prefill_kernels_match_plain_versions(cuda, dtype):
             torch.ones(3, device=cuda))
     close(ssd.mamba_ssd_scan(*args), ssd.mamba_ssd_plain(*args), scale=5.0)
     r, kk, vv = ((rn(2, 4, 45, 64) * 0.5).to(dtype) for _ in range(3))
-    w = (torch.sigmoid(rn(2, 4, 45, 64)) * 0.5 + 0.5).to(dtype)
+    w = torch.sigmoid(rn(2, 4, 45, 64)) * 0.5 + 0.5     # f32, as the model's
     u = rn(4, 64) * 0.3
     close(wkv.wkv6_chunked(r, kk, vv, w, u), wkv.wkv6_plain(r, kk, vv, w, u))
     assert (fa.launch_count(), ssd.launch_count(), wkv.launch_count()) == \
@@ -195,6 +195,94 @@ def test_ssd_refuses_views_it_cannot_read(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         ssd.mamba_ssd_scan(*_ssd_views(cuda, torch.bfloat16, offset=1))
     assert ssd.launch_count() == 0
+
+
+def _wkv_views(cuda, dtype, b=2, s=150, h=4, kd=64, vd=64, offset=0):
+    """What ``time_mix`` hands B8: (B, H, S, ·) views of (B, S, H, ·)
+    r, k, v in ``dtype`` (their columns starting ``offset`` elements into a
+    wider tensor) and of an f32 decay, with u."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rn = lambda *sh: torch.randn(*sh, generator=gen, device=cuda)
+
+    def view(c, scale=0.5):
+        full = (rn(b, s, offset + h * c) * scale).to(dtype)
+        return full[..., offset:].view(b, s, h, c).transpose(1, 2)
+    r, k, v = view(kd), view(kd), view(vd)
+    w = (torch.sigmoid(rn(b, s, h, kd)) * 0.5 + 0.5).transpose(1, 2)
+    return r, k, v, w, rn(h, kd) * 0.3
+
+
+@pytest.mark.parametrize("dtype,kd,vd", [(torch.bfloat16, 64, 64),
+                                         (torch.bfloat16, 32, 32),
+                                         (torch.bfloat16, 128, 64),
+                                         (torch.float32, 64, 64)])
+def test_wkv6_reads_the_block_views(cuda, dtype, kd, vd):
+    """B8 on the views ``time_mix`` passes (bf16 or f32 r, k, v, f32 w; S
+    ragged to the tensor-core route's chunks of 64) equals B8 on contiguous
+    copies bit for bit, hands y back as the (B, H, S, V) view of (B, S, H,
+    V) memory in ``out_dtype``, and lies within phase 14's limit of the
+    plain version.  bf16 with K = 32 / 64 runs on the tensor cores, K = 128
+    and f32 the step recurrence."""
+    from repro_torch.kernels import wkv6 as wkv
+    r, k, v, w, u = _wkv_views(cuda, dtype, kd=kd, vd=vd)
+    assert not r.is_contiguous() and not w.is_contiguous()
+    assert wkv.tensor_core_route(r, k) == (dtype == torch.bfloat16
+                                           and kd <= 64)
+    wkv.reset_counts()
+    got = wkv.wkv6_chunked(r, k, v, w, u, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.transpose(1, 2).is_contiguous()
+    copies = wkv.wkv6_chunked(*(t.contiguous() for t in (r, k, v, w)), u,
+                              out_dtype=torch.float32)
+    assert torch.equal(got, copies)
+    want = wkv.wkv6_plain(r, k, v, w, u, out_dtype=torch.float32)
+    limit = 2e-5 * (1.0 + want.abs())
+    assert bool(((got - want).abs() <= limit).all()), \
+        float(((got - want).abs() / limit).max())
+    assert wkv.launch_count() == 2 and wkv.plain_count() == 0
+
+
+def test_wkv6_refuses_inputs_it_cannot_read(cuda):
+    """A last dimension that is not contiguous, a bf16 view whose base or
+    strides are off 16 bytes (the tensor-core route loads by TMA) or a
+    decay that is not f32 is refused with a ValueError, never copied."""
+    from repro_torch.kernels import wkv6 as wkv
+    r, k, v, w, u = _wkv_views(cuda, torch.bfloat16)
+    cols = r.transpose(2, 3).contiguous().transpose(2, 3)      # K strided
+    wkv.reset_counts()
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        wkv.wkv6_chunked(cols, k, v, w, u)
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv.wkv6_chunked(*_wkv_views(cuda, torch.bfloat16, offset=1))
+    with pytest.raises(ValueError, match="float32"):
+        wkv.wkv6_chunked(r, k, v, w.to(torch.bfloat16), u)
+    assert wkv.launch_count() == 0
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_every_cluster_size(cuda, kv_dtype):
+    """B6 at every cluster size the wrapper can choose, on rows whose live
+    keys leave most of 8 shares empty (and a dead row), with GQA and a
+    window: within 2e-5 of its plain version at each (the split changes
+    the float order only), one launch a call."""
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, h, kv, hd, page_len, pp, n_pages = 4, 8, 2, 96, 16, 16, 80
+    q = torch.randn(rows, h, 1, hd, generator=gen, device=cuda)
+    kp, vp = (torch.randn(n_pages, page_len, kv, hd, generator=gen,
+                          device=cuda).to(kv_dtype) for _ in range(2))
+    table = torch.randperm(n_pages, generator=gen, device=cuda)[
+        :rows * pp].reshape(rows, pp).int()
+    table[1] = n_pages                                   # dead row
+    lengths = torch.tensor([255, 0, 40, 129], dtype=torch.int32, device=cuda)
+    fd.reset_counts()
+    for w in (0, 64):
+        want = fd.paged_decode_ref(q, kp, vp, table, lengths, window=w)
+        for split in fd.CLUSTER_SIZES:
+            got = fd.flash_decode_paged(q, kp, vp, table, lengths, window=w,
+                                        split=split)
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert fd.launch_count() == 2 * len(fd.CLUSTER_SIZES)
+    assert fd.plain_count() == 0
 
 
 def test_prefill_step_launches_the_kernels(cuda):
