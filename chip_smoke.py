@@ -232,22 +232,64 @@ def cuda_ms(fn, per_group: int = 20, groups: int = 7,
     return statistics.median(times)
 
 
-def device_ms(fn, names, n: int = 20) -> float:
-    """Device milliseconds per call of ``fn``: ``torch.profiler``'s CUDA
-    time of the kernels whose names hold one of ``names``, over ``n``
-    calls after one warm-up.  Unlike ``cuda_ms`` it does not count the gaps
-    in which the card waits for the host between two short calls."""
+def traced_kernels(run, want=(), launches=None, tries: int = 3):
+    """Device kernels of one ``run()`` under ``torch.profiler`` (device
+    activity only): ({kernel name: us}, {kernel name: launches}, wall
+    seconds of the run).  The profiler now and then drops device events,
+    all of a window's or some; a window with no kernel whose name holds
+    one of ``want`` (with no device event at all where ``want`` is empty),
+    or, where ``launches`` is given, with another count of such kernels, is
+    traced again, up to ``tries`` times.  The last window is returned,
+    whole or not."""
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern, count = {}, {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                kern[ev.name] = kern.get(ev.name, 0.0) + \
+                    ev.time_range.elapsed_us()
+                count[ev.name] = count.get(ev.name, 0) + 1
+        got = sum(c for n, c in count.items()
+                  if not want or any(k in n for k in want))
+        if got and (launches is None or got == launches):
+            break
+    return kern, count, wall
+
+
+def device_ms(fn, n: int = 20, groups: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: CUDA events around ``n``
+    calls that the host queues while a sleep kernel holds the stream, so
+    that the card runs them back to back and never waits for the host (the
+    gaps ``cuda_ms`` still counts at a 50-70 us kernel); median over
+    ``groups``.  A group in which the sleep ended before the host had
+    queued every call is run again with a longer sleep."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cycles, times = 1 << 24, []
+    while len(times) < groups:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and any(k in ev.name for k in names))
-    return us / 1e3 / n
+        b.record()
+        queued_in_time = not a.query()
+        b.synchronize()
+        if queued_in_time:
+            times.append(a.elapsed_time(b) / n)
+        elif cycles >= 1 << 32:
+            raise RuntimeError("the host cannot queue the calls within the "
+                               "longest sleep")
+        else:
+            cycles *= 2
+    return statistics.median(times)
 
 
 # ------------------------------ phase 2: kernels -----------------------------
@@ -456,7 +498,6 @@ def profile_rungs(m, cfg, spec, source, steps: int):
     total time."""
     import dataclasses
 
-    from torch.profiler import ProfilerActivity, profile
     out = []
     engine = m.TrainEngine(cfg, m.sgd_momentum(0.0), sgd_server=True,
                            device="cuda", scan_chunk=steps)
@@ -475,17 +516,8 @@ def profile_rungs(m, cfg, spec, source, steps: int):
         feed = lambda _ph, g: staged[g]
         engine.run([short], params, None, feed)            # warm-up
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.run([short], params, None, feed)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kern = {}
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                kern[ev.name] = kern.get(ev.name, 0.0) + \
-                    ev.time_range.elapsed_us()
+        kern, _, wall = traced_kernels(
+            lambda: engine.run([short], params, None, feed))
         busy_us = sum(kern.values())
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
         rec = {"input_size": ph.input_size, "batch": ph.batch_size,
@@ -587,7 +619,6 @@ def profile_events(m, cfg, fns, source, shapes, n: int = 8):
     """Device time of one traced event (gradient + B3 update) per
     (resolution, batch) in ``shapes``: ``n`` events on a batch already on
     the card, traced after two warm-up events."""
-    from torch.profiler import ProfilerActivity, profile
     params = m.models.init_params(cfg, torch.Generator().manual_seed(0),
                                   device="cuda")
     spec = m.flat_spec(params)
@@ -607,15 +638,12 @@ def profile_events(m, cfg, fns, source, shapes, n: int = 8):
         for _ in range(2):
             event()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+
+        def events():
             for _ in range(n):
                 event()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                      if ev.device_type == torch.autograd.DeviceType.CUDA)
+        kern, _, wall = traced_kernels(events)
+        busy_us = sum(kern.values())
         out.append({"input_size": res, "batch": bsz,
                     "ms_per_event": 1e3 * wall / n,
                     "device_busy_ms_per_event": busy_us / 1e3 / n,
@@ -775,13 +803,14 @@ def fd_kernel_phase(FD, rate):
         for name in out:
             for r in out[name]:
                 if r["shape"] == label and "split_ms" in r:
+                    d = r["split_device_ms"]
                     log(f"    flash_decode_paged q {r['q']} cache "
                         f"{r['cache']} by cluster size (chosen "
                         f"{r['split']}), event / device time: " + ", ".join(
                             f"{c}: {t * 1e3:.1f} / "
-                            f"{r['split_device_ms'][c] * 1e3:.1f} us "
-                            f"({r['bound_ms'] / r['split_device_ms'][c]:.0%}"
-                            " of bound)" for c, t in r["split_ms"].items()))
+                            f"{d[c] * 1e3:.1f} us "
+                            f"({r['bound_ms'] / d[c]:.0%} of bound)"
+                            for c, t in r["split_ms"].items()))
                 if r["shape"] == label and "ms" in r:
                     log(f"    {name} q {r['q']} cache {r['cache']}: kernel "
                         f"{r['ms'] * 1e3:.1f} us (device "
@@ -821,7 +850,7 @@ def _fd_splits(FD, q, kp, vp, tbl, lens, w, ref, label, timed):
                 f"differs from its plain version by {err}; worst {worst}")
         if timed:
             times[c] = cuda_ms(call)
-            dev[c] = device_ms(call, ("paged_kernel",))
+            dev[c] = device_ms(call)
     if timed:
         rec.update(split_ms=times, split_device_ms=dev)
     return rec
@@ -847,9 +876,7 @@ def _fd_times(FD, name, q, kp, vp, tbl, lens, kc, vc, pos, w, lengths,
     nops = sum(live) * h * hd * 4
     bound_s = max(nbytes / rate, nops / F32_RATE)
     rec = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
-           "device_ms": device_ms(kern, ("paged_kernel" if name ==
-                                         "flash_decode_paged" else
-                                         "decode_kernel",)),
+           "device_ms": device_ms(kern),
            "bound_ms": bound_s * 1e3,
            "bound_by": "bytes" if nbytes / rate >= nops / F32_RATE
            else "operations", "bytes": nbytes, "live_keys": sum(live)}
@@ -1516,30 +1543,30 @@ def pf_kernel_phase(P, rate):
     return out
 
 
-def _prefill_profile(prefill, params, tokens):
+# the kernel names of B4, B7 and B8 in a profile
+PF_KERNEL_NAMES = {"flash_attention": ("attention_kernel",
+                                       "attention_wgmma_kernel"),
+                   "mamba_ssd_scan": ("ssd_kernel", "ssd_wgmma_kernel"),
+                   "wkv6_chunked": ("wkv6_kernel", "wkv_wgmma_kernel")}
+
+
+def _prefill_profile(prefill, params, tokens, launches):
     """One prefill under torch.profiler (device activity): device busy ms,
     the top kernels and the share of B4, B7 and B8."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prefill(params, tokens)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern, n_copy = {}, 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kern[ev.name] = kern.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-            n_copy += "copy" in ev.name
+    kern, count, wall = traced_kernels(
+        lambda: prefill(params, tokens),
+        sum(PF_KERNEL_NAMES.values(), ()), sum(launches.values()))
+    n_copy = sum(c for n, c in count.items() if "copy" in n)
     busy = sum(kern.values())
     share = lambda *keys: sum(us for n, us in kern.items()
-                              if any(k in n for k in keys)) / busy
+                              if any(k in n for k in keys)) / busy \
+        if busy else 0.0
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / (wall * 1e6),
-            "b4_share": share("attention_kernel", "attention_wgmma_kernel"),
-            "b7_share": share("ssd_kernel", "ssd_wgmma_kernel"),
-            "b8_share": share("wkv6_kernel", "wkv_wgmma_kernel"),
+            "b4_share": share(*PF_KERNEL_NAMES["flash_attention"]),
+            "b7_share": share(*PF_KERNEL_NAMES["mamba_ssd_scan"]),
+            "b8_share": share(*PF_KERNEL_NAMES["wkv6_chunked"]),
             "copy_launches": n_copy,
             "copy_ms": share("copy") * busy / 1e3, "copy_share": share("copy"),
             "top_kernels": [{"name": n[:90], "ms": us / 1e3,
@@ -1601,7 +1628,7 @@ def prefill_phase(P):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         ms = 1e3 * statistics.median(times)
-        prof = _prefill_profile(prefill, params, tokens)
+        prof = _prefill_profile(prefill, params, tokens, got["launches"])
         n_tok = PREFILL_BATCH * PREFILL_SEQ
         out[arch] = {"params": n_params, "weight_bytes": weight_bytes,
                      "init_s": init_s, "tokens": n_tok,
