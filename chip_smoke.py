@@ -99,14 +99,37 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     against the CPU port (the reference's scans), within
     ``PREFILL_PARITY_BAND``;
 17. ``kernels/ops.py``: each front end once on the card, one launch of its
-    kernel, against the plain version.
+    kernel, against the plain version;
+18. LM training main path: B1 (plain) at the flat-store shape of
+    full-width ``phi3-mini-3.8b`` (29.85 M x 128 f32, past 2^31 elements)
+    bit-equal to its plain version (run a slice at a time) and timed
+    beside ``add_`` and its bytes bound; then ``launch.train.run`` on
+    ``LM_ARGV`` (full width, bf16 params, block remat, hybrid dual-batch x
+    CPL at seq 64 -> 128, fused SGD, 40 steps; logged every step rather
+    than every 20th): one B1 launch a step and no B4 / B7 / B8 (the
+    training forward runs the differentiable scans), both sequence
+    lengths, finite losses, the last below the first, params on the card;
+    per sub-stage ms per step, tokens/s and time to its first step, peak
+    memory, and one profiled step per sub-stage (CUDA events around the
+    step; device idle share, top kernels, B1's share);
+19. LM training parity and resume: reduced f32 phi3-mini, gemma3-4b
+    (window 16), zamba2-2.7b (6 layers) and rwkv6-7b, 4 dual-batch steps
+    each in the fused (B1), per-step (B2) and weighted AdamW forms, on the
+    card against the CPU port on the same init and data, within
+    ``TRAIN_PARITY_BAND``; then reduced phi3-mini through the CLI with
+    ``--ckpt`` over both phases and ``--resume`` from the middle boundary,
+    the final checkpoints equal bit for bit.
 
 The launch counts are set to 0 just before each path and read just after;
 the ``launches`` in the kernels line are those counts, summed over the
-main path and the short runs (for B5 and B6, the paged serving main
-path's timed run; B5 has no caller on that path, so its count is 0; for
-B4, B7 and B8, one forward of each model of phase 15).  Launches made to
-compare a kernel with its plain version are not counted.
+main path and the short runs (for B1 and B2, the engine runs of phases 3-4
+and the LM runs of phases 18-19 on the card; for B5 and B6, the paged
+serving main path's timed run; B5 has no caller on that path, so its count
+is 0; for B4, B7 and B8, one forward of each model of phase 15).  Launches
+made to compare a kernel with its plain version are not counted.  B1's
+numbers in the line are its LM-store ones (phase 18), the shape this
+slice's main path gives it; the ResNet-store records stay among its
+variants.
 The last three lines of standard output are the card's name and power
 limit (as ``nvidia-smi`` gives them), one JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -1755,6 +1778,438 @@ def ops_phase(P):
     return out
 
 
+# ------------------------- phases 18-19: LM training ------------------------
+# the LM training main path: full-width phi3-mini-3.8b through the training
+# CLI's entry point, hybrid dual-batch x CPL (seq 64 -> 128), fused SGD
+LM_ARCH = "phi3-mini-3.8b"
+LM_ARGV = ["--arch", LM_ARCH, "--full", "--optimizer", "sgd", "--scheme",
+           "hybrid", "--seq", "128", "--global-batch", "16", "--lr", "5e-3",
+           "--steps", "40"]
+LM_STEPS, LM_SEQS = 40, (64, 128)
+# rows of the flat store a slice of B1's plain version covers (the plain
+# version's two store-sized temporaries would not fit beside the buffers)
+PLAIN_SLICE_ROWS = 1 << 20
+# card vs CPU port: reduced f32 LMs, a few dual-batch steps of each form
+TRAIN_PARITY_ARCHS = (("phi3-mini-3.8b", 2), ("gemma3-4b", 2),
+                      ("zamba2-2.7b", 6), ("rwkv6-7b", 2))
+TRAIN_PARITY_ARGS = dict(scheme="dbl", seq=32, global_batch=16, steps=4,
+                         lr=5e-3, k=1.05, n_small=3, micro_steps=0, seed=0)
+# losses are the history's, rounded to 4 decimals (one unit may separate
+# equal runs); params max abs after 4 SGD steps (the CPU port lies within
+# 1e-6 of the JAX package's on the same steps, tests/test_torch_lm_train.py).
+# AdamW amplifies rounding: a step moves a weight whose gradient lies near 0
+# by up to lr on a rounding difference, and later steps carry it on.  So its
+# losses, params and moments (relative to each leaf's largest value) are
+# held to "sensitivity" times the gap between two CPU runs whose initial
+# params differ by 2e-7 relative noise (about 2 ulp): the run's own
+# sensitivity to rounding, measured in this run (losses at least to the
+# loss band).
+TRAIN_PARITY_BAND = {"loss": 1.5e-4, "params": 1e-5, "sensitivity": 4.0}
+SENSITIVITY_NOISE = 2e-7
+# resume: reduced phi3-mini through the CLI, 2 phases (seq 16 -> 32)
+RESUME_ARGV = ["--arch", LM_ARCH, "--optimizer", "sgd", "--scheme", "hybrid",
+               "--seq", "32", "--global-batch", "16", "--lr", "5e-3",
+               "--steps", "8"]
+
+
+def b1_store_check(K, rows, rate):
+    """B1 (plain: f32 store, no velocity) at the full-width LM's flat-store
+    shape: one launch against the plain version (run a slice at a time)
+    bit for bit, then timed beside ``add_``, the sliced plain version and
+    its bytes bound.  Returns its record."""
+    n = rows * 128
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    w = torch.randn(rows, 128, generator=gen, device="cuda")
+    g = torch.randn(rows, 128, generator=gen, device="cuda")
+    wk = w.clone()
+    slices = [slice(r, r + PLAIN_SLICE_ROWS)
+              for r in range(0, rows, PLAIN_SLICE_ROWS)]
+
+    def plain():
+        for s in slices:
+            K.dbl_apply_plain(w[s], g[s], lr=LR)
+    K.dbl_apply_flat2d(wk, g, lr=LR)
+    plain()
+    torch.cuda.synchronize()
+    bad = sum(int((wk[s] != w[s]).sum()) for s in slices)
+    err = max(float((wk[s] - w[s]).abs().max()) for s in slices)
+    if bad:
+        raise AssertionError(f"B1 at the {rows} x 128 store: {bad} elements "
+                             f"differ from the plain version (max {err})")
+    ms = cuda_ms(lambda: K.dbl_apply_flat2d(wk, g, lr=LR), per_group=5,
+                 groups=5, warmup=2)
+    lib = lambda: w.add_(g, alpha=-LR)
+    library_ms = cuda_ms(lib, per_group=5, groups=5, warmup=2)
+    plain_ms = cuda_ms(plain, per_group=1, groups=3, warmup=1)
+    bound_ms = max(n * 12 / rate, n * 2 / F32_RATE) * 1e3
+    del w, g, wk
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"variant": "plain", "shape": f"{LM_ARCH} store",
+           "rows": rows, "elements": n,
+           "replaces": f"{REFERENCE}:{B1['plain'][0]}", "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes", "library_ms": library_ms,
+           "bytes": n * 12}
+    log(f"  dbl_apply_flat2d[plain] at the {LM_ARCH} store ({rows} x 128 "
+        f"f32, {n} elements, past 2^31): bit-equal to plain; kernel "
+        f"{ms:.2f} ms, add_ {library_ms:.2f} ms, plain (in slices of "
+        f"{PLAIN_SLICE_ROWS} rows) {plain_ms:.2f} ms, bound {bound_ms:.2f} "
+        f"ms ({bound_ms / ms:.0%} of the memory roofline)")
+    return rec
+
+
+def _lm_counts(L):
+    return {"dbl": {k: L.K.launch_count(k) for k in L.K.KERNEL_VARIANTS},
+            "dbl_plain": L.K.plain_count(),
+            "prefill": sum(m.launch_count() + m.plain_count()
+                           for m in L.pf_mods)}
+
+
+def _reset_lm_counts(L):
+    L.K.reset_counts()
+    for m in L.pf_mods:
+        m.reset_counts()
+
+
+class _CaptureRun:
+    """Around ``launch.train.run``: keep the ``RunResult`` and the engine of
+    its ``api.run`` call, and log every step (not every 20th) to a list in
+    place of standard output."""
+
+    def __init__(self, train):
+        self.train, self.real = train, train.api_run
+        self.res = self.engine = None
+        self.records = []
+
+    def __enter__(self):
+        def api_run(spec, config, **kw):
+            import dataclasses
+            config = dataclasses.replace(config, log_every=1,
+                                         log_fn=self.records.append)
+            self.res = self.real(spec, config, **kw)
+            self.engine = kw["engine"]
+            return self.res
+        self.train.api_run = api_run
+        return self
+
+    def __exit__(self, *exc):
+        self.train.api_run = self.real
+
+
+def _step_profile(L, engine, fspec, p2, phase, batch):
+    """One fused step of ``phase`` on the flat store ``p2``: CUDA-event ms
+    (median of 3, after a warm-up), then its kernels under the profiler —
+    device busy and idle share, top kernels, B1's share."""
+    fn, _ = engine.phase_fn(phase, fspec)
+    batches = {k: torch.as_tensor(v)[None].cuda() for k, v in batch.items()}
+    step = lambda: fn(p2, None, batches, None)
+    step()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    step_ms = statistics.median(times)
+    kern, count, _ = traced_kernels(step, ("dbl_sweep",), 1)
+    busy = sum(kern.values()) / 1e3
+    b1 = sum(us for n, us in kern.items() if "dbl_sweep" in n) / 1e3
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    return {"input_size": phase.input_size, "step_ms": step_ms,
+            "step_ms_runs": times, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / step_ms, "b1_ms": b1,
+            "b1_share": b1 / busy if busy else 0.0,
+            "kernel_launches": sum(count.values()),
+            "top_kernels": [{"name": n[:90], "ms": us / 1e3,
+                             "share": us / 1e3 / busy} for n, us in top]}
+
+
+def lm_train_phase(L, rate):
+    """Phase 18: the LM training main path at full width.  B1 at the
+    model's flat-store shape first (the store's geometry read from a
+    model built and freed before), then ``launch.train.run`` on
+    ``LM_ARGV``: one B1 launch a step and no B4 / B7 / B8, both sequence
+    lengths, finite losses, the last below the first, params on the card;
+    per sub-stage ms per step, tokens/s, time to its first step, and a
+    profiled step; peak memory.  Returns (record, B1's store record)."""
+    cfg = L.get_config(LM_ARCH)
+    params = L.models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    fspec = L.flat_spec(params)
+    rows, n_live = fspec.rows, fspec.n
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    b1 = b1_store_check(L.K, rows, rate)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_counts(L)
+    t0 = time.perf_counter()
+    with _CaptureRun(L.train) as cap:
+        hist = L.train.run(LM_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = _lm_counts(L)
+    res, engine = cap.res, cap.engine
+    losses = [h["loss"] for h in hist]
+    seqs = [h["seq"] for h in hist]
+    b1_launches = got["dbl"]["dbl_apply_flat2d"]
+    if b1_launches != LM_STEPS or sum(got["dbl"].values()) != LM_STEPS \
+            or got["dbl_plain"] or got["prefill"]:
+        raise AssertionError(f"LM main path: launches {got}; expected one "
+                             "dbl_apply_flat2d launch a step and no B4 / B7 "
+                             "/ B8 call")
+    if len(losses) != LM_STEPS or tuple(sorted(set(seqs))) != LM_SEQS:
+        raise AssertionError(f"LM main path: {len(losses)} steps at "
+                             f"sequence lengths {sorted(set(seqs))}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"LM main path losses: {losses}")
+    if any(t.device.type != "cuda" for t in L.tree_leaves(res.params)) or \
+            L.flat_spec(res.params).shape != fspec.shape:
+        raise AssertionError("LM params left the card or changed geometry")
+    phases = L.train.build_spec(
+        L.train.parser().parse_args(LM_ARGV)).to_phases()
+    stalls = [s["stall_s"] for s in engine.stall_log]
+    sub = []
+    for p, ph, stall in zip(res.phases, phases, stalls):
+        tokens = ph.layout.effective_examples * ph.input_size
+        sub.append({"input_size": p["input_size"], "batch": p["batch_size"],
+                    "steps": p["steps"], "time_s": p["time"],
+                    "tokens_per_step": tokens,
+                    "ms_per_step": 1e3 * p["time"] / p["steps"],
+                    "tokens_per_s": tokens * p["steps"] / p["time"],
+                    "first_step_s": stall})
+    log(f"LM main path: {LM_ARCH} full width ({n_live / 1e9:.3f} B params, "
+        f"bf16, remat {cfg.remat}), {LM_STEPS} steps in {wall:.2f} s "
+        f"(model build included); peak memory {peak / 2**30:.2f} GiB; "
+        f"{b1_launches} dbl_apply_flat2d launches, no B4 / B7 / B8")
+    for s in sub:
+        log(f"  seq {s['input_size']} x batch {s['batch']}: {s['steps']} "
+            f"steps, {s['ms_per_step']:.1f} ms/step, {s['tokens_per_s']:.0f} "
+            f"tokens/s ({s['tokens_per_step']:.0f} trained tokens a step), "
+            f"first step after {s['first_step_s']:.2f} s")
+    log(f"  losses: {losses}")
+
+    # one profiled step per sub-stage on the run's final params
+    res.opt_state = None
+    p2 = fspec.ravel(res.params)
+    res.params = None
+    args = L.train.parser().parse_args(LM_ARGV)
+    plane = L.DataPlane(L.SyntheticTokens(
+        vocab=min(cfg.vocab_size, 256), seed=args.seed,
+        n_examples=max(4096, args.global_batch * 64)), seed=args.seed)
+    plane.bind(phases)
+    profiles, g0 = [], 0
+    for ph in phases:
+        prof = _step_profile(L, engine, fspec, p2, ph, plane(ph, g0))
+        g0 += ph.n_steps
+        profiles.append(prof)
+        log(f"  profiled step at seq {prof['input_size']}: "
+            f"{prof['step_ms']:.1f} ms (CUDA events; runs "
+            f"{[round(t, 1) for t in prof['step_ms_runs']]}), device busy "
+            f"{prof['device_busy_ms']:.1f} ms (idle "
+            f"{prof['device_idle_share']:.1%}), {prof['kernel_launches']} "
+            f"kernels; B1 {prof['b1_ms']:.2f} ms ({prof['b1_share']:.1%})")
+        for k in prof["top_kernels"]:
+            log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
+    plane.close()
+    del p2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": LM_ARCH, "argv": LM_ARGV, "params": n_live,
+            "store_rows": rows, "wall_s": wall, "peak_bytes": peak,
+            "launches": got["dbl"], "losses": losses, "sub_stages": sub,
+            "profiles": profiles}, b1
+
+
+def _train_run(L, cfg, params, form, device):
+    """A few dual-batch steps of ``TRAIN_PARITY_ARGS`` through ``api.run``
+    on ``device``: ``form`` "fused" (B1 a step), "per_step" (B2 a step) or
+    "adamw" (the weighted step).  Returns (RunResult, counts)."""
+    import argparse
+    spec = L.train.build_spec(argparse.Namespace(**TRAIN_PARITY_ARGS))
+    if form == "adamw":
+        engine = L.TrainEngine(cfg, L.make_optimizer("adamw",
+                                                     weight_decay=0.01),
+                               device=device)
+    else:
+        engine = L.TrainEngine(cfg, L.sgd_momentum(0.0), sgd_server=True,
+                               scan_loop="auto" if form == "fused" else False,
+                               device=device)
+    plane = L.DataPlane(L.SyntheticTokens(vocab=min(cfg.vocab_size, 256),
+                                          n_examples=1024), seed=0)
+    _reset_lm_counts(L)
+    try:
+        res = L.api.run(spec, L.api.RunConfig(backend="spmd", log_every=1),
+                        init_params=L.tree_map(lambda t: t.to(device),
+                                               params),
+                        engine=engine, plane=plane)
+    finally:
+        plane.close()
+    return res, _lm_counts(L)
+
+
+def _leaf_gaps(a, b, rel=False):
+    """Max abs gap over leaves of two trees (relative to each leaf's
+    largest value of ``b`` with ``rel``)."""
+    gaps = []
+    for x, y in zip(a, b):
+        d = float((x.detach().cpu().float() - y.float()).abs().max())
+        gaps.append(d / max(float(y.abs().max()), 1e-30) if rel else d)
+    return max(gaps)
+
+
+def lm_parity_phase(L):
+    """Phase 19a: reduced f32 LMs on the card against the CPU port on the
+    same init and the same DataPlane data, in the fused (B1), per-step
+    (B2) and weighted AdamW forms, within TRAIN_PARITY_BAND.  Returns
+    (records, B1 and B2 launches of the card runs)."""
+    out, launches = {}, {"dbl_apply_flat2d": 0, "dbl_merge_flat2d": 0}
+    want = {"fused": "dbl_apply_flat2d", "per_step": "dbl_merge_flat2d",
+            "adamw": None}
+    steps = TRAIN_PARITY_ARGS["steps"]
+    threads = torch.get_num_threads()
+    for arch, layers in TRAIN_PARITY_ARCHS:
+        cfg = L.reduced(L.get_config(arch), layers=layers)
+        p0 = L.models.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        p_noisy = L.tree_map(lambda t: t * (1 + SENSITIVITY_NOISE * torch.randn(
+            t.shape, generator=gen)) if t.is_floating_point() else t, p0)
+        for form, kernel in want.items():
+            card, cc = _train_run(L, cfg, p0, form, "cuda")
+            torch.set_num_threads(1)
+            try:
+                cpu, _ = _train_run(L, cfg, p0, form, "cpu")
+                if form == "adamw":
+                    noisy, _ = _train_run(L, cfg, p_noisy, form, "cpu")
+            finally:
+                torch.set_num_threads(threads)
+            n_k = cc["dbl"][kernel] if kernel else 0
+            if n_k != (steps if kernel else 0) or \
+                    sum(cc["dbl"].values()) != n_k or cc["dbl_plain"] or \
+                    cc["prefill"]:
+                raise AssertionError(f"{arch} {form} on the card: launches "
+                                     f"{cc}")
+            if kernel:
+                launches[kernel] += n_k
+            lc = [h["loss"] for h in card.history]
+            lp = [h["loss"] for h in cpu.history]
+            pc, pp = L.tree_leaves(card.params), L.tree_leaves(cpu.params)
+            rec = {"loss_gap": max(abs(a - b) for a, b in zip(lc, lp)),
+                   "param_gap": _leaf_gaps(pc, pp), "losses": lc,
+                   "launches": n_k}
+            ok = len(lc) == len(lp) == steps and \
+                all(t.device.type == "cuda" for t in pc)
+            if form == "adamw":
+                moments = lambda a, b: max(
+                    _leaf_gaps(L.tree_leaves(a.opt_state[k]),
+                               L.tree_leaves(b.opt_state[k]), rel=True)
+                    for k in ("m", "v"))
+                rec["moment_gap"] = moments(card, cpu)
+                sens = rec["sensitivity"] = {
+                    "loss_gap": max(abs(a - h["loss"]) for a, h in
+                                    zip(lp, noisy.history)),
+                    "param_gap": _leaf_gaps(L.tree_leaves(noisy.params), pp),
+                    "moment_gap": moments(noisy, cpu)}
+                k = TRAIN_PARITY_BAND["sensitivity"]
+                ok = ok and rec["loss_gap"] <= max(
+                    TRAIN_PARITY_BAND["loss"], k * sens["loss_gap"]) and \
+                    rec["param_gap"] <= k * sens["param_gap"] and \
+                    rec["moment_gap"] <= k * sens["moment_gap"]
+            else:
+                ok = ok and rec["loss_gap"] <= TRAIN_PARITY_BAND["loss"] \
+                    and rec["param_gap"] <= TRAIN_PARITY_BAND["params"]
+            out[f"{arch}/{form}"] = rec
+            extra = (f", moments {rec['moment_gap']:.3g} (relative); the CPU "
+                     f"port's own gaps from {SENSITIVITY_NOISE:g} noise: loss "
+                     f"{rec['sensitivity']['loss_gap']:.3g}, params "
+                     f"{rec['sensitivity']['param_gap']:.3g}, moments "
+                     f"{rec['sensitivity']['moment_gap']:.3g}"
+                     if form == "adamw" else "")
+            log(f"LM parity {arch} reduced ({layers} layers, f32) {form}, "
+                f"card vs CPU over {steps} steps: loss gap "
+                f"{rec['loss_gap']:.3g}, param gap {rec['param_gap']:.3g}"
+                f"{extra}; {n_k} {kernel or 'kernel'} launches")
+            if not ok:
+                raise AssertionError(f"{arch} {form}: the card and the CPU "
+                                     f"port disagree beyond "
+                                     f"{TRAIN_PARITY_BAND}: {rec}")
+    return out, launches
+
+
+def _resume_pair(L, tmp, tag):
+    """The CLI through all phases with ``--ckpt``, then ``--resume`` from
+    the middle boundary in a directory holding only that file; returns
+    (full run's final file, resumed run's final file, printed lines, B1
+    launches)."""
+    import contextlib
+    import io
+    import shutil
+    full = os.path.join(tmp, f"{tag}-full")
+    part = os.path.join(tmp, f"{tag}-part")
+    text = io.StringIO()
+    _reset_lm_counts(L)
+    with contextlib.redirect_stdout(text):
+        L.train.run(RESUME_ARGV + ["--ckpt", full])
+        os.makedirs(part)
+        shutil.copy(os.path.join(full, "ckpt_00000001.npz"), part)
+        L.train.run(RESUME_ARGV + ["--ckpt", part, "--resume"])
+    n = L.K.launch_count("dbl_apply_flat2d")
+    return (os.path.join(full, "ckpt_00000002.npz"),
+            os.path.join(part, "ckpt_00000002.npz"), text.getvalue(), n)
+
+
+def lm_resume_phase(L):
+    """Phase 19b: reduced phi3-mini through ``launch.train.run`` with
+    ``--ckpt`` over both phases, then ``--resume`` from the middle
+    boundary: the resumed run's final checkpoint equals the uninterrupted
+    run's bit for bit (under ``torch.use_deterministic_algorithms`` if
+    the card's default kernels do not repeat themselves)."""
+    import numpy as np
+    import tempfile
+
+    def same(f1, f2):
+        with np.load(f1) as a, np.load(f2) as b:
+            return sorted(a.files) == sorted(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files)
+    with tempfile.TemporaryDirectory() as tmp:
+        f_full, f_res, text, n = _resume_pair(L, tmp, "default")
+        equal = same(f_full, f_res)
+        deterministic = False
+        if not equal:
+            log("LM resume: the resumed run differs on the default kernels; "
+                "again under torch.use_deterministic_algorithms(True)")
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+            torch.use_deterministic_algorithms(True)
+            try:
+                f_full, f_res, text, n = _resume_pair(L, tmp, "det")
+            finally:
+                torch.use_deterministic_algorithms(False)
+            equal, deterministic = same(f_full, f_res), True
+        with np.load(f_full) as a:
+            n_leaves = len(a.files)
+    resumed = "# resumed from phase boundary 1" in text
+    log(f"LM resume (reduced {LM_ARCH}, {' '.join(RESUME_ARGV[2:])}): final "
+        f"checkpoint of the run resumed at boundary 1 "
+        f"{'equals' if equal else 'differs from'} the uninterrupted run's "
+        f"({n_leaves} leaves){' on deterministic kernels' if deterministic else ''}"
+        f"; {n} dbl_apply_flat2d launches over both runs")
+    if not (equal and resumed):
+        raise AssertionError("the resumed run does not replay the "
+                             "uninterrupted one")
+    return {"equal": equal, "deterministic": deterministic,
+            "leaves": n_leaves, "launches": n}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2171,6 +2626,43 @@ def main() -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "variants": recs})
+
+    # 18. the LM training main path at full width, 19. card vs CPU and
+    # resume
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import make_optimizer
+    L = SimpleNamespace(K=K, pf_mods=tuple(pf_mods.values()),
+                        train=train_mod, models=models, api=api,
+                        get_config=get_config, reduced=reduced,
+                        flat_spec=flat_spec, tree_leaves=tree_leaves,
+                        tree_map=tree_map, DataPlane=DataPlane,
+                        SyntheticTokens=SyntheticTokens,
+                        TrainEngine=TrainEngine, sgd_momentum=sgd_momentum,
+                        make_optimizer=make_optimizer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["lm_train"], b1_store = lm_train_phase(L, rate)
+    log(f"[{time.perf_counter() - t_start:.0f} s] LM training main path "
+        "done")
+    report["lm_parity"], lm_launches = lm_parity_phase(L)
+    report["lm_resume"] = lm_resume_phase(L)
+    log(f"[{time.perf_counter() - t_start:.0f} s] LM parity and resume "
+        "done")
+    lm_launches["dbl_apply_flat2d"] += \
+        report["lm_train"]["launches"]["dbl_apply_flat2d"] + \
+        report["lm_resume"]["launches"]
+    for entry in line[:2]:
+        n = lm_launches[entry["name"]]
+        entry["launches"] += n
+        entry["variants"][0]["launches"] += n           # "plain"
+    # B1's line: the LM store, the shape this slice's main path gives it
+    b1_store["launches"] = report["lm_train"]["launches"]["dbl_apply_flat2d"]
+    line[0]["variants"].append(b1_store)
+    line[0]["max_abs_err"] = max(line[0]["max_abs_err"],
+                                 b1_store["max_abs_err"])
+    line[0].update({k: b1_store[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")})
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:

@@ -185,8 +185,9 @@ class RunConfig:
     ``SSP(staleness=5)``).  ``precision``: ``"f32"`` or ``"bf16"`` (the
     mixed store); on ``ps_sim`` it requires ``traced=True``, on ``spmd``
     it must match the engine's own (the engine owns its flat-store
-    layout).  ``ckpt_dir``/``resume`` are refused until the checkpoint
-    slice (ROADMAP A9).  ``log_fn`` receives the engine's step records
+    layout).  ``ckpt_dir`` takes a checkpoint at every phase boundary and
+    ``resume`` restarts from the latest one there (both backends).
+    ``log_fn`` receives the engine's step records
     (``spmd``) or one timing record per phase (``ps_sim``).
     """
     backend: str = "ps_sim"              # ps_sim | spmd

@@ -11,8 +11,13 @@ returning a ``RunResult`` with the reference's unified per-phase history.
   * ``SpmdBackend`` — the synchronous engine path (the paper's speed
     path), one phase at a time so phase boundaries are observable.
 
-Phase-boundary checkpoints (``ckpt_dir``/``resume``) wait for the
-checkpoint slice (ROADMAP A9); both backends refuse them until then.
+Both save a checkpoint at every phase boundary (``ckpt_dir``;
+``checkpoint.ckpt``, the reference's file format): ``params`` and
+``opt_state`` on the engine, ``params``, the float64 sim ``clock`` and the
+int64 ``epochs`` count on the simulator.  ``resume=True`` restarts from
+the latest saved boundary and replays the uninterrupted run's data order
+and clock, because every stream depends only on ``(seed, phase index)``
+or the global step.
 """
 from __future__ import annotations
 
@@ -20,8 +25,10 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import restore_latest, save_checkpoint
 from repro_torch.cluster.simulator import simulate
 from repro_torch.cluster.sync import SyncPolicy, as_policy
 from repro_torch.cluster.topology import ClusterEvent, workers_from_plan
@@ -37,11 +44,11 @@ def _as_tree(params):
     return params.to_tree() if isinstance(params, FlatParams) else params
 
 
-def _refuse_checkpoints(ckpt_dir, resume) -> None:
-    if ckpt_dir or resume:
-        raise NotImplementedError(
-            "phase-boundary checkpoints wait for the checkpoint slice "
-            "(ROADMAP A9)")
+def _restore(ckpt_dir: Optional[str], resume: bool, like: dict):
+    """Latest phase-boundary checkpoint (or None) for a backend run."""
+    if not (resume and ckpt_dir):
+        return None, None
+    return restore_latest(ckpt_dir, like)
 
 
 def scaled_time_model(tm: LinearTimeModel, input_size: int, ref_size: int,
@@ -173,7 +180,6 @@ class PsSimBackend:
     def run(self, phases: Sequence, params, *, opt_state=None, seed: int = 0,
             ckpt_dir: Optional[str] = None,
             resume: bool = False) -> RunResult:
-        _refuse_checkpoints(ckpt_dir, resume)
         params = _as_tree(params)
         for leaf in tree_leaves(params):
             if leaf.device != self.device:
@@ -182,10 +188,19 @@ class PsSimBackend:
         if self.plane is not None:
             self.plane.bind(phases)
         ref_size = self.ref_size or max(p.input_size for p in phases)
-        t_off, epoch_off = 0.0, 0
+        like = {"params": params, "clock": np.zeros((), np.float64),
+                "epochs": np.zeros((), np.int64)}
+        start, tree = _restore(ckpt_dir, resume, like)
+        t_off, epoch_off, resumed = 0.0, 0, None
+        if start is not None:
+            params = tree["params"]
+            t_off = float(tree["clock"])
+            epoch_off = int(tree["epochs"])
+            resumed = start
         history: List[dict] = []
         phase_recs: List[dict] = []
-        for i, phase in enumerate(phases):
+        for i in range(start or 0, len(phases)):
+            phase = phases[i]
             if phase.plan is None:
                 raise ValueError("simulator phases need a dual-batch plan "
                                  "(n_small=0 plans model the baseline)")
@@ -247,8 +262,13 @@ class PsSimBackend:
                 metrics=res.history[-1] if res.history else {}))
             t_off += res.sim_time
             epoch_off += max(1, phase.epochs)
+            if ckpt_dir:
+                save_checkpoint(ckpt_dir, i + 1,
+                                {"params": params,
+                                 "clock": np.float64(t_off),
+                                 "epochs": np.int64(epoch_off)})
         return RunResult(self.name, params, None, t_off, history,
-                         phase_recs, None)
+                         phase_recs, resumed)
 
 
 class SpmdBackend:
@@ -257,7 +277,8 @@ class SpmdBackend:
     Wraps a ``TrainEngine`` + ``batch_fn`` and runs the schedule one phase
     at a time; the engine's step cache persists across phases.  A
     ``DataPlane`` passed as ``batch_fn`` is bound to the full schedule up
-    front.
+    front.  Checkpoints and resume as ``PsSimBackend``'s, holding
+    ``params`` and ``opt_state``.
     """
     name = "spmd"
 
@@ -269,17 +290,30 @@ class SpmdBackend:
             ckpt_dir: Optional[str] = None, resume: bool = False,
             log_every: int = 20,
             log_fn: Optional[Callable[[dict], None]] = None) -> RunResult:
-        _refuse_checkpoints(ckpt_dir, resume)
         params = _as_tree(params)
         if hasattr(self.batch_fn, "bind"):
             self.batch_fn.bind(phases)
         if opt_state is None:
             opt_state = self.engine.optimizer.init(params)
-        gstep, samples = 0, 0
+        like = {"params": params, "opt_state": opt_state}
+        start, tree = _restore(ckpt_dir, resume, like)
+        resumed = None
+        if start is not None:
+            params, opt_state = tree["params"], tree["opt_state"]
+            resumed = start
+        start = start or 0
+        # when every phase runs on the engine's flat store, the store goes
+        # from run to run (no tree rebuilt at each boundary to sit beside
+        # the caller's); checkpoints save its public tree
+        params = self.engine.to_flat(params, phases[start:])
+        gstep = sum(p.n_steps for p in phases[:start])
+        samples = sum(p.n_steps * p.batch_size * p.input_size
+                      for p in phases[:start])
         history: List[dict] = []
         phase_recs: List[dict] = []
         t_total = 0.0
-        for i, phase in enumerate(phases):
+        for i in range(start, len(phases)):
+            phase = phases[i]
             t0 = time.time()
             params, opt_state, hist = self.engine.run(
                 [phase], params, opt_state, self.batch_fn, seed=seed,
@@ -296,5 +330,8 @@ class SpmdBackend:
             t_total += dt
             gstep += phase.n_steps
             samples += phase.n_steps * phase.batch_size * phase.input_size
-        return RunResult(self.name, params, opt_state, t_total, history,
-                         phase_recs, None)
+            if ckpt_dir:
+                save_checkpoint(ckpt_dir, i + 1,
+                                {"params": params, "opt_state": opt_state})
+        return RunResult(self.name, _as_tree(params), opt_state, t_total,
+                         history, phase_recs, resumed)

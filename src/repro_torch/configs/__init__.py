@@ -3,8 +3,8 @@
 The port knows ``cifar-resnet18`` (the training slices), the two
 attention-only LMs of the serving slice, ``phi3-mini-3.8b`` and
 ``gemma3-4b``, and the recurrent and hybrid LMs of the prefill slice,
-``zamba2-2.7b`` and ``rwkv6-7b``; the other LM configs wait for the LM
-slice (ROADMAP A12)."""
+``zamba2-2.7b`` and ``rwkv6-7b`` (all four train since the LM training
+slice); the other LM configs wait for ROADMAP A12e."""
 from __future__ import annotations
 
 import importlib
@@ -26,7 +26,7 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; the port knows "
                        f"{sorted(_MODULES)} (the other LM configs wait for "
-                       "ROADMAP A12)")
+                       "ROADMAP A12e)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 

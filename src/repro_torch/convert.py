@@ -1,4 +1,5 @@
-"""Carry weights and flat buffers across from the JAX package.
+"""Carry weights, optimizer state and flat buffers across from the JAX
+package.
 
 The caller hands numpy arrays (for a JAX tree,
 ``jax.tree_util.tree_map(np.asarray, params)``); nothing here imports
@@ -21,10 +22,13 @@ def tensor_from_numpy(arr, device=None) -> torch.Tensor:
     arr = np.asarray(arr)
     if not arr.flags.writeable:           # e.g. a view of a JAX buffer
         arr = arr.copy()
+    # np.asarray(order="C"), not np.ascontiguousarray, which makes a 0-d
+    # array 1-d
+    arr = np.asarray(arr, order="C")
     if arr.dtype.name == "bfloat16":
-        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))
+        bits = torch.from_numpy(arr.view(np.uint16))
         return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -86,3 +90,19 @@ def lm_params_from_numpy(tree, cfg, device=None):
                                  f"layers holds a leaf of shape "
                                  f"{np.shape(leaf)}")
     return params_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(state, device=None):
+    """The JAX package's optimizer state as a numpy tree -> the port's on
+    ``device`` (``None`` means the card): AdamW's ``{"m", "v", "t"}`` (the
+    step count a 0-d int32, as both packages keep it) or SGD's
+    ``{"v"}``, each moment tree in its params' structure."""
+    keys = set(state)
+    if keys not in ({"m", "v", "t"}, {"v"}):
+        raise ValueError(f"not an AdamW or SGD state: keys {sorted(keys)}")
+    if "t" in state:
+        t = np.asarray(state["t"])
+        if t.shape != () or t.dtype != np.int32:
+            raise ValueError(f"AdamW's step count must be a 0-d int32, got "
+                             f"{t.dtype} of shape {t.shape}")
+    return params_from_numpy(state, device)

@@ -19,10 +19,10 @@ byte-equal to the JAX package's for the same parameters.  The TPU tiling
 that motivated the geometry does not bind the CUDA kernels; it stays so
 buffers and checkpoints compare byte for byte.
 
-Gradients w.r.t. the flat buffer come out flat for free: ``unravel``
-returns views (``torch.split`` of the flat buffer), so autograd through a
-loss built on them yields one ``(rows, LANE)`` gradient whose backward is
-a single concatenation — the flat, already-merged gradient, as in the
+``unravel`` returns views (``torch.split`` of the flat buffer) for the
+leaves of the store's dtype and cast copies for the others; the fused
+step takes the gradient w.r.t. those leaves and ravels it into one
+``(rows, LANE)`` buffer — the flat, already-merged gradient, as in the
 reference's ``engine/steps.py``.
 
 Precision: ``store_dtype`` (default float32) sets the buffer dtype.  A
@@ -110,16 +110,25 @@ class FlatSpec:
         return self.rows * LANE * self.store_dtype.itemsize
 
     # -- codec ---------------------------------------------------------
-    def _ravel_as(self, tree, dtype):
+    def _ravel_as(self, tree, dtype, out=None):
         leaves, _ = tree_flatten(tree)
         if len(leaves) != len(self.sizes):
             raise ValueError(f"tree has {len(leaves)} leaves, spec expects "
                              f"{len(self.sizes)}")
-        parts = [l.detach().reshape(-1).to(dtype) for l in leaves]
-        if self.pad:
-            parts.append(torch.zeros(self.pad, dtype=dtype,
-                                     device=parts[0].device))
-        return torch.cat(parts).view(self.shape)
+        if out is None:
+            out = torch.empty(self.shape, dtype=dtype,
+                              device=leaves[0].device)
+        elif tuple(out.shape) != self.shape or out.dtype != dtype:
+            raise ValueError(f"out is {out.dtype} {tuple(out.shape)}, the "
+                             f"spec needs {dtype} {self.shape}")
+        # each leaf cast straight into its place: no per-leaf copies and
+        # no concatenation beside the buffer (at a 3.8 G-element store
+        # those are two more buffers' worth of memory)
+        flat = out.view(-1)
+        for leaf, off, size in zip(leaves, self.offsets, self.sizes):
+            flat[off:off + size].copy_(leaf.detach().reshape(-1))
+        flat[self.n:].zero_()
+        return out
 
     def ravel(self, tree) -> torch.Tensor:
         """tree -> new (rows, LANE) ``store_dtype`` buffer on the leaves'
@@ -127,10 +136,11 @@ class FlatSpec:
         gradients) regardless of leaf dtype."""
         return self._ravel_as(tree, self.store_dtype)
 
-    def ravel_master(self, tree) -> torch.Tensor:
+    def ravel_master(self, tree, out=None) -> torch.Tensor:
         """tree -> (rows, LANE) float32 MASTER buffer with this spec's
-        exact geometry (``ravel`` itself on an f32 spec)."""
-        return self._ravel_as(tree, torch.float32)
+        exact geometry (``ravel`` itself on an f32 spec), written into
+        ``out`` when given."""
+        return self._ravel_as(tree, torch.float32, out)
 
     def unravel(self, buf: torch.Tensor):
         """(rows, LANE) buffer -> tree with the original shapes.  Leaves

@@ -9,16 +9,22 @@ per-example weights
 (large group: factor 1, all valid; small group: model-update factor, first
 B_S-of-B_L rows valid), and the global update is the weighted mean of
 per-example gradients — the paper's contribution-scaled merge.
+
+An optional *micro-update* mode recovers the higher small-batch update
+frequency of ASP: the small group takes ``micro_steps`` sequential local
+SGD steps inside one global step before the factor-weighted merge.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.dual_batch import DualBatchPlan
+from repro_torch.optim import Optimizer
 
 
 @functools.lru_cache(maxsize=256)
@@ -78,3 +84,28 @@ def layout_from_plan(plan: DualBatchPlan, global_batch: int) -> SpmdDualBatch:
                          n_workers=plan.n_workers, n_small=plan.n_small,
                          small_valid=small_valid,
                          factor_small=plan.update_factor_small)
+
+
+def make_train_step(cfg, optimizer: Optimizer, *,
+                    layout: Optional[SpmdDualBatch] = None,
+                    drop_rate: float = 0.0):
+    """The weighted train step (canonical implementation:
+    ``repro_torch.engine.steps.make_weighted_step``).
+
+    step(params, opt_state, batch, lr, rng) -> (params, opt_state, metrics)
+    batch: {"tokens","labels"[,...]} — weights are attached from `layout`
+    (or taken from batch["weight"] when given explicitly).
+    """
+    from repro_torch.engine.steps import make_weighted_step
+    return make_weighted_step(cfg, optimizer, layout=layout,
+                              drop_rate=drop_rate)
+
+
+def make_micro_train_step(cfg, optimizer: Optimizer, *,
+                          layout: SpmdDualBatch, micro_steps: int = 2,
+                          drop_rate: float = 0.0):
+    """Micro-update mode — canonical implementation:
+    ``repro_torch.engine.steps.make_micro_step``."""
+    from repro_torch.engine.steps import make_micro_step
+    return make_micro_step(cfg, optimizer, layout=layout,
+                           micro_steps=micro_steps, drop_rate=drop_rate)

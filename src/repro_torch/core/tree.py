@@ -16,39 +16,42 @@ _LEAF = ("leaf",)
 _NONE = ("none",)
 
 
+def _walk(t, leaves: list) -> tuple:
+    if t is None:
+        return _NONE
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_walk(t[k], leaves) for k in keys))
+    if isinstance(t, (list, tuple)):
+        kind = "list" if isinstance(t, list) else "tuple"
+        return (kind, tuple(_walk(c, leaves) for c in t))
+    leaves.append(t)
+    return _LEAF
+
+
+def _build(d: tuple, it) -> Any:
+    kind = d[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    children = [_build(c, it) for c in d[1]]
+    return children if kind == "list" else tuple(children)
+
+
+# module-level recursion, not nested closures: a closure that calls itself
+# is a reference cycle, which would keep the leaves it saw (a step's
+# gradients, say) alive until the cyclic garbage collector runs
 def tree_flatten(tree) -> Tuple[List[Any], tuple]:
     leaves: List[Any] = []
-
-    def walk(t):
-        if t is None:
-            return _NONE
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(walk(t[k]) for k in keys))
-        if isinstance(t, (list, tuple)):
-            kind = "list" if isinstance(t, list) else "tuple"
-            return (kind, tuple(walk(c) for c in t))
-        leaves.append(t)
-        return _LEAF
-
-    return leaves, walk(tree)
+    return leaves, _walk(tree, leaves)
 
 
 def tree_unflatten(treedef: tuple, leaves) -> Any:
     it = iter(leaves)
-
-    def build(d):
-        kind = d[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        children = [build(c) for c in d[1]]
-        return children if kind == "list" else tuple(children)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out

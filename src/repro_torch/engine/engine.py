@@ -38,13 +38,13 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.flat import FlatSpec, flat_spec
+from repro_torch.core.flat import FlatParams, FlatSpec, flat_spec
 from repro_torch.core.tree import tree_leaves
 from repro_torch.device import resolve_device, strict_f32
 from repro_torch.engine.phases import Phase
 from repro_torch.engine.steps import (make_fused_dbl_step,
                                       make_fused_phase_scan,
-                                      make_weighted_step)
+                                      make_micro_step, make_weighted_step)
 from repro_torch.optim import Optimizer
 
 
@@ -183,10 +183,10 @@ class TrainEngine:
         if key in self._cache:
             return self._cache[key], True
         if key.kind == "micro":
-            raise NotImplementedError(
-                "micro-update steps are LM-only and wait for the LM slice "
-                "(ROADMAP A12)")
-        if key.kind == "fused":
+            fn = make_micro_step(self.cfg, self.optimizer, layout=key.layout,
+                                 micro_steps=key.micro_steps,
+                                 drop_rate=key.drop_rate)
+        elif key.kind == "fused":
             fn = make_fused_dbl_step(self.cfg, key.layout,
                                      drop_rate=key.drop_rate,
                                      fused=self.fused_merge is not False)
@@ -301,10 +301,18 @@ class TrainEngine:
         global step counter (and so the dropout stream and ``batch_fn``
         indices); ``start_samples``/``wall_offset``/``phase_offset`` keep
         the logged counters cumulative under phase-at-a-time dispatch.
-        The caller's params are never written: the flat store is a copy.
+        A tree's params are never written: the flat store is a copy.
+        ``params`` may instead be a ``FlatParams`` from ``to_flat``: its
+        buffers are then the flat store itself, updated in place, and the
+        run returns it (consecutive runs share one store, as consecutive
+        fused phases of one run do).
         Returns (params, opt_state, history).
         """
-        self._check_device(params, "params")
+        given = params if isinstance(params, FlatParams) else None
+        if given is not None and (given.master is not None) != self._mixed:
+            raise ValueError(f"a {given.spec.store_dtype} flat store for an "
+                             f"engine of precision {self.precision!r}")
+        self._check_device(params if given is None else given.buf, "params")
         self._check_device(opt_state, "opt_state")
         history = []
         t0 = time.time()
@@ -318,7 +326,7 @@ class TrainEngine:
 
         def materialize():
             """Leave the flat store: params/opt_state become current."""
-            nonlocal params, opt_state, flat
+            nonlocal params, opt_state, flat, given
             if flat is not None:
                 spec, vspec, p2, v2 = flat
                 # mixed precision carries (shadow, master); the f32 master
@@ -327,14 +335,22 @@ class TrainEngine:
                 if v2 is not None:
                     opt_state = dict(opt_state, v=vspec.unravel(v2))
                 flat = None
+            elif given is not None:
+                params = given.to_tree()
+            given = None
 
         for pi, phase in enumerate(phases):
             kind = self._kind_for(phase)
             if self._use_scan(kind):
+                if flat is None and given is not None:
+                    spec = given.spec
+                    p2 = (given.buf, given.master) if self._mixed \
+                        else given.buf
                 if flat is None:
-                    spec = self._param_spec(params)
-                    p2 = ((spec.ravel(params), spec.ravel_master(params))
-                          if self._mixed else spec.ravel(params))
+                    if given is None:
+                        spec = self._param_spec(params)
+                        p2 = ((spec.ravel(params), spec.ravel_master(params))
+                              if self._mixed else spec.ravel(params))
                     vspec = v2 = None
                     if mom > 0:
                         if not (isinstance(opt_state, dict)
@@ -385,5 +401,20 @@ class TrainEngine:
                                  phase=phase, loss=metrics["loss"],
                                  samples_seen=samples_seen, t0=t0,
                                  wall_offset=wall_offset)
+        if given is not None:
+            # every phase ran on the caller's store: hand it back
+            if flat is not None and flat[3] is not None:
+                opt_state = dict(opt_state, v=flat[1].unravel(flat[3]))
+            return given, opt_state, history
         materialize()
         return params, opt_state, history
+
+    def to_flat(self, params, phases: Sequence[Phase]):
+        """``params`` as the ``FlatParams`` store ``run`` carries when every
+        phase of ``phases`` runs on it (the fused scan path), else as they
+        are: a backend running a schedule phase by phase hands the store
+        from run to run instead of a tree rebuilt at every boundary."""
+        if isinstance(params, FlatParams) or not phases or not all(
+                self._use_scan(self._kind_for(p)) for p in phases):
+            return params
+        return FlatParams.from_tree(params, spec=self._param_spec(params))

@@ -29,8 +29,9 @@ Checks 3 and 5 also carry a ``precision="bf16"`` mode (bf16 shadow + f32
 master) gated by the reference's tolerance bands; timeline facts stay
 exact.
 
-The reference runs these on a reduced ``phi3-mini-3.8b``, which waits for
-the LM slice (ROADMAP A12); here the tiny model is a width-8
+The reference runs these on a reduced ``phi3-mini-3.8b``, which the port
+trains too since its LM slice (moving these checks onto it is left,
+ROADMAP A12a); here the tiny model is a width-8
 ``cifar-resnet18`` (10 classes) on 8 px images (16 px in the data-plane
 check's second phase).  At 8 px the last stage is 1 x 1; at 16 px it is
 2 x 2, where the instance norm of near-constant channels amplifies

@@ -36,8 +36,8 @@ def run_sim(phases: Sequence[Phase], init_params, fns_factory: Callable, *,
     replaces the factory's data_fn with the canonical per-worker sample
     streams.  ``traced=True`` runs each phase through the traced
     simulator (see ``repro_torch.cluster.trace``).  ``device=None`` means
-    the card.  ``ckpt_dir``/``resume`` are refused until ROADMAP A9.
-    Returns the backend ``RunResult`` (``.params``, ``.time``,
+    the card.  ``ckpt_dir`` saves a checkpoint at every phase boundary,
+    and ``resume`` restarts from the latest one there.  Returns the backend ``RunResult`` (``.params``, ``.time``,
     ``.history``, ``.phases``, ``.last``).
     """
     backend = PsSimBackend(fns_factory, tm=tm, axis=axis, sync=sync,

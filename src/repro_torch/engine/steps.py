@@ -5,13 +5,16 @@ Step kinds:
   weighted   — single weighted-loss pass; the dual-batch contribution-scaled
                merge realized as one weighted mean of per-example gradients
                (works with ANY optimizer).
+  micro      — the small group takes ``micro_steps`` sequential local SGD
+               steps over micro-batches inside one global step before the
+               factor-weighted merge (LM batches).
   fused_dbl  — the paper §3.4 server update for the SGD dual-batch case,
                one step at a time: the two group gradients are taken
                separately and ``dbl_merge_flat2d`` (B2) merges and applies
                them in ONE launch over the whole flat store.  ``fused=False``
                applies the plain per-leaf ``dbl_merge_ref`` instead.
 
-Both share one signature:
+All share one signature:
 
     step(params, opt_state, batch, lr, rng) -> (params, opt_state, metrics)
 
@@ -21,8 +24,8 @@ Both share one signature:
 ``make_fused_phase_scan`` is the fused path's WHOLE-CHUNK form: the carry
 is the flat ``(params, velocity)`` buffer pair, updated in place, and a
 Python loop runs the chunk's steps — per step ONE backward of the merged
-loss w.r.t. the flat buffer and ONE ``dbl_apply_flat2d`` (B1) launch.
-The micro-update step is LM-only and waits for the LM slice (ROADMAP A12).
+loss, its gradient raveled into one flat buffer, and ONE
+``dbl_apply_flat2d`` (B1) launch.
 """
 from __future__ import annotations
 
@@ -143,9 +146,12 @@ def make_fused_phase_scan(cfg, layout, spec, *, lr: float,
     Per step this does ONE backward pass and ONE kernel launch.  The loss
     differentiated is the already-merged scalar ``(L_L + f·L_S)/(1+f)``:
     gradients are linear, so its gradient IS the paper's merged gradient
-    ``(g_L + f·g_S)/(1+f)``.  It is taken w.r.t. the flat buffer through
-    ``spec.unravel``'s views, so it arrives flat, and ``dbl_apply_flat2d``
-    finishes with the single apply(+momentum) sweep.
+    ``(g_L + f·g_S)/(1+f)``.  It is taken w.r.t. the leaves
+    ``spec.unravel`` gives (views of the buffer, or casts to the leaf
+    dtypes) and raveled into one flat buffer — the values the gradient
+    w.r.t. the flat buffer has, without autograd's per-leaf f32 copies
+    and their concatenation beside it — and ``dbl_apply_flat2d`` finishes
+    with the single apply(+momentum) sweep.
 
     Mixed precision: when ``spec`` has a bf16 ``store_dtype`` the ``p2``
     carry is the ``(shadow, master)`` pair — the forward/backward runs on
@@ -161,12 +167,17 @@ def make_fused_phase_scan(cfg, layout, spec, *, lr: float,
     mom = float(momentum)
     mixed = spec.store_dtype != torch.float32
 
-    def merged_loss(x2, batch, rng):
-        params = spec.unravel(x2)
+    def merged_grad(src, batch, rng):
+        """(merged loss, its gradients) at the leaves ``spec.unravel(src)``
+        gives; the graph, which holds those leaves, is gone on return."""
+        leaves, treedef = tree_flatten(spec.unravel(src))
+        xs = [l.detach().requires_grad_() for l in leaves]
+        params = tree_unflatten(treedef, xs)
         large, small = _group_batches(batch, nl_rows, small_idx)
         loss_l, _ = _weighted_loss(params, cfg, large, rng, drop_rate)
         loss_s, _ = _weighted_loss(params, cfg, small, rng, drop_rate)
-        return (loss_l + f * loss_s) / (1.0 + f)
+        loss = (loss_l + f * loss_s) / (1.0 + f)
+        return loss.detach(), torch.autograd.grad(loss, xs)
 
     def phase_fn(p2, v2, batches, rngs):
         c = next(iter(batches.values())).shape[0]
@@ -175,16 +186,68 @@ def make_fused_phase_scan(cfg, layout, spec, *, lr: float,
             batch = {k: b[j] for k, b in batches.items()}
             rng = rngs[j] if rngs is not None else None
             shadow = p2[0] if mixed else p2
-            x2 = (shadow.float() if mixed else shadow).detach() \
-                .requires_grad_()
-            loss = merged_loss(x2, batch, rng)
-            (g2,) = torch.autograd.grad(loss, x2)
+            # the flat gradient's buffer first, while the block the last
+            # step's gradient freed is whole: taken after the backward, it
+            # would find that block split by the step's smaller tensors
+            g2 = torch.empty(spec.shape, dtype=torch.float32,
+                             device=shadow.device)
+            loss, grads = merged_grad(shadow.float() if mixed else shadow,
+                                      batch, rng)
+            spec.ravel_master(tree_unflatten(spec.treedef, list(grads)),
+                              out=g2)
+            del grads
             kw = {"vel2": v2, "momentum": mom} if mom > 0 else {}
             if mixed:
                 dbl_apply_flat2d(shadow, g2, lr=lr_f, master2=p2[1], **kw)
             else:
                 dbl_apply_flat2d(p2, g2, lr=lr_f, **kw)
-            losses.append(loss.detach())
+            # free this step's gradient before the next step allocates
+            # its own (the allocator hands its memory only to work queued
+            # after the launch on this stream)
+            del g2
+            losses.append(loss)
         return p2, v2, torch.stack(losses)
 
     return phase_fn
+
+
+def make_micro_step(cfg, optimizer, *, layout, micro_steps: int = 2,
+                    drop_rate: float = 0.0):
+    """Micro-update mode (the reference's beyond-weighted variant): the
+    small group's rows split into ``micro_steps`` sequential micro-batches;
+    local SGD steps run over them from the pulled params, and the delta
+    merges into the global update with the model-update factor —
+    recovering ASP's higher small-batch update frequency synchronously.
+    The large group's gradient goes through ``optimizer``."""
+    n_small_rows = layout.n_small * layout.per_worker
+    nl_rows = layout.global_batch - n_small_rows
+    msz = n_small_rows // micro_steps
+    f = layout.factor_small
+
+    def step(params, opt_state, batch, lr, rng=None):
+        tokens, labels = batch["tokens"], batch["labels"]
+        big = {"tokens": tokens[:nl_rows], "labels": labels[:nl_rows]}
+        loss_b, g_big = _value_and_grad(params, cfg, big, rng, drop_rate)
+
+        # small-group local SGD over micro-batches
+        p_small, losses = params, []
+        for j in range(micro_steps):
+            rows = slice(nl_rows + j * msz, nl_rows + (j + 1) * msz)
+            micro = {"tokens": tokens[rows], "labels": labels[rows]}
+            ls, g = _value_and_grad(p_small, cfg, micro, rng, drop_rate)
+            with torch.no_grad():
+                p_small = tree_map(lambda w, gg: w - (lr * gg).to(w.dtype),
+                                   p_small, g)
+            losses.append(ls)
+
+        # merge: factor-scaled small-group delta + large-group step
+        with torch.no_grad():
+            delta = tree_map(lambda a, b: a - b, p_small, params)
+            params2, opt_state = optimizer.update(g_big, opt_state, params,
+                                                  lr)
+            params2 = tree_map(
+                lambda p, d: p + (f * d.float()).to(p.dtype), params2, delta)
+        return params2, opt_state, {"loss": loss_b,
+                                    "loss_small": torch.stack(losses).mean()}
+
+    return step

@@ -1,3 +1,3 @@
-"""Runnable examples of the port (``python -m repro_torch.examples.<name>``).
-The reference's ``examples/quickstart.py`` defaults to an LM config and
-waits for the LM slice (ROADMAP A12)."""
+"""Runnable examples of the port (``python -m repro_torch.examples.<name>``):
+``quickstart`` (the reference's ``examples/quickstart.py``) and
+``train_resnet18_e2e``."""

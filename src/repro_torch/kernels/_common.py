@@ -56,8 +56,9 @@ def check_launchable(name: str, *ts: torch.Tensor,
                      contiguous: bool = True) -> None:
     """Before a launch: every tensor on one CUDA device, contiguous (unless
     the kernel reads strides and checks them itself: ``contiguous=False``),
-    and none asking for a gradient (the kernels have no backward: training
-    the LMs through them is ROADMAP A12's work)."""
+    and none asking for a gradient (the kernels have no backward: the LMs
+    train through the differentiable scans, which ``models.forward(...,
+    train=True)`` selects)."""
     dev = ts[0].device
     if dev.type != "cuda":
         raise ValueError(f"no {name} kernel for {dev}")
@@ -70,9 +71,11 @@ def check_launchable(name: str, *ts: torch.Tensor,
                              f"{tuple(t.shape)}")
         if t.requires_grad:
             raise RuntimeError(
-                f"{name}: the CUDA kernel has no backward; training the LMs "
-                "through it waits for ROADMAP A12 (run under "
-                "torch.inference_mode() or detach the inputs)")
+                f"{name}: the CUDA kernel has no backward; the training "
+                "forward runs the differentiable scans instead "
+                "(models.forward(..., train=True), as models.loss_fn does), "
+                "and a forward without gradients runs under "
+                "torch.inference_mode() or on detached inputs")
 
 
 def strides_of(t: torch.Tensor, dims) -> list:

@@ -5,11 +5,10 @@
     forward(...)                           -> logits            [prefill/eval]
 
 ``batch`` dicts carry an optional per-example ``weight`` — the hook used
-by dual-batch learning's model-update factor.  The CNN is ported whole.
-Decoder-only LMs (dense, MoE, SSM and hybrid stacks) have their parameter
-init and prefill forward (``transformer``; MoE blocks raise until ROADMAP
-A12/A19); their loss waits for the LM training path (A12), the
-encoder-decoder models for theirs.
+by dual-batch learning's model-update factor.  The CNN is ported whole,
+and so are the decoder-only LMs' (dense, SSM and hybrid stacks) init,
+forward and loss (``transformer``; MoE blocks raise until ROADMAP
+A12c/A19); the encoder-decoder models wait for A12d.
 """
 from __future__ import annotations
 
@@ -28,7 +27,7 @@ def _mod(cfg):
         return transformer
     raise NotImplementedError(
         f"{cfg.name} ({cfg.arch_type}) is not ported yet: it waits for "
-        "ROADMAP A12 (LM training path)")
+        "ROADMAP A12d (encoder-decoder)")
 
 
 def init_params(cfg, gen, device=None):
@@ -37,10 +36,6 @@ def init_params(cfg, gen, device=None):
 
 
 def loss_fn(params, cfg, batch, **kw):
-    if _is_lm(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the LM loss waits for ROADMAP A12 (LM training "
-            "path)")
     return _mod(cfg).loss_fn(params, cfg, batch, **kw)
 
 

@@ -7,8 +7,10 @@ are the queries' own (causal, ``q_offset == 0``, ``sq == sk``) or the
 attention is not causal, it launches the hand-written kernel B4
 (``kernels.flash_attention``) on ``(B, H, S, hd)`` copies of q, k and v;
 a causal call with an offset raises there (B4 places queries and keys
-from 0; attention behind a cache comes with ROADMAP A12).  On the CPU it
-runs the port of the reference's XLA scan, line for line: an online
+from 0; attention behind a cache comes with ROADMAP A12).  On the CPU,
+and on any device when the caller asks for the training form
+(``train=True``: B4 has no backward), it runs the port of the
+reference's XLA scan, line for line, under autograd: an online
 softmax over KV blocks
 of ``block_k`` with ``q·scale`` in the compute dtype, f32 scores and
 ``p`` cast to v's dtype before the product with v.  B4 computes the
@@ -65,18 +67,20 @@ def _block_mask(q_pos, k_pos, window: int):
 
 
 def chunked_attention(q, k, v, *, window: int = 0, causal: bool = True,
-                      block_k: int = 1024, q_offset: int = 0):
+                      block_k: int = 1024, q_offset: int = 0,
+                      train: bool = False):
     """Flash-style attention with online softmax over KV blocks.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.
     window: 0 (global) or a sliding window (applies when causal).
     Returns (B, Sq, H, hd) in q's dtype.  Off the CPU this is B4, which
-    takes the keys as the queries' own or the attention as not causal
-    (see the module docstring)."""
+    takes the keys as the queries' own or the attention as not causal,
+    unless ``train`` asks for the differentiable scan (see the module
+    docstring)."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     window = int(window)
-    if q.device.type != "cpu":
+    if q.device.type != "cpu" and not train:
         if causal and (q_offset != 0 or sq != sk):
             raise NotImplementedError(
                 "causal attention with a query offset (q_offset "
@@ -137,13 +141,15 @@ def chunked_attention(q, k, v, *, window: int = 0, causal: bool = True,
 
 
 def attention_block(p, x, cfg, *, window: int = 0, positions=None,
-                    block_k: int = 1024):
-    """Full prefill self-attention sublayer (no norm/residual)."""
+                    block_k: int = 1024, train: bool = False):
+    """Full self-attention sublayer (no norm/residual); ``train`` selects
+    the differentiable scan on the card (``chunked_attention``)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = attn_project_qkv(p, x, positions, cfg)
-    o = chunked_attention(q, k, v, window=window, block_k=block_k)
+    o = chunked_attention(q, k, v, window=window, block_k=block_k,
+                          train=train)
     return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
 

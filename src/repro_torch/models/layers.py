@@ -5,6 +5,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def normal_init(gen: torch.Generator, shape, scale: float,
@@ -85,3 +86,63 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
     xf = x.float()
     rot = torch.roll(xf, hd // 2, dims=-1)                         # [x2, x1]
     return (xf * cos_full + rot * sin_signed).to(x.dtype)
+
+
+# ----------------------------- losses -------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  label_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-example mean token cross-entropy.
+
+    logits: (B, S, V); labels: (B, S) int; label_mask: (B, S) {0, 1}.
+    Returns (B,) f32 per-example losses (the reference's op order: logsumexp
+    minus the gold logit, masked sums over the count)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold                                    # (B, S)
+    if label_mask is None:
+        label_mask = torch.ones_like(nll)
+    tok = torch.sum(nll * label_mask, dim=-1)
+    cnt = torch.clamp_min(torch.sum(label_mask, dim=-1), 1.0)
+    return tok / cnt
+
+
+def _chunk_nll(h, head, labels, mask):
+    """Masked token NLL sums and counts of one sequence chunk."""
+    logits = torch.einsum("bqd,vd->bqv", h, head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return torch.sum(nll, dim=-1), torch.sum(mask, dim=-1)
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 8192,
+                          label_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Streaming CE over vocab-projected logits without materializing the
+    full (B, S, V) f32 tensor: logits are computed per S-chunk and reduced.
+    Under autograd each chunk is checkpointed, so its backward recomputes
+    the chunk's logits instead of keeping every chunk's.
+
+    hidden: (B, S, D); head: (V, D); labels: (B, S).
+    Returns per-example losses (B,), like ``cross_entropy``."""
+    b, s, _ = hidden.shape
+    q = min(chunk, s)
+    while s % q:
+        q -= 1
+    if label_mask is None:
+        label_mask = torch.ones((b, s), dtype=torch.float32,
+                                device=hidden.device)
+    tok = torch.zeros((b,), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((b,), dtype=torch.float32, device=hidden.device)
+    for j in range(0, s, q):
+        args = (hidden[:, j:j + q], head, labels[:, j:j + q],
+                label_mask[:, j:j + q])
+        if torch.is_grad_enabled():
+            t, c = checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            t, c = _chunk_nll(*args)
+        tok = tok + t
+        cnt = cnt + c
+    return tok / torch.clamp_min(cnt, 1.0)

@@ -10,8 +10,9 @@ tensor cores (chunks of 64), in f32 the recurrence step by step, each
 equal to ``ssd_chunked`` up to float order — on views of the heads
 (``(Bt, H, S, P)`` transposes of the conv output's columns, dt and the B
 and C columns as they are) and takes y back as a view of ``(Bt, S, H,
-P)`` memory, so no copy is made on either side; on the CPU the block
-runs ``ssd_chunked``.
+P)`` memory, so no copy is made on either side; on the CPU, and on any
+device when the caller asks for the training form (``train=True``: B7 has
+no backward), the block runs ``ssd_chunked`` under autograd.
 The one-token decode step (``ssd_decode_step``, ``mamba2_decode``) waits
 for the decode slice (ROADMAP A14).
 """
@@ -115,9 +116,10 @@ def mamba2_split(p, x, cfg):
     return z, xs, Bv, Cv, dt, d_in, n, nh
 
 
-def mamba2_block(p, x, cfg):
-    """Full Mamba2 block for prefill.  x: (Bt, S, D) -> (Bt, S, D).  On
-    CUDA tensors the SSD scan is B7."""
+def mamba2_block(p, x, cfg, *, train: bool = False):
+    """Full Mamba2 block.  x: (Bt, S, D) -> (Bt, S, D).  On CUDA tensors
+    the SSD scan is B7, unless ``train`` asks for the differentiable
+    ``ssd_chunked``."""
     s_cfg = cfg.ssm
     bt, s, _ = x.shape
     z, xs, Bv, Cv, dt, d_in, n, nh = mamba2_split(p, x, cfg)
@@ -126,7 +128,7 @@ def mamba2_block(p, x, cfg):
     conv_out = F.silu(conv_out)
     xs, Bv, Cv = torch.split(conv_out, [d_in, n, n], dim=-1)
     xh = xs.reshape(bt, s, nh, s_cfg.head_dim)
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" and not train:
         # views in, a view out: B7 reads the strides of the conv output's
         # columns and writes y in (Bt, S, H, P) memory
         y = _ssd.mamba_ssd_scan(

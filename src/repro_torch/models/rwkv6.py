@@ -9,7 +9,9 @@ the decay w in f32) and with an f32 output, as the reference's scan
 returns f32; the kernel writes y in ``(B, S, H, V)`` memory, so the
 per-head group norm reads it without a copy, and nothing is cast or
 transposed around B8.  On the CPU ``time_mix`` runs ``wkv6_scan``, from
-a given state too; on the card a given state raises.  The one-token decode step (``wkv6_step``)
+a given state too, and so it does on any device when the caller asks for
+the training form (``train=True``: B8 has no backward), under autograd;
+on the card a given state raises.  The one-token decode step (``wkv6_step``)
 and a stateful WKV on the card wait for the decode slice (ROADMAP A14).
 """
 from __future__ import annotations
@@ -51,15 +53,18 @@ def _mix(x, xx, mu):
     return x + (xx - x) * mu
 
 
-def time_mix(p, x, cfg, *, shift_state=None, wkv_state=None):
+def time_mix(p, x, cfg, *, shift_state=None, wkv_state=None,
+             train: bool = False):
     """Prefill time-mix.  Returns (out, last input, final WKV state); the
     state is None where B8 ran (the kernel starts from zero and keeps no
     final state).  On the card B8 reads r, k, v and the f32 decay as the
     views the projections give and returns y (B, S, H, V) f32 in memory
-    order, which the group norm reads as it is.  A ``wkv_state`` to start from runs only on the CPU: B8
-    has no initial state, and that path is the decode slice's (ROADMAP
-    A14)."""
-    if wkv_state is not None and x.device.type != "cpu":
+    order, which the group norm reads as it is.  ``train`` runs
+    ``wkv6_scan`` instead, on any device.  A ``wkv_state`` to start from
+    runs only on the CPU: B8 has no initial state, and that path is the
+    decode slice's (ROADMAP A14)."""
+    kernel = x.device.type != "cpu" and not train
+    if wkv_state is not None and kernel:
         raise NotImplementedError(
             "time_mix from a WKV state runs only on the CPU: B8 starts from "
             "zero; stateful WKV on the card comes with the decode slice "
@@ -74,7 +79,7 @@ def time_mix(p, x, cfg, *, shift_state=None, wkv_state=None):
     w = _ddecay(p, _mix(x, xx, p["mu_w"]))                     # (B,S,D)
 
     r, k, v, w = (t.reshape(b, s, h, hd) for t in (r, k, v, w))
-    if x.device.type != "cpu":
+    if kernel:
         t = lambda a: a.transpose(1, 2)                      # (B,H,S,·) views
         y = _wkv.wkv6_chunked(t(r), t(k), t(v), t(w), p["u"],
                               out_dtype=torch.float32).transpose(1, 2)

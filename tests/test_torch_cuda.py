@@ -322,3 +322,47 @@ def test_stateful_paths_refused_on_the_card(cuda):
     kv = torch.zeros(1, 6, 2, 16, device=cuda)
     with pytest.raises(NotImplementedError, match="A12"):
         attention.chunked_attention(q, kv, kv, q_offset=4)
+
+
+def test_fused_lm_step_on_the_card(cuda):
+    """One fused dual-batch SGD step of reduced f32 phi3-mini through
+    ``api.run`` on the card: one ``dbl_apply_flat2d`` launch and no B4
+    launch (the training forward runs the differentiable scan), params on
+    the card and within 1e-5 of the same step on the CPU port
+    (``chip_smoke.py`` phase 19 holds whole runs of every reduced LM)."""
+    import argparse
+
+    from repro_torch import api, models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import DataPlane, SyntheticTokens
+    from repro_torch.engine import TrainEngine
+    from repro_torch.kernels import dbl_merge as K
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import build_spec
+    from repro_torch.optim import sgd_momentum
+    cfg = reduced(get_config("phi3-mini-3.8b"))
+    spec = build_spec(argparse.Namespace(
+        scheme="dbl", seq=32, global_batch=16, steps=1, lr=5e-3, k=1.05,
+        n_small=3, micro_steps=0, seed=0))
+    p0 = models.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        engine = TrainEngine(cfg, sgd_momentum(0.0), sgd_server=True,
+                             device=dev)
+        K.reset_counts()
+        fa.reset_counts()
+        out[dev] = api.run(
+            spec, api.RunConfig(backend="spmd", log_every=1),
+            init_params=tree_map(lambda t: t.to(dev), p0), engine=engine,
+            plane=DataPlane(SyntheticTokens(vocab=256, n_examples=1024),
+                            seed=0))
+        if dev == "cuda":
+            assert K.launch_count("dbl_apply_flat2d", "plain") == 1
+            assert K.launch_count() == 1 and K.plain_count() == 0
+            assert fa.launch_count() + fa.plain_count() == 0
+    for a, b in zip(tree_leaves(out["cuda"].params),
+                    tree_leaves(out["cpu"].params)):
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max()) <= 1e-5

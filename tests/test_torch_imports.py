@@ -32,6 +32,9 @@ def test_port_imports_with_jax_blocked():
         "                     if sys.modules[m] is not None]\n"
         "assert not any(m == 'repro' or m.startswith('repro.')\n"
         "               for m in sys.modules)\n"
+        "assert {'repro_torch.checkpoint', 'repro_torch.checkpoint.ckpt',\n"
+        "        'repro_torch.launch.train',\n"
+        "        'repro_torch.examples.quickstart'} <= set(names)\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
@@ -82,6 +85,8 @@ def _entry_points():
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.flat import flat_spec
     from repro_torch.models import resnet, transformer
+    from repro_torch.examples import quickstart
+    from repro_torch.launch import train
     from repro_torch.serve import ServeEngine
     cfg = get_config("cifar-resnet18")
     lm = reduced(get_config("phi3-mini-3.8b"), layers=1, d_model=64,
@@ -103,6 +108,11 @@ def _entry_points():
         "convert.params_from_numpy": lambda d: convert.params_from_numpy(
             {"a": arr}, d),
         "FlatSpec.zeros_stacked": lambda d: spec.zeros_stacked(2, d),
+        "launch.train.run": lambda d: train.run(
+            ["--steps", "1", "--seq", "16", "--global-batch", "8"]
+            + ([] if d is None else ["--device", d])),
+        "examples.quickstart": lambda d: quickstart.main(
+            ["--steps", "1"] + ([] if d is None else ["--device", d])),
     }
 
 
@@ -114,7 +124,8 @@ def test_entry_point_without_device_needs_cuda(name):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make(None)
     out = make("cpu")
-    leaves = out.values() if isinstance(out, dict) else [out]
+    leaves = (out.values() if isinstance(out, dict)
+              else out if isinstance(out, list) else [out])
     assert all(t.device.type == "cpu" for t in leaves
                if isinstance(t, torch.Tensor))
 

@@ -209,11 +209,17 @@ def test_convert_round_trip_and_checks():
 
 def test_unported_paths_name_their_items():
     from dataclasses import replace
+
+    from repro_torch.configs.base import MoEConfig
     cfg = reduced(get_config("phi3-mini-3.8b"))
     tp = models.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
+    # the dense LM loss is ported (tests/test_torch_lm_train.py); an MoE
+    # model's still names its item
+    moe = replace(cfg, moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
+    tok = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="A12"):
-        models.loss_fn(tp, cfg, {})
+        models.loss_fn(tp, moe, {"tokens": tok, "labels": tok})
     enc = replace(cfg, encoder_layers=2)
     with pytest.raises(NotImplementedError, match="A12"):
         models.init_params(enc, torch.Generator(), device="cpu")

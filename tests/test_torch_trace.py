@@ -349,7 +349,7 @@ def test_api_run_ps_sim_matches_reference(traced):
 
 
 # ------------------------------------------------------------- the fences
-def test_ps_sim_backend_fences():
+def test_ps_sim_backend_fences(tmp_path):
     _, cfg = _cfgs()
     data = SyntheticImages(**SRC)
     kw = dict(tm=ScheduleSpec(**SPEC).time_model())
@@ -359,8 +359,13 @@ def test_ps_sim_backend_fences():
     with pytest.raises(ValueError, match="requires traced=True"):
         PsSimBackend(factory, precision="bf16", device="cpu", **kw)
     backend = PsSimBackend(factory, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A9"):
-        backend.run(phases, params, ckpt_dir="/nonexistent")
+    # a phase-boundary checkpoint that lacks the params is refused on
+    # resume, before any phase runs
+    from repro_torch.checkpoint import save_checkpoint
+    save_checkpoint(str(tmp_path), 1, {"params": {}, "clock": np.float64(0),
+                                       "epochs": np.int64(1)})
+    with pytest.raises(KeyError, match="missing leaf"):
+        backend.run(phases, params, ckpt_dir=str(tmp_path), resume=True)
     with pytest.raises(ValueError, match="live on meta"):
         backend.run(phases, tree_map(lambda t: t.to("meta"), params))
     if not torch.cuda.is_available():
