@@ -28,8 +28,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    with its own launch count;
 5. parity: the same schedule at width 8 on the card and on the CPU (the
    CPU port is what the repository's tests hold against the JAX package),
-   within ``PARITY_BAND``; a second card run with TF32 turned back on
-   shows how far a planted precision fault lands from the CPU;
+   the CPU run taking every ReLU kink on the side the card's run took
+   (``ReluSides``), within ``PARITY_BAND``; a second card run with TF32
+   turned back on, against its own kink-matched CPU run, must land
+   outside the band (a planted precision fault);
 6. profile: where a step's time goes per CPL rung (``profile_rungs``);
 7. PS-sim main path: ``repro_torch.api.run(backend="ps_sim",
    traced=True)`` on the hybrid spec of the accuracy example at the full
@@ -145,6 +147,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "src/repro_torch/csrc/dbl_merge.cu"
@@ -208,11 +211,21 @@ N_WORKERS, WID = 4, 1
 
 LR, FACTOR, MOM = 0.05, 0.9365079365079365, 0.9
 
-# card vs CPU port on the width-8 schedule at lr 0.005: measured 0.0 on
-# the loss and 1.19e-7 on the params (NVIDIA H100 80GB HBM3, 700 W).  The
-# losses are the history's, rounded to 4 decimals, so one rounding unit
-# (1e-4) can separate two equal runs.
+# card vs CPU port on the width-8 schedule at lr 0.005.  The losses are
+# the history's, rounded to 4 decimals, so one rounding unit (1e-4) can
+# separate two equal runs.  Run free, the 6 steps are ill-conditioned at
+# the ReLUs: the CPU port from params 2e-7 (relative) apart lands up to
+# 1.41e-3 off on the params and 3.8e-3 on the loss, past the band in 18
+# of 64 draws, farther than TF32 or an lr 1 % off moves it.  With the
+# second run taking the first's side at every kink (``ReluSides``) the
+# same draws stay within 8.34e-7 and 0, and those two faults land at
+# 3.0e-5 / 4.7e-5 (tests/test_torch_parity_kinks.py, on a CPU).
 PARITY_BAND = {"loss": 1.5e-4, "params": 1e-5}
+# phase 5's schedule (``_spec`` plus these) and data, at width 8
+PARITY_SPEC = dict(batch_size=16, dataset_size=256, n_steps=6,
+                   sub_dropouts=(0.0, 0.0), stage_epochs=(2,),
+                   stage_lrs=(0.005,), tm_a=1.0, tm_b=24.6)
+PARITY_SOURCE = dict(n_train=256, n_test=32, num_classes=10, seed=0)
 
 
 def log(*a):
@@ -469,6 +482,62 @@ def _spec(api, **kw):
 def _launches(K):
     return {k: {v: K.launch_count(k, v) for v in vs}
             for k, vs in K.KERNEL_VARIANTS.items()}
+
+
+class ReluSides:
+    """The side of its kink that every ReLU unit of ``models.resnet`` took
+    in one run (``record``), and a later run that takes each unit to the
+    recorded side (``replay``: ``z * mask`` in place of ``relu(z)``), so
+    that the two differ by their rounding alone.  An input within rounding
+    of 0 lands on the side its device's order of sums gives it, and on a
+    ReLU network the step's gradient jumps there; ``other_side`` counts the
+    units the replayed run would have taken to the other side."""
+
+    def __init__(self):
+        self.masks, self.replayed, self.other_side = [], 0, 0
+
+    @staticmethod
+    def _install(resnet, relu):
+        class Functional:
+            def __getattr__(self, name):
+                return relu if name == "relu" else getattr(F, name)
+        saved, resnet.F = resnet.F, Functional()
+        return saved
+
+    def record(self, resnet, run):
+        def relu(z):
+            self.masks.append((z > 0).cpu())
+            return F.relu(z)
+        saved = self._install(resnet, relu)
+        try:
+            return run()
+        finally:
+            resnet.F = saved
+
+    def replay(self, resnet, run):
+        self.replayed = self.other_side = 0
+
+        def relu(z):
+            if self.replayed == len(self.masks):
+                raise AssertionError("the replayed run calls a ReLU more "
+                                     "often than the recorded run did")
+            mask = self.masks[self.replayed].to(z.device)
+            if mask.shape != z.shape:
+                raise AssertionError(f"ReLU call {self.replayed}: recorded "
+                                     f"{tuple(mask.shape)}, now "
+                                     f"{tuple(z.shape)}")
+            self.replayed += 1
+            self.other_side += int(((z > 0) != mask).sum())
+            return z * mask.to(z.dtype)
+        saved = self._install(resnet, relu)
+        try:
+            out = run()
+        finally:
+            resnet.F = saved
+        if self.replayed != len(self.masks):
+            raise AssertionError(f"the replayed run called {self.replayed} "
+                                 f"ReLUs, the recorded one {len(self.masks)}")
+        return out
 
 
 def drive(m, spec, cfg, *, device, source, engine_kw=None, params=None,
@@ -883,7 +952,6 @@ def _fd_times(FD, name, q, kp, vp, tbl, lens, kc, vc, pos, w, lengths,
               n_keys, rate):
     """Kernel, plain-version and library times of one call, and its bound:
     each live K/V byte read once, q read and the output written once."""
-    import torch.nn.functional as F
     rows, h, _, hd = q.shape
     kvh = kp.shape[2]
     esz = kp.element_size()
@@ -1487,7 +1555,6 @@ def pf_kernel_phase(P, rate):
     the model geometries (the first shape of each table; B4 at every model
     geometry) beside the plain version, the library call and the bound.
     Returns per-kernel lists of records."""
-    import torch.nn.functional as F
     out = {k: [] for k in PF_REFERENCE}
     plain_fns = {"flash_attention": P.FA.flash_attention_plain,
                  "mamba_ssd_scan": P.SSD.mamba_ssd_plain,
@@ -2230,6 +2297,7 @@ def main() -> int:
     from types import SimpleNamespace
 
     from repro_torch import api, models
+    from repro_torch.models import resnet
     from repro_torch.configs import get_config
     from repro_torch.core.flat import padded_rows
     from repro_torch.data import DataPlane, SyntheticImages
@@ -2340,48 +2408,65 @@ def main() -> int:
                                      "losses": r["losses"],
                                      "wall_s": r["wall_s"]})
 
-    # 5. parity on a small input: the card against the CPU port
+    # 5. parity on a small input: the card against the CPU port, the CPU
+    # run taking every ReLU kink on the side the card run took
     small = replace(cfg, d_model=8, vocab_size=10)
-    sspec = _spec(api, batch_size=16, dataset_size=256, n_steps=6,
-                  sub_dropouts=(0.0, 0.0), stage_epochs=(2,),
-                  stage_lrs=(0.005,), tm_a=1.0, tm_b=24.6)
-    ssrc = SyntheticImages(n_train=256, n_test=32, num_classes=10, seed=0)
+    sspec = _spec(api, **PARITY_SPEC)
+    ssrc = SyntheticImages(**PARITY_SOURCE)
     p0 = models.init_params(small, torch.Generator().manual_seed(0),
                             device="cpu")
-    runs = {leg: drive(m, sspec, small, device="cuda", source=ssrc,
-                       params=tree_map(lambda t: t.cuda(), p0),
-                       tf32=leg == "tf32")
-            for leg in ("card", "tf32")}
+    sides = {leg: ReluSides() for leg in ("card", "tf32")}
+    runs = {leg: s.record(resnet, lambda: drive(
+                m, sspec, small, device="cuda", source=ssrc,
+                params=tree_map(lambda t: t.cuda(), p0), tf32=leg == "tf32"))
+            for leg, s in sides.items()}
+
+    def cpu_run():
+        return drive(m, sspec, small, device="cpu", source=ssrc,
+                     params=tree_map(lambda t: t.clone(), p0))
     # one CPU thread: multi-threaded oneDNN conv backward has aborted the
     # process on small ResNets (and the CPU tests run it so too)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        cpu = drive(m, sspec, small, device="cpu", source=ssrc,
-                    params=tree_map(lambda t: t.clone(), p0))
+        cpu = {leg: s.replay(resnet, cpu_run) for leg, s in sides.items()}
+        free = cpu_run()
     finally:
         torch.set_num_threads(threads)
 
-    def gaps(r):
-        """(largest loss gap, largest param gap) of a card run vs the CPU;
-        the losses are the history's, rounded to 4 decimals."""
-        return (max(abs(a - b) for a, b in zip(r["losses"], cpu["losses"])),
+    def gaps(r, ref):
+        """(largest loss gap, largest param gap) of a card run vs a CPU
+        run; the losses are the history's, rounded to 4 decimals."""
+        return (max(abs(a - b) for a, b in zip(r["losses"], ref["losses"])),
                 max(float((a.cpu() - b).abs().max()) for a, b in
                     zip(tree_leaves(r["res"].params),
-                        tree_leaves(cpu["res"].params))))
+                        tree_leaves(ref["res"].params))))
     report["parity"] = {}
     for leg, r in runs.items():
-        loss_gap, pgap = gaps(r)
+        loss_gap, pgap = gaps(r, cpu[leg])
+        free_loss, free_params = gaps(r, free)
         inside = loss_gap <= PARITY_BAND["loss"] and \
             pgap <= PARITY_BAND["params"]
-        report["parity"][leg] = {"loss_gap": loss_gap, "param_gap": pgap,
-                                 "inside_band": inside}
-        log(f"parity (width 8, lr 0.005, 6 steps), {leg} vs CPU: loss gap "
-            f"{loss_gap:.3g}, param gap {pgap:.3g} (bands "
-            f"{PARITY_BAND['loss']:g} / {PARITY_BAND['params']:g}): "
-            f"{'inside' if inside else 'outside'}")
+        report["parity"][leg] = {
+            "loss_gap": loss_gap, "param_gap": pgap, "inside_band": inside,
+            "relu_calls": len(sides[leg].masks),
+            "other_side_units": sides[leg].other_side,
+            "free_loss_gap": free_loss, "free_param_gap": free_params}
+        log(f"parity (width 8, lr 0.005, 6 steps), {leg} vs CPU on the "
+            f"{leg} run's kink sides: loss gap {loss_gap:.3g}, param gap "
+            f"{pgap:.3g} (bands {PARITY_BAND['loss']:g} / "
+            f"{PARITY_BAND['params']:g}): "
+            f"{'inside' if inside else 'outside'}; the CPU would have taken "
+            f"{sides[leg].other_side} ReLU units of "
+            f"{len(sides[leg].masks)} calls to the other side; vs the "
+            f"free CPU run: loss gap {free_loss:.3g}, param gap "
+            f"{free_params:.3g} (not held)")
     if not report["parity"]["card"]["inside_band"]:
-        raise AssertionError("the card and the CPU port disagree")
+        raise AssertionError(f"the card and the CPU port disagree: "
+                             f"{report['parity']['card']}")
+    if report["parity"]["tf32"]["inside_band"]:
+        raise AssertionError(f"the planted TF32 fault lands inside the "
+                             f"parity band: {report['parity']['tf32']}")
 
     report["profile"] = profile_rungs(m, cfg, _spec(api), source,
                                       PROFILE_STEPS)
