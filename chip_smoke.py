@@ -120,14 +120,35 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     card against the CPU port on the same init and data, within
     ``TRAIN_PARITY_BAND``; then reduced phi3-mini through the CLI with
     ``--ckpt`` over both phases and ``--resume`` from the middle boundary,
-    the final checkpoints equal bit for bit.
+    the final checkpoints equal bit for bit;
+20. the autotuner: (a) B3's candidate-batched form
+    (``dbl_apply_worker_batched``, f32 and master, C = 1 and 3 candidates
+    with distinct lr / factor / momentum) bit-equal to its plain version
+    and to C one-store B3 launches at 64 and 3072 rows and the full store,
+    only row block (c, wid) of each velocity changed, timed at C = 3 beside
+    three B3 launches, its plain version and its bytes bound; (b) the
+    tuner's main path: ``tune.autotune(combined_space(epochs=4), ...,
+    budget_ratio=1.5)`` on full-width ``cifar-resnet18`` (the repo's PS
+    problem cut from 16 to 4 epochs), started with TF32 on: k1.5 pruned,
+    base / f_sqrt / f_none replayed as one batched group (one batched
+    launch an event), six candidates through ``api.run`` (one B3 launch an
+    event, counted from their traces), no plain run, TF32 off at every
+    gradient, finite accuracies, a front, the analytic run's run_key;
+    wall seconds a replay and peak memory; (c) that group again, batched
+    and each candidate through ``execute_trace``, on cuDNN's deterministic
+    kernels: the same params bit for bit; (d) a search with
+    ``combined_space``'s axes at width 8 on 8 px on the card and on the CPU
+    port: the same labels, pruning, replay tags and sim_times, every
+    evaluation's loss and params within ``PS_PARITY_BAND``.
 
 The launch counts are set to 0 just before each path and read just after;
 the ``launches`` in the kernels line are those counts, summed over the
 main path and the short runs (for B1 and B2, the engine runs of phases 3-4
 and the LM runs of phases 18-19 on the card; for B5 and B6, the paged
 serving main path's timed run; B5 has no caller on that path, so its count
-is 0; for B4, B7 and B8, one forward of each model of phase 15).  Launches
+is 0; for B4, B7 and B8, one forward of each model of phase 15; B3 adds
+phase 20's search, its one-store and batched launches, the batched form's
+records among its variants).  Launches
 made to compare a kernel with its plain version are not counted.  B1's
 numbers in the line are its LM-store ones (phase 18), the shape this
 slice's main path gives it; the ResNet-store records stay among its
@@ -2277,6 +2298,508 @@ def lm_resume_phase(L):
             "leaves": n_leaves, "launches": n}
 
 
+# ------------------------------ phase 20: the autotuner ---------------------
+BATCHED = "dbl_apply_worker_batched"
+# the batched form replaces B3 under jax.vmap (dbl_apply_worker_xla)
+BATCHED_LINE = 388
+# per candidate: lr, update factor, momentum — distinct, so that a kernel
+# reading another candidate's scalars fails the check
+BATCHED_SCALARS = ((0.05, 0.01, 0.3), (0.9365079365079365, 1.0, 0.5),
+                   (0.9, 0.0, 0.5))
+BATCHED_CANDIDATES = (1, 3)
+# the tuner's main path: combined_space (the Table 3 factor, Table 5
+# small-worker and Table 8 ladder axes, and a k axis) on the repo's PS
+# problem (32 px, B_L 64, 2048 images, 4 workers under ASP, lr 0.05) at the
+# full width of cifar-resnet18, cut from 16 epochs to 4; the replay tags,
+# group size and run_key the reference gives on the same search
+TUNE_EPOCHS = 4
+TUNE_BUDGET = 1.5
+TUNE_RUN_KEY = "f27f41f24570"
+TUNE_REPLAY = {"base": "batched:3", "nS0": "api", "nS1": "api",
+               "nS2": "api", "nS4": "api", "k1.1": "api", "k1.5": "",
+               "f_sqrt": "batched:3", "f_none": "batched:3",
+               "ladder24x32": "api"}
+TUNE_GROUP_EVENTS = 156
+# card vs CPU: combined_space's axes at width 8 on 8 px (64 images of a
+# 128-image set, batch 8, 2 epochs; ladder 4 -> 8 px).  At width 8 the
+# 4 px rung costs a quarter of the 8 px one, so the ladder is predicted
+# 4.1x faster than the slowest flat candidate but k1.5: a budget of 5x
+# prunes k1.5 (5.7x) alone, as 1.5x does at full width.
+TUNE_SMALL_BASE = dict(epochs=2, input_size=8, dataset_size=64, batch_size=8)
+TUNE_SMALL_AXES = dict(n_small=(0, 1, 2, 4), factor=("sqrt", "none"),
+                       k=(1.1, 1.5), ladders=((4, 8),))
+TUNE_SMALL_BUDGET = 5.0
+TUNE_SMALL_SOURCE = dict(n_train=128, n_test=16, num_classes=10, seed=0)
+
+
+def _batched_buffers(rows, n_cand, master, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *lead: torch.randn(*lead, rows, 128, generator=gen,
+                                    device="cuda")
+    b = {"w": rnd(n_cand), "g": rnd(n_cand),
+         "v": rnd(n_cand, B3_WORKERS.get(rows, N_WORKERS))}
+    if master:
+        b["shadow"] = b["w"].to(torch.bfloat16)
+    return b
+
+
+def _batched_call(K, b, scal, master, form):
+    """One event for every candidate of ``b``, in place: the batched kernel
+    (``kernel``), its plain version (``plain``), or C launches of the
+    one-store B3 with each candidate's scalars as host numbers
+    (``single``, from ``BATCHED_SCALARS``: reading ``scal`` back would
+    wait for the card)."""
+    if form == "single":
+        host = BATCHED_SCALARS
+        for c in range(b["w"].shape[0]):
+            args = (b["g"][c], b["v"][c], WID, host[0][c], host[1][c],
+                    host[2][c])
+            if master:
+                K.dbl_apply_worker_flat2d(b["shadow"][c], *args,
+                                          master2=b["w"][c])
+            else:
+                K.dbl_apply_worker_flat2d(b["w"][c], *args)
+        return
+    fn = K.dbl_apply_worker_batched if form == "kernel" \
+        else K.dbl_apply_worker_batched_plain
+    if master:
+        fn(b["shadow"], b["g"], b["v"], WID, *scal, masterC=b["w"])
+    else:
+        fn(b["w"], b["g"], b["v"], WID, *scal)
+
+
+def _batched_check(K, rows, n_cand, master, seed):
+    """The batched kernel, its plain version and C one-store B3 launches on
+    the same inputs; raises unless all three agree bit for bit, only row
+    block (c, wid) of each candidate's velocity changed, and the bf16
+    shadow is the rounded master.  Returns (the kernel's buffers, the
+    scalars, the largest difference from the plain version)."""
+    scal = [torch.tensor(s[:n_cand], dtype=torch.float32, device="cuda")
+            for s in BATCHED_SCALARS]
+    ref = _batched_buffers(rows, n_cand, master, seed)
+    before = ref["v"].clone()
+    out = {form: {k: t.clone() for k, t in ref.items()}
+           for form in ("plain", "single")}
+    _batched_call(K, ref, scal, master, "kernel")
+    for form, b in out.items():
+        _batched_call(K, b, scal, master, form)
+    torch.cuda.synchronize()
+    tag = (f"{BATCHED}[{'master' if master else 'plain'}] C={n_cand} at "
+           f"{rows} rows")
+    gaps = {(form, name): float((ref[name].float() - b[name].float()).abs()
+                                .max())
+            for form, b in out.items() for name in ref}
+    if any(gaps.values()):
+        raise AssertionError(f"{tag}: kernel differs from its plain version "
+                             f"or from {WORKER}: {gaps}")
+    for c in range(n_cand):
+        for i in range(before.shape[1]):
+            if torch.equal(ref["v"][c, i], before[c, i]) != (i != WID):
+                raise AssertionError(f"{tag}: candidate {c}'s velocity rows "
+                                     f"of worker {i} changed wrongly")
+    if master and not torch.equal(ref["shadow"],
+                                  ref["w"].to(torch.bfloat16)):
+        raise AssertionError(f"{tag}: bf16 shadow is not the rounded master")
+    if n_cand > 1 and rows == CHECK_ROWS[0]:
+        # the check can fail: every candidate on candidate 0's scalars
+        # differs from the kernel at every other candidate
+        wrong = _batched_buffers(rows, n_cand, master, seed)
+        _batched_call(K, wrong, [s[:1].repeat(n_cand) for s in scal],
+                      master, "plain")
+        if any(torch.equal(wrong["w"][c], ref["w"][c])
+               for c in range(1, n_cand)):
+            raise AssertionError(f"{tag}: candidate 0's scalars give the "
+                                 "other candidates' results")
+    return ref, scal, max(gaps.values())
+
+
+def batched_kernel_phase(K, rows: int, rate: float):
+    """Phase 20 (a): B3's candidate-batched form, f32 and master, at C = 1
+    and 3, held bit-equal to its plain version and to C one-store B3
+    launches at ``CHECK_ROWS`` and the full store, then timed at C = 3 on
+    the full store beside three back-to-back B3 launches, its plain
+    version and its bytes bound (C times B3's)."""
+    out = []
+    n = rows * 128
+    for vi, (variant, (_, nbytes, _)) in enumerate(B3.items()):
+        master = variant == "master"
+        err = 0.0
+        for n_cand in BATCHED_CANDIDATES:
+            for r in CHECK_ROWS + (rows,):
+                ref, scal, gap = _batched_check(K, r, n_cand, master,
+                                                seed=r + n_cand + vi)
+                err = max(err, gap)
+        n_cand = BATCHED_CANDIDATES[-1]
+        single = {k: t.clone() for k, t in ref.items()}
+        plain = {k: t.clone() for k, t in ref.items()}
+        ms = cuda_ms(lambda: _batched_call(K, ref, scal, master, "kernel"))
+        single_ms = cuda_ms(lambda: _batched_call(K, single, scal, master,
+                                                  "single"))
+        plain_ms = cuda_ms(lambda: _batched_call(K, plain, scal, master,
+                                                 "plain"))
+        fused_ms = None
+        if not master:
+            # SGD with momentum at lr f·lr, once per candidate: the same
+            # bytes, rounded otherwise (a note: no one call does all C;
+            # it takes no momentum of 0, so every call runs at MOM)
+            lr, fac, _ = (t.tolist() for t in scal)
+            fused_ms = cuda_ms(lambda: [torch._fused_sgd_(
+                [single["w"][c]], [single["g"][c]], [single["v"][c, WID]],
+                weight_decay=0.0, momentum=MOM, lr=fac[c] * lr[c],
+                dampening=0.0, nesterov=False, maximize=False,
+                is_first_step=False) for c in range(n_cand)])
+        bound_ms = n_cand * n * nbytes / rate * 1e3
+        rec = {"variant": "batched" if not master else "batched_master",
+               "candidates": n_cand,
+               "replaces": f"{REFERENCE}:{BATCHED_LINE}",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "single_x3_ms": single_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes", "library_ms": None,
+               "fused_sgd_x3_ms": fused_ms, "bytes": n_cand * n * nbytes}
+        out.append(rec)
+        log(f"  {BATCHED}[{variant}]: bit-equal to plain and to C {WORKER} "
+            f"launches at C = {BATCHED_CANDIDATES} and "
+            f"{CHECK_ROWS + (rows,)} rows; C = {n_cand}: kernel "
+            f"{ms * 1e3:.1f} us, {n_cand} single launches "
+            f"{single_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
+            + ("" if fused_ms is None else
+               f", {n_cand} _fused_sgd_ {fused_ms * 1e3:.1f} us")
+            + f", bound {bound_ms * 1e3:.1f} us "
+            f"({bound_ms / ms:.0%} of the memory roofline)")
+        del ref, single, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+class RecordedProblem:
+    """The tuner's problem over ResNet-18 ``cfg`` on ``source`` (the port's
+    seeded ``init_params``, ``make_fns_factory`` and ``DataPlane``, as
+    phase 7 builds them), recording what the tuner made of it: whether
+    TF32 was on at each gradient and, at each evaluation in call order,
+    where the params lived, what it returned and (``keep``) a CPU copy of
+    the params.  ``init_cpu(seed)`` gives initial params to copy to
+    ``device``; without it they are drawn there."""
+
+    def __init__(self, m, cfg, source, device, *, init_cpu=None,
+                 keep=False):
+        self.tf32, self.evals, self.planes = [], [], {}
+        factory = m.make_fns_factory(cfg, source, device)
+        inits, fns = {}, {}
+
+        def init_for(seed):
+            if seed not in inits:
+                inits[seed] = (m.models.init_params(
+                    cfg, torch.Generator().manual_seed(seed), device=device)
+                    if init_cpu is None else m.tree_map(
+                        lambda t: t.to(device), init_cpu(seed)))
+            return inits[seed]
+
+        def fns_for(seed, size):
+            if size not in fns:
+                grad_fn, _, eval_fn = factory(size)
+
+                def grad(p, b):
+                    self.tf32.append(torch.backends.cudnn.allow_tf32 or
+                                     torch.backends.cuda.matmul.allow_tf32)
+                    return grad_fn(p, b)
+
+                def evaluate(p):
+                    out = eval_fn(p)
+                    leaves = m.tree_leaves(p)
+                    self.evals.append({
+                        "devices": {t.device.type for t in leaves},
+                        "metrics": out,
+                        "params": [t.detach().cpu().clone() for t in leaves]
+                        if keep else None})
+                    return out
+                fns[size] = (grad, None, evaluate)
+            return fns[size]
+
+        def plane_for(seed):
+            if seed not in self.planes:
+                self.planes[seed] = m.DataPlane(source, seed=seed)
+            return self.planes[seed]
+        self.problem = m.tune.TuneProblem(init_for=init_for, fns_for=fns_for,
+                                          plane_for=plane_for)
+
+    def close(self):
+        for plane in self.planes.values():
+            plane.close()
+
+
+def _tune_events(m, cand) -> int:
+    """Events of one candidate's replay, from its traces (the schedule pass
+    is host-only): its one trace, or each phase's as the backend builds
+    them."""
+    tr = m.single_phase_trace(cand)
+    if tr is not None:
+        return tr.n_events
+    return sum(t.n_events for t in phase_traces(m, cand.spec))
+
+
+def profile_tune_events(m, cfg, source, n: int = 8):
+    """Host and device time of the tuner's replay events at 32 px x 64
+    images, on a batch already on the card: ``n`` events of one candidate
+    (a gradient and a B3 launch, ``execute_trace``'s event) and ``n``
+    events of a batched group of three (three gradients and one batched
+    launch, ``execute_trace_batched``'s), each traced after two warm-up
+    events."""
+    params = m.models.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cuda")
+    spec = m.flat_spec(params)
+    grad_fn = m.make_fns_factory(cfg, source, "cuda")(32)[0]
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in source.batch_at(list(range(64)), 32).items()}
+    n_cand = 3
+    p2 = spec.ravel(params)
+    vel3 = spec.zeros_stacked(N_WORKERS, device="cuda")
+    pC = torch.stack([p2] * n_cand)
+    velC = spec.zeros_candidates(n_cand, N_WORKERS, device="cuda")
+    scal = [torch.full((n_cand,), x, device="cuda")
+            for x in (1e-4, FACTOR, MOM)]
+    solo = m.make_event(grad_fn, spec, "auto")
+    batched = m.make_batched_event(grad_fn, spec, torch.empty_like(pC))
+    forms = {"solo": (1, lambda: solo(p2, vel3, batch, 64, WID, 1e-4,
+                                      FACTOR, MOM)),
+             "batched": (n_cand, lambda: batched(pC, velC, [batch] * n_cand,
+                                                 64, WID, *scal))}
+    out = {}
+    for name, (c, event) in forms.items():
+        for _ in range(2):
+            event()
+        torch.cuda.synchronize()
+
+        def events():
+            for _ in range(n):
+                event()
+        kern, _, wall = traced_kernels(events)
+        busy_us = sum(kern.values())
+        out[name] = {"candidates": c,
+                     "ms_per_candidate_event": 1e3 * wall / n / c,
+                     "device_busy_ms_per_candidate_event":
+                         busy_us / 1e3 / n / c,
+                     "device_idle_share": 1.0 - busy_us / 1e6 / wall}
+        log(f"  {name} event profile (32 px x 64 images, staged, {c} "
+            f"candidate(s)): {out[name]['ms_per_candidate_event']:.2f} ms "
+            f"a candidate-event, device busy "
+            f"{out[name]['device_busy_ms_per_candidate_event']:.2f} ms "
+            f"(idle {out[name]['device_idle_share']:.0%})")
+    return out
+
+
+def _replay_walls(marks, end):
+    """Wall seconds of each replay of one search, from the tuner's log
+    lines: each replay starts with one ("batched replay: ..." for a group,
+    "replaying <label> via api.run" for one candidate) and ends where the
+    next starts (the last at ``end``); a replay ends in an evaluation,
+    which reads its loss back from the card."""
+    starts = [(t, msg) for t, msg in marks
+              if msg.startswith(("batched replay", "replaying"))]
+    ends = [t for t, _ in starts[1:]] + [end]
+    return {(msg.split()[1] if msg.startswith("replaying") else "group"):
+            e - t for (t, msg), e in zip(starts, ends)}
+
+
+def tune_phase(m, cfg):
+    """Phase 20 (b) and (c): the tuner's main path at full width, then its
+    batched group against its candidates' sequential replays on cuDNN's
+    deterministic kernels, and a profile of both replays' events."""
+    source = m.SyntheticImages(n_train=2048, n_test=512, num_classes=100)
+    rp = RecordedProblem(m, cfg, source, "cuda")
+    marks = []
+    # TF32 on when the search starts: the batched replay runs first and
+    # must turn it off itself (PsSimBackend does so for the api path)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m.K.reset_counts()
+    t0 = time.perf_counter()
+    res = m.tune.autotune(
+        m.tune.combined_space(epochs=TUNE_EPOCHS, seed=0), rp.problem,
+        budget_ratio=TUNE_BUDGET,
+        log=lambda s: marks.append((time.perf_counter(), s)))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: m.K.launch_count(k) for k in (WORKER, BATCHED)}
+    plain_runs = m.K.plain_count()
+    replay = {c.label: c.replay for c in res.candidates}
+    if replay != TUNE_REPLAY:
+        raise AssertionError(f"replay tags {replay}, expected {TUNE_REPLAY}")
+    analytic = m.tune.autotune(
+        m.tune.combined_space(epochs=TUNE_EPOCHS, seed=0), None,
+        validate=False, budget_ratio=TUNE_BUDGET)
+    if res.run_key() != analytic.run_key() or \
+            res.run_key() != TUNE_RUN_KEY:
+        raise AssertionError(f"run_key {res.run_key()}, the analytic run's "
+                             f"{analytic.run_key()}, expected {TUNE_RUN_KEY}")
+    live = [c for c in res.candidates if not c.pruned]
+    if not all(c.accuracy is not None and math.isfinite(c.accuracy) and
+               math.isfinite(c.test_loss) for c in live):
+        raise AssertionError("a validated candidate has no finite accuracy "
+                             "and loss: " + str([(c.label, c.accuracy,
+                                                  c.test_loss) for c in live]))
+    if not res.front:
+        raise AssertionError("empty Pareto front")
+    group = [c for c in res.candidates if c.replay.startswith("batched")]
+    events = {c.label: _tune_events(m, c) for c in live}
+    solo = sum(n for lb, n in events.items() if TUNE_REPLAY[lb] == "api")
+    if events["base"] != TUNE_GROUP_EVENTS or \
+            launches[BATCHED] != events["base"] or \
+            launches[WORKER] != solo or plain_runs:
+        raise AssertionError(
+            f"launches {launches}, plain runs {plain_runs}: expected one "
+            f"{BATCHED} launch per event of the group ({events['base']} "
+            f"events, expected {TUNE_GROUP_EVENTS}) and one {WORKER} launch "
+            f"per event of the api candidates ({solo}: {events})")
+    if any(rp.tf32) or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("a gradient of the search ran with TF32 on")
+    if any(e["devices"] != {"cuda"} for e in rp.evals):
+        raise AssertionError("the search evaluated params off the card")
+    walls = _replay_walls(marks, t1)
+    per = {lb: {"wall_s": walls[lb], "events": n,
+                "ms_per_event": 1e3 * walls[lb] / n}
+           for lb, n in events.items() if TUNE_REPLAY[lb] == "api"}
+    per["batched"] = {"wall_s": walls["group"], "candidates": len(group),
+                      "events": events["base"],
+                      "s_per_candidate": walls["group"] / len(group),
+                      "ms_per_candidate_event": 1e3 * walls["group"]
+                      / len(group) / events["base"]}
+    log(f"tuner main path (combined_space, {TUNE_EPOCHS} epochs, "
+        f"cifar-resnet18, d_model {cfg.d_model}): {len(res.candidates)} "
+        f"candidates, pruned "
+        f"{[c.label for c in res.candidates if c.pruned]}, run_key "
+        f"{res.run_key()}, front {res.front_labels}; {t1 - t0:.1f} s, peak "
+        f"{peak / 2**30:.2f} GiB; {launches[BATCHED]} {BATCHED} + "
+        f"{launches[WORKER]} {WORKER} launches, no plain run, TF32 off")
+    log(f"  batched group {[c.label for c in group]}: "
+        f"{per['batched']['wall_s']:.2f} s, "
+        f"{per['batched']['s_per_candidate']:.2f} s a candidate, "
+        f"{per['batched']['ms_per_candidate_event']:.2f} ms a "
+        f"candidate-event over {events['base']} events")
+    for lb, p in per.items():
+        if lb != "batched":
+            log(f"  {lb} via api: {p['events']} events in {p['wall_s']:.2f} "
+                f"s ({p['ms_per_event']:.2f} ms/event)")
+    for c in res.candidates:
+        log(f"    {c.label:12s} predicted {c.predicted_time:.3f} cost "
+            f"{c.cost:.3f} sim {c.sim_time} acc {c.accuracy} loss "
+            f"{c.test_loss} {c.replay or 'pruned'}")
+
+    # (c) the group alone, batched and each candidate sequentially, on
+    # cuDNN's deterministic kernels: bit for bit
+    traces = [m.single_phase_trace(c) for c in group]
+    inits = [rp.problem.init_for(c.spec.seed) for c in group]
+    grad_fn = rp.problem.fns_for(0, group[0].spec.input_size)[0]
+    phase = group[0].spec.to_phases()[0]
+    plane = rp.problem.plane_for(0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        d0 = time.perf_counter()
+        bat = m.execute_trace_batched(
+            inits, grad_fn, traces, feed=plane.trace_feed(0, phase, "cuda"))
+        torch.cuda.synchronize()
+        d1 = time.perf_counter()
+        seq = [m.execute_trace(p0, grad_fn, tr,
+                               feed=plane.trace_feed(0, phase, "cuda"))
+               for p0, tr in zip(inits, traces)]
+        torch.cuda.synchronize()
+        d2 = time.perf_counter()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        rp.close()
+    gaps = [param_gap(m, b.params, s.params) for b, s in zip(bat, seq)]
+    det = {"batched_s": d1 - d0, "sequential_s": d2 - d1,
+           "batched_candidate_s": (d1 - d0) / len(group),
+           "seq_candidate_s": (d2 - d1) / len(group), "param_gaps": gaps}
+    log(f"  deterministic cuDNN: batched {det['batched_s']:.2f} s "
+        f"({det['batched_candidate_s']:.2f} s a candidate), sequential "
+        f"{det['sequential_s']:.2f} s ({det['seq_candidate_s']:.2f} s a "
+        f"candidate); batched vs sequential param gaps {gaps}")
+    if any(gaps) or any(t.device.type != "cuda" for b in bat
+                        for t in m.tree_leaves(b.params)):
+        raise AssertionError(f"batched vs sequential params differ: {gaps}")
+    return {"candidates": json.loads(res.to_json())["candidates"],
+            "front": res.front_labels, "run_key": res.run_key(),
+            "wall_s": t1 - t0, "peak_bytes": peak, "launches": launches,
+            "replays": per, "deterministic": det,
+            "event_profile": profile_tune_events(m, cfg, source)}
+
+
+def tune_parity_phase(m, small):
+    """Phase 20 (d): the width-8 search on the card and on the CPU port
+    from the same initial params: the same labels, pruning and replay tags,
+    equal sim_times, and every evaluation's loss and params within
+    ``PS_PARITY_BAND``."""
+    source = m.SyntheticImages(**TUNE_SMALL_SOURCE)
+    p0 = {}
+
+    def init_cpu(seed):
+        if seed not in p0:
+            p0[seed] = m.models.init_params(
+                small, torch.Generator().manual_seed(seed), device="cpu")
+        return p0[seed]
+    space = m.tune.SearchSpace(base=m.tune.base_spec(**TUNE_SMALL_BASE),
+                               **TUNE_SMALL_AXES)
+    runs, threads = {}, torch.get_num_threads()
+    for dev in ("cuda", "cpu"):
+        rp = RecordedProblem(m, small, source, dev, init_cpu=init_cpu,
+                             keep=True)
+        m.K.reset_counts()
+        if dev == "cpu":
+            torch.set_num_threads(1)
+        t0 = time.perf_counter()
+        try:
+            res = m.tune.autotune(space, rp.problem,
+                                  budget_ratio=TUNE_SMALL_BUDGET, device=dev)
+        finally:
+            torch.set_num_threads(threads)
+            rp.close()
+        runs[dev] = {"res": res, "evals": rp.evals,
+                     "wall_s": time.perf_counter() - t0,
+                     "launches": m.K.launch_count(),
+                     "plain": m.K.plain_count()}
+    card, cpu = runs["cuda"], runs["cpu"]
+
+    def facts(r):
+        return [(c.label, c.pruned, c.replay, c.sim_time)
+                for c in r["res"].candidates]
+    if facts(card) != facts(cpu):
+        raise AssertionError(f"card {facts(card)} != CPU {facts(cpu)}")
+    tags = {c.replay for c in card["res"].candidates}
+    if not any(t.startswith("batched") for t in tags) or "api" not in tags \
+            or [c.label for c in card["res"].candidates if c.pruned] \
+            != ["k1.5"]:
+        raise AssertionError(f"width-8 search: replays {tags}")
+    if card["plain"] or not card["launches"] or cpu["launches"]:
+        raise AssertionError(f"launches / plain runs: card "
+                             f"{card['launches']} / {card['plain']}, CPU "
+                             f"{cpu['launches']} / {cpu['plain']}")
+    if len(card["evals"]) != len(cpu["evals"]):
+        raise AssertionError("the card and the CPU evaluated "
+                             f"{len(card['evals'])} / {len(cpu['evals'])} "
+                             "times")
+    loss_gap = max(abs(a["metrics"]["test_loss"] - b["metrics"]["test_loss"])
+                   for a, b in zip(card["evals"], cpu["evals"]))
+    pgap = max(float((x - y).abs().max()) for a, b in
+               zip(card["evals"], cpu["evals"])
+               for x, y in zip(a["params"], b["params"]))
+    log(f"tuner parity (width 8, 8 px): {len(card['res'].candidates)} "
+        f"candidates, replays {sorted(tags)}, {len(card['evals'])} "
+        f"evaluations; card {card['wall_s']:.2f} s, CPU {cpu['wall_s']:.2f} "
+        f"s; loss gap {loss_gap:.3g}, param gap {pgap:.3g} (bands "
+        f"{PS_PARITY_BAND['loss']:g} / {PS_PARITY_BAND['params']:g})")
+    if loss_gap > PS_PARITY_BAND["loss"] or pgap > PS_PARITY_BAND["params"]:
+        raise AssertionError("the card and the CPU port disagree on the "
+                             "width-8 search")
+    return {"facts": facts(card), "evaluations": len(card["evals"]),
+            "loss_gap": loss_gap, "param_gap": pgap,
+            "card_s": card["wall_s"], "cpu_s": cpu["wall_s"],
+            "launches": card["launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2310,15 +2833,27 @@ def main() -> int:
     from repro_torch.cluster.backend import phase_seed, scaled_time_model
     from repro_torch.cluster.trace import _chunk_ranges
     from repro_torch.core.flat import flat_spec
+    from repro_torch.cluster.trace import (_make_batched_event, _make_event,
+                                           execute_trace,
+                                           execute_trace_batched)
     from repro_torch.examples.train_resnet18_e2e import make_fns_factory
+    from repro_torch import tune
+    from repro_torch.tune.autotune import _single_phase_trace
     m = SimpleNamespace(api=api, models=models, TrainEngine=TrainEngine,
                         sgd_momentum=sgd_momentum, K=K,
-                        tree_leaves=tree_leaves, DataPlane=DataPlane,
+                        tree_leaves=tree_leaves, tree_map=tree_map,
+                        DataPlane=DataPlane, SyntheticImages=SyntheticImages,
                         schedule_pass=schedule_pass,
                         workers_from_plan=workers_from_plan,
                         phase_seed=phase_seed,
                         scaled_time_model=scaled_time_model,
-                        chunk_ranges=_chunk_ranges, flat_spec=flat_spec)
+                        chunk_ranges=_chunk_ranges, flat_spec=flat_spec,
+                        tune=tune, single_phase_trace=_single_phase_trace,
+                        execute_trace=execute_trace,
+                        execute_trace_batched=execute_trace_batched,
+                        make_event=_make_event,
+                        make_batched_event=_make_batched_event,
+                        make_fns_factory=make_fns_factory)
     report = {}
 
     # 1. device + build
@@ -2748,6 +3283,24 @@ def main() -> int:
                                  b1_store["max_abs_err"])
     line[0].update({k: b1_store[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")})
+
+    # 20. the autotuner: B3's batched form against its plain version and
+    # C B3 launches, the tuner's main path at full width, its batched
+    # group against sequential replays, the width-8 search card vs CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    batched_recs = batched_kernel_phase(K, rows, rate)
+    report["tune"] = tune_phase(m, cfg)
+    report["tune_parity"] = tune_parity_phase(m, small)
+    log(f"[{time.perf_counter() - t_start:.0f} s] tuner done")
+    tuned = report["tune"]["launches"]
+    b3 = next(entry for entry in line if entry["name"] == WORKER)
+    b3["variants"][0]["launches"] += tuned[WORKER]          # "plain"
+    for r in batched_recs:
+        r["launches"] = tuned[BATCHED] if r["variant"] == "batched" else 0
+    b3["variants"].extend(batched_recs)
+    b3["launches"] += tuned[WORKER] + tuned[BATCHED]
+    b3["max_abs_err"] = max(r["max_abs_err"] for r in b3["variants"])
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:

@@ -44,9 +44,18 @@ loop over its events, so the ``loop`` (XLA unroll vs ``lax.scan``) and
 ``interpret`` (Pallas interpret mode) arguments and the compiled-runner
 caches (``trace_runner_for``, ``trace_scan_cache_size``) are gone; the
 size switch (``lax.switch``) is a slice of the padded event batch by a
-host integer.  The autotuner's batched replay (``execute_trace_batched``,
-``batched_trace_runner_for``, ``_zip_feeds``) waits for the tuning slice
-(ROADMAP A10).
+host integer.
+
+The autotuner's batched candidate replay (``execute_trace_batched``)
+replays C same-timeline traces at once, and it too drops the reference's
+compiled runners (``batched_trace_runner_for``, ``_build_batched_runner``)
+for a batched event loop: per event, each candidate's gradient is its own
+call of the same ``grad_fn`` on its own params and batch (never a
+``vmap`` over the weights, which would turn the convolutions into grouped
+ones with another float order), raveled into row c of one ``(C, rows,
+LANE)`` gradient buffer, and the event ends in ONE batched B3 launch
+(``dbl_apply_worker_batched``) over the stacked params and velocities.
+So each candidate's result is bit-equal to its own ``execute_trace``.
 
 The event path remains the right tool when per-event control flow must
 *react* to gradients — the trace is only valid while the timeline stays
@@ -66,7 +75,8 @@ from repro_torch.cluster.sync import SyncPolicy, as_policy
 from repro_torch.cluster.topology import ClusterEvent, WorkerSpec
 from repro_torch.core.flat import flat_spec
 from repro_torch.core.tree import tree_leaves
-from repro_torch.kernels.dbl_merge import (dbl_apply_worker_flat2d,
+from repro_torch.kernels.dbl_merge import (dbl_apply_worker_batched,
+                                           dbl_apply_worker_flat2d,
                                            dbl_apply_worker_plain)
 
 UPDATES = ("auto", "pallas", "xla")
@@ -275,9 +285,11 @@ def _chunk_ranges(trace: SimTrace, scan_chunk: int):
 
 def trace_signature(trace: SimTrace) -> tuple:
     """Everything that must match for two traces to share one batched
-    replay (ROADMAP A10): worker/batch/stream timeline, eval markers,
-    sizes and worker count.  Per-event lr / update_factor are NOT in the
-    signature."""
+    replay (``execute_trace_batched``): worker/batch/stream timeline, eval
+    markers, sizes and worker count.  Per-event lr / update_factor are NOT
+    in the signature — they are per-candidate operands of the batched B3
+    launch, which is exactly what lets factor / LR-schedule / seed
+    candidates replay together."""
     return (trace.n_workers, trace.sizes, trace.evals,
             trace.worker_id.tobytes(), trace.batch_size.tobytes(),
             trace.stream_step.tobytes())
@@ -405,3 +417,165 @@ def simulate_traced(init_params, grad_fn: Callable,
                          seed=seed, scan_chunk=scan_chunk,
                          prefetch=prefetch, update=update,
                          precision=precision)
+
+
+# --------------------------------------------------------------------------
+# batched candidate replay (the autotuner's sweep executor)
+# --------------------------------------------------------------------------
+def _make_batched_event(grad_fn: Callable, spec, gC: torch.Tensor):
+    """One simulated-PS event for every candidate of a batched replay, in
+    place: candidate c's gradient at its own batch through its own store's
+    views — one call of ``grad_fn`` each, as ``_make_event`` makes it —
+    raveled into row c of ``gC`` (the ``(C, rows, LANE)`` f32 gradient
+    buffer, allocated once per replay), then ONE batched B3 launch over
+    every candidate's params and velocity.  On a bf16 spec the param carry
+    is the stacked ``(shadow, master)`` pair, as in ``_make_event``."""
+    mixed = spec.store_dtype != torch.float32
+
+    def event(pC, velC, batches, bsz, wid, lrC, facC, momC):
+        shadow = pC[0] if mixed else pC
+        for c, batch in enumerate(batches):
+            g = grad_fn(spec.unravel(shadow[c]),
+                        {k: v[:bsz] for k, v in batch.items()})
+            with torch.no_grad():
+                spec.ravel_master(g, out=gC[c])
+        with torch.no_grad():
+            dbl_apply_worker_batched(shadow, gC, velC, wid, lrC, facC, momC,
+                                     masterC=pC[1] if mixed else None)
+    return event
+
+
+def _zip_feeds(feeds, trace: SimTrace, ranges):
+    """Zip per-candidate event-order feeds chunk by chunk: each step yields
+    the list of the candidates' staged chunks.  Every feed keeps its own
+    prefetch thread, so staging overlaps the replay as in the sequential
+    path — once per candidate stream.  Unlike the reference nothing is
+    stacked along a candidate axis: each candidate's gradient reads its own
+    batch."""
+    iters = [iter(f(trace, ranges)) for f in feeds]
+    for _ in ranges:
+        yield [next(it) for it in iters]
+
+
+def execute_trace_batched(init_params_list, grad_fn: Callable,
+                          traces: Sequence[SimTrace], *,
+                          feed=None, feeds=None, data_fn=None,
+                          momentum=0.9, eval_fn: Optional[Callable] = None,
+                          eval_fns: Optional[Sequence[Callable]] = None,
+                          seed: int = 0, scan_chunk: int = 32,
+                          prefetch: bool = True,
+                          precision: str = "f32") -> List[SimResult]:
+    """Replay MANY same-timeline traces as ONE stacked run, on the initial
+    params' device (they are never written: the stores are copies).
+
+    All traces must share a ``trace_signature`` (same worker/batch/stream
+    timeline, evals, sizes — candidates may differ in per-event lr, update
+    factor, momentum, initial params and data).  Candidate state is stacked
+    along a leading axis — params ``(C, rows, LANE)``, velocities ``(C,
+    n_workers, rows, LANE)`` (``FlatSpec.zeros_candidates``) — and every
+    event takes C gradients (one ``grad_fn`` call per candidate on its own
+    params and batch) and ends in ONE ``dbl_apply_worker_batched`` launch;
+    the per-event lr and factor are uploaded once per replay as ``(events,
+    C)`` f32 tensors, so an event's scalars are one contiguous row that the
+    kernel reads.  One staging pass serves every candidate when they share
+    a feed.  The float op order is the sequential replay's, so for f32
+    params each candidate's result is bit-identical to its own
+    ``execute_trace`` run.
+
+    Data: ``feed`` (one event-order feed shared by every candidate — the
+    factor/LR-sweep case, where sample streams are identical) or ``feeds``
+    (one per candidate — the multi-seed case; ``_zip_feeds`` zips them) or
+    a shared ``data_fn`` (``data_fn_feed``).  Evals: ``eval_fn`` applied to
+    every candidate, or per-candidate ``eval_fns``.  ``momentum`` may be a
+    scalar or a per-candidate sequence.  ``precision="bf16"`` stacks a bf16
+    shadow AND an f32 master per candidate (evals and final params read the
+    master).  Returns one ``SimResult`` per candidate, in input order.
+
+    What the reference has and the port does not: the ``interpret`` and
+    ``loop`` arguments and the compiled-runner cache
+    (``batched_trace_runner_for``, ``_build_batched_runner``) — the chunk
+    is a plain Python loop over its events, as in ``execute_trace``.
+    """
+    traces = list(traces)
+    if not traces:
+        return []
+    if len(init_params_list) != len(traces):
+        raise ValueError(f"{len(init_params_list)} init params for "
+                         f"{len(traces)} traces")
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"unknown precision {precision!r}")
+    sig0 = trace_signature(traces[0])
+    for i, t in enumerate(traces[1:], 1):
+        if trace_signature(t) != sig0:
+            raise ValueError(
+                f"trace {i} has a different signature (timeline/evals/"
+                "sizes) — batched replay runs ONE event loop, so candidates "
+                "must share the event timeline; group by trace_signature() "
+                "and replay groups separately")
+    trace = traces[0]
+    n_cand = len(traces)
+    if feeds is not None and len(feeds) != n_cand:
+        raise ValueError(f"{len(feeds)} feeds for {n_cand} traces")
+    device = tree_leaves(init_params_list[0])[0].device
+    if feed is None and feeds is None:
+        if data_fn is None:
+            raise ValueError("execute_trace_batched needs feed, feeds or "
+                             "a data_fn")
+        feed = data_fn_feed(data_fn, seed, device, prefetch=prefetch)
+    mixed = precision != "f32"
+    spec = (flat_spec(init_params_list[0], torch.bfloat16) if mixed
+            else flat_spec(init_params_list[0]))
+    shC = torch.stack([spec.ravel(p) for p in init_params_list])
+    pC = ((shC, torch.stack([spec.ravel_master(p)
+                             for p in init_params_list]))
+          if mixed else shC)
+    velC = spec.zeros_candidates(n_cand, max(1, trace.n_workers),
+                                 device=device)
+    # an event's scalars: one contiguous row of C f32 values on the device,
+    # the floats the one-store B3 is passed by value
+    lr_tab, fac_tab = (torch.tensor(np.stack(cols, axis=1),
+                                    dtype=torch.float32, device=device)
+                       for cols in ([t.lr for t in traces],
+                                    [t.update_factor for t in traces]))
+    momC = torch.tensor(np.broadcast_to(np.asarray(momentum, np.float32),
+                                        (n_cand,)), device=device)
+    if eval_fns is None and eval_fn is not None:
+        eval_fns = [eval_fn] * n_cand
+    histories: List[List[dict]] = [[] for _ in range(n_cand)]
+
+    def fire(fired):
+        buf = pC[1] if mixed else pC         # evals read the f32 master
+        for epoch, t in fired:
+            for i in range(n_cand):
+                rec = {"epoch": epoch, "sim_time": t}
+                if eval_fns is not None:
+                    rec.update(eval_fns[i](spec.unravel(buf[i])))
+                histories[i].append(rec)
+
+    ranges = _chunk_ranges(trace, scan_chunk)
+    event = _make_batched_event(
+        grad_fn, spec, torch.empty((n_cand,) + spec.shape,
+                                   dtype=torch.float32, device=device))
+    chunks = (_zip_feeds(feeds, trace, ranges) if feeds is not None
+              else feed(trace, ranges))
+    seg_iter = iter(trace.segments())
+    seg = next(seg_iter, None)
+    for (e0, e1), staged in zip(ranges, chunks):
+        for j, e in enumerate(range(e0, e1)):
+            if feeds is None:               # one batch read by every one
+                batches = [{k: v[j] for k, v in staged.items()}] * n_cand
+            else:
+                batches = [{k: v[j] for k, v in b.items()} for b in staged]
+            event(pC, velC, batches, int(trace.batch_size[e]),
+                  int(trace.worker_id[e]), lr_tab[e], fac_tab[e], momC)
+        while seg is not None and e1 >= seg[1]:
+            fire(seg[2])
+            seg = next(seg_iter, None)
+    while seg is not None:              # trailing zero-event segments
+        fire(seg[2])
+        seg = next(seg_iter, None)
+    buf = pC[1] if mixed else pC
+    return [SimResult(sim_time=traces[i].sim_time, history=histories[i],
+                      params=spec.unravel(buf[i]),
+                      n_pushes=traces[i].n_pushes)
+            for i in range(n_cand)]

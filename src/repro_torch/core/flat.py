@@ -165,6 +165,17 @@ class FlatSpec:
         return torch.zeros((int(n),) + self.shape, dtype=torch.float32,
                            device=resolve_device(device))
 
+    def zeros_candidates(self, n_candidates: int, n_workers: int,
+                         device=None) -> torch.Tensor:
+        """Zero ``(n_candidates, n_workers, rows, LANE)`` f32 buffer — the
+        batched candidate replay's velocity state: one stacked per-worker
+        block per autotuner candidate, so one batched B3 launch updates
+        every candidate's simulated cluster; ``device=None`` means the
+        card."""
+        return torch.zeros((int(n_candidates), int(n_workers)) + self.shape,
+                           dtype=torch.float32,
+                           device=resolve_device(device))
+
     def ravel_stacked(self, trees) -> torch.Tensor:
         """Per-worker trees -> ``(len(trees), rows, LANE)`` stack."""
         return torch.stack([self.ravel(t) for t in trees])

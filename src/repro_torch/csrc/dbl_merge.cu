@@ -42,6 +42,15 @@
 // touched), so it streams as B1's vel form does.  Its scalars come in by
 // value from the host, where the simulator's trace keeps them.
 //
+// B3's candidate-batched form (the reference's dbl_apply_worker_xla under
+// jax.vmap, dbl_merge.py:388, which the autotuner's batched replay runs)
+// updates C candidates' stores in one launch: the candidate is blockIdx.y,
+// and each block runs the very sweep body of the one-store form
+// (worker_sweep) on its candidate's slices, so the two forms cannot drift
+// apart.  Its lr / factor / momentum are C floats on the card, read inside
+// the kernel, so a replay uploads an event's scalars once and the host
+// never reads them back.  Bound: C times B3's bytes.
+//
 // Numbers: the float op order is the reference's exactly — (gl + f·gs)·inv,
 // then m·v + g, then w − lr·v (B3: m·v + g, then (−lr)·v, then w + f·d) —
 // with every multiply and add rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn, and the library is built with
@@ -151,14 +160,15 @@ dbl_sweep(float* __restrict__ w, __nv_bfloat16* __restrict__ shadow,
   }
 }
 
-// One simulated-PS event over the flat store (B3).  w: f32 params (or the
-// f32 master when kMaster); shadow: bf16 store (kMaster only); g: the
-// event's gradient; v: worker wid's row block of the stacked velocity.
+// One simulated-PS event over one flat store: the sweep body both forms of
+// B3 run.  w: f32 params (or the f32 master when kMaster); shadow: bf16
+// store (kMaster only); g: the event's gradient; v: worker wid's row block
+// of the stacked velocity.
 template <bool kMaster>
-__global__ void __launch_bounds__(kThreads)
-dbl_worker_sweep(float* __restrict__ w, __nv_bfloat16* __restrict__ shadow,
-                 const float* __restrict__ g, float* __restrict__ v,
-                 int64_t n4, float lr, float factor, float momentum) {
+__device__ __forceinline__ void worker_sweep(
+    float* __restrict__ w, __nv_bfloat16* __restrict__ shadow,
+    const float* __restrict__ g, float* __restrict__ v, int64_t n4,
+    float lr, float factor, float momentum) {
   const float neg_lr = -lr;
   float4 gg[kUnroll], vv[kUnroll], p[kUnroll];
 #pragma unroll
@@ -188,6 +198,37 @@ dbl_worker_sweep(float* __restrict__ w, __nv_bfloat16* __restrict__ shadow,
     store4(w, i, pu);
     if constexpr (kMaster) store4_bf16(shadow, i, pu);
   }
+}
+
+// B3 for one store: the event's scalars by value.
+template <bool kMaster>
+__global__ void __launch_bounds__(kThreads)
+dbl_worker_sweep(float* __restrict__ w, __nv_bfloat16* __restrict__ shadow,
+                 const float* __restrict__ g, float* __restrict__ v,
+                 int64_t n4, float lr, float factor, float momentum) {
+  worker_sweep<kMaster>(w, shadow, g, v, n4, lr, factor, momentum);
+}
+
+// B3 for C candidates' stores in one launch (the autotuner's batched
+// replay): candidate blockIdx.y sweeps its own (rows, 128) slice of w / g
+// (/ shadow) and row block (c, wid) of the (C, n_workers, rows, 128)
+// velocity, with its own lr / factor / momentum read from device arrays of
+// C floats.  n counts one store's elements; every offset is 64-bit.
+template <bool kMaster>
+__global__ void __launch_bounds__(kThreads)
+dbl_worker_sweep_batched(float* __restrict__ w,
+                         __nv_bfloat16* __restrict__ shadow,
+                         const float* __restrict__ g,
+                         float* __restrict__ vel, int64_t n, int n_workers,
+                         int wid, const float* __restrict__ lr,
+                         const float* __restrict__ factor,
+                         const float* __restrict__ momentum) {
+  const int c = blockIdx.y;
+  const int64_t off = static_cast<int64_t>(c) * n;
+  const int64_t voff =
+      (static_cast<int64_t>(c) * n_workers + wid) * n;
+  worker_sweep<kMaster>(w + off, kMaster ? shadow + off : nullptr, g + off,
+                        vel + voff, n / 4, lr[c], factor[c], momentum[c]);
 }
 
 // one pass: every thread handles kUnroll groups and no thread loops
@@ -261,5 +302,27 @@ extern "C" int repro_dbl_apply_worker_flat2d(float* w, void* shadow,
   else
     dbl_worker_sweep<false><<<grid, block, 0, st>>>(w, sh, g, v, n4, lr,
                                                     factor, momentum);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B3 over C candidates in one launch.  w / shadow / g: (C, rows, 128)
+// buffers, n = rows·128 elements each; vel: the (C, n_workers, rows, 128)
+// velocity, of which only row block (c, wid) of each candidate is used (the
+// caller checks 0 <= wid < n_workers); lr / factor / momentum: C floats on
+// the card, candidate c's at index c.  shadow null for the f32 form.  Same
+// alignment rules and return value as above.
+extern "C" int repro_dbl_apply_worker_batched(
+    float* w, void* shadow, const float* g, float* vel, int64_t n,
+    int n_candidates, int n_workers, int wid, const float* lr,
+    const float* factor, const float* momentum, void* stream) {
+  const dim3 grid(grid_for(n / 4), n_candidates), block(kThreads);
+  auto* sh = static_cast<__nv_bfloat16*>(shadow);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (sh != nullptr)
+    dbl_worker_sweep_batched<true><<<grid, block, 0, st>>>(
+        w, sh, g, vel, n, n_workers, wid, lr, factor, momentum);
+  else
+    dbl_worker_sweep_batched<false><<<grid, block, 0, st>>>(
+        w, sh, g, vel, n, n_workers, wid, lr, factor, momentum);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,14 +15,18 @@ replace the reference's Pallas TPU kernels:
   * ``dbl_apply_worker_flat2d`` (B3) — one event of the traced
     parameter-server simulator: worker ``wid``'s momentum step and
     factor-scaled push, ``v'[wid] = m·v[wid] + g; w' = w + f·(−lr·v'[wid])``
-    over the stacked ``(n_workers, rows, LANE)`` velocity.
+    over the stacked ``(n_workers, rows, LANE)`` velocity;
+    ``dbl_apply_worker_batched`` is its candidate-batched form (the
+    reference's ``dbl_apply_worker_xla`` under ``jax.vmap``): the same
+    event for C autotuner candidates' stores in one launch, each with its
+    own lr / factor / momentum read from ``(C,)`` tensors on the card.
 
 B1 and B2 have four variants — plain, ``vel2`` (server momentum),
 ``master2`` (bf16 shadow + f32 master, written in the same pass) and both;
-B3 has two, plain and master.  Each runs ONE launch over the whole
-``(rows, LANE)`` buffer, updating every output in place over its input,
-and returns the updated buffers in the reference's order, so call sites
-read the same.
+B3 and its batched form have two, plain and master.  Each runs ONE launch
+over the whole ``(rows, LANE)`` buffer (``(C, rows, LANE)`` for the batched
+form), updating every output in place over its input, and returns the
+updated buffers in the reference's order, so call sites read the same.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor — and only then — it runs the plain PyTorch version, written as
@@ -48,7 +52,8 @@ KERNELS = ("dbl_apply_flat2d", "dbl_merge_flat2d")
 VARIANTS = ("plain", "vel", "master", "master_vel")
 WORKER_VARIANTS = ("plain", "master")
 KERNEL_VARIANTS = {**{k: VARIANTS for k in KERNELS},
-                   "dbl_apply_worker_flat2d": WORKER_VARIANTS}
+                   "dbl_apply_worker_flat2d": WORKER_VARIANTS,
+                   "dbl_apply_worker_batched": WORKER_VARIANTS}
 
 _COUNTS = _c.Counts(KERNEL_VARIANTS)
 launch_count = _COUNTS.launch_count     # CUDA kernel launches so far
@@ -119,6 +124,10 @@ def _lib():
         lib.repro_dbl_apply_worker_flat2d.argtypes = [
             vp, vp, vp, vp, i64, ctypes.c_int, f32, f32, f32, vp]
         lib.repro_dbl_apply_worker_flat2d.restype = ctypes.c_int
+        ci = ctypes.c_int
+        lib.repro_dbl_apply_worker_batched.argtypes = [
+            vp, vp, vp, vp, i64, ci, ci, ci, vp, vp, vp, vp]
+        lib.repro_dbl_apply_worker_batched.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
 
@@ -317,6 +326,96 @@ def dbl_apply_worker_flat2d(p2, g2, vel3, wid, lr, factor, momentum, *,
     _raise_on(err, "dbl_apply_worker_flat2d")
     _COUNTS.launch("dbl_apply_worker_flat2d", variant)
     return (p2, vel3) if master2 is None else (p2, master2, vel3)
+
+
+# -- B3 over C autotuner candidates in one launch ---------------------------
+def _batched_args(pC, gC, velC, wid, lrC, facC, momC, masterC) -> int:
+    """Validate the batched form's buffers and per-candidate scalars;
+    returns ``wid`` as a Python int."""
+    if pC.dim() != 3 or pC.shape[2] != LANE:
+        raise ValueError(f"candidate buffers must be (C, rows, {LANE}), got "
+                         f"{tuple(pC.shape)}")
+    bufs = [pC, gC, velC] + ([] if masterC is None else [masterC])
+    if not all(t.is_contiguous() for t in bufs):
+        raise ValueError("flat buffers must be contiguous")
+    for t in (gC, masterC):
+        if t is not None and t.shape != pC.shape:
+            raise ValueError(f"shape {tuple(t.shape)} != {tuple(pC.shape)}")
+    _check(pC.view(-1, LANE), (gC.view(-1, LANE),), None,
+           None if masterC is None else masterC.view(-1, LANE))
+    n_cand = pC.shape[0]
+    if not 1 <= n_cand <= 65535:          # the kernel's grid.y
+        raise ValueError(f"{n_cand} candidates outside [1, 65535]")
+    if velC.dim() != 4 or velC.shape[0] != n_cand \
+            or tuple(velC.shape[2:]) != tuple(pC.shape[1:]):
+        raise ValueError(f"candidate velocity must be ({n_cand}, n_workers, "
+                         f"{pC.shape[1]}, {LANE}), got {tuple(velC.shape)}")
+    if velC.dtype != torch.float32 or velC.device != pC.device \
+            or velC.requires_grad:
+        raise ValueError("candidate velocity must be a float32 buffer on "
+                         "the params' device, outside autograd")
+    for name, t in (("lrC", lrC), ("facC", facC), ("momC", momC)):
+        if not isinstance(t, torch.Tensor) or t.shape != (n_cand,) \
+                or t.dtype != torch.float32 or t.device != pC.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor of "
+                             f"{n_cand} values on {pC.device}")
+    wid = _host_number(wid, "wid")
+    if int(wid) != wid or not 0 <= int(wid) < velC.shape[1]:
+        raise ValueError(f"wid {wid} outside [0, {velC.shape[1]})")
+    return int(wid)
+
+
+def dbl_apply_worker_batched_plain(pC, gC, velC, wid, lrC, facC, momC,
+                                   masterC=None):
+    """Plain version of ``dbl_apply_worker_batched``: C calls of
+    ``dbl_apply_worker_plain``, candidate c on ``pC[c]``, ``gC[c]``,
+    ``velC[c]`` (and ``masterC[c]``) at ``lrC[c]``, ``facC[c]``,
+    ``momC[c]``.  Returns ``(pC, velC)`` or ``(pC, masterC, velC)``."""
+    for c in range(pC.shape[0]):
+        dbl_apply_worker_plain(
+            pC[c], gC[c], velC[c], wid, float(lrC[c]), float(facC[c]),
+            float(momC[c]), master2=None if masterC is None else masterC[c])
+    return (pC, velC) if masterC is None else (pC, masterC, velC)
+
+
+def dbl_apply_worker_batched(pC, gC, velC, wid, lrC, facC, momC, *,
+                             masterC=None):
+    """B3 for C candidates in ONE launch (the batched candidate replay's
+    per-event update):
+
+        v'[c, wid] = m[c]·v[c, wid] + g[c];   d = −lr[c]·v'[c, wid];
+        w'[c] = w[c] + f[c]·d
+
+    pC / gC: ``(C, rows, LANE)``; velC: ``(C, n_workers, rows, LANE)``
+    f32; ``wid``: one host int, a timeline fact shared by every
+    candidate; lrC / facC / momC: ``(C,)`` float32 tensors on the
+    buffers' device, read by the kernel and never by the host.  Each
+    candidate gets exactly B3's function in B3's float order, so the
+    result is bit-equal to C calls of ``dbl_apply_worker_flat2d`` with
+    those scalars.  Updates ``pC`` and row block ``(c, wid)`` of ``velC``
+    in place and returns ``(pC, velC)``; with ``masterC`` the update runs
+    on the f32 masters and ``pC`` (bf16) receives their rounded shadows,
+    returning ``(pC, masterC, velC)``.
+    """
+    wid = _batched_args(pC, gC, velC, wid, lrC, facC, momC, masterC)
+    kernel = "dbl_apply_worker_batched"
+    variant = "plain" if masterC is None else "master"
+    if pC.device.type == "cpu":
+        _COUNTS.plain(kernel, variant)
+        return dbl_apply_worker_batched_plain(pC, gC, velC, wid, lrC, facC,
+                                              momC, masterC=masterC)
+    if pC.device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for {pC.device}")
+    w = pC if masterC is None else masterC
+    shadow = None if masterC is None else pC
+    err = _launch(pC.device, _lib().repro_dbl_apply_worker_batched,
+                  _ptr(w, 16), _ptr(shadow, 8), _ptr(gC, 16), _ptr(velC, 16),
+                  w[0].numel(), pC.shape[0], velC.shape[1], wid,
+                  _ptr(lrC, 4), _ptr(facC, 4), _ptr(momC, 4))
+    _raise_on(err, kernel)
+    _COUNTS.launch(kernel, variant)
+    return (pC, velC) if masterC is None else (pC, masterC, velC)
 
 
 # -- front ends -------------------------------------------------------------

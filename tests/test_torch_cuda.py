@@ -366,3 +366,59 @@ def test_fused_lm_step_on_the_card(cuda):
                     tree_leaves(out["cpu"].params)):
         assert a.device.type == "cuda"
         assert float((a.cpu() - b).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n_cand,n_workers", [(1, 3), (3, 3), (1, 4),
+                                              (3, 4)])
+@pytest.mark.parametrize("master", [False, True], ids=["f32", "master"])
+def test_batched_worker_update_matches_single_launches(cuda, master, n_cand,
+                                                       n_workers):
+    """B3's candidate-batched form: one launch bit-equal to C launches of
+    the one-store B3 with each candidate's own scalars, and to its plain
+    version; only row block (c, wid) of the velocity changes."""
+    from repro_torch.kernels import dbl_merge as K
+    rows, wid = 3072, n_workers - 2
+    gen = torch.Generator(device="cuda").manual_seed(n_cand * 10 + n_workers)
+    rn = lambda *s: torch.randn(*s, rows, 128, generator=gen, device=cuda)
+    w, g, v = rn(n_cand), rn(n_cand), rn(n_cand, n_workers)
+    scal = [torch.tensor(x[:n_cand], device=cuda) for x in
+            ((0.05, 0.01, 0.3), (0.9365079365079365, 1.0, 0.5),
+             (0.9, 0.0, 0.5))]
+    host = [t.cpu().tolist() for t in scal]
+
+    def state():
+        s = {"w": w.clone(), "v": v.clone()}
+        if master:
+            s["shadow"] = w.to(torch.bfloat16)
+        return s
+    batched, single, plain = state(), state(), state()
+    K.reset_counts()
+    kw = {"masterC": batched["w"]} if master else {}
+    K.dbl_apply_worker_batched(batched["shadow"] if master else batched["w"],
+                               g, batched["v"], wid, *scal, **kw)
+    for c in range(n_cand):
+        args = (g[c], single["v"][c], wid, host[0][c], host[1][c],
+                host[2][c])
+        if master:
+            K.dbl_apply_worker_flat2d(single["shadow"][c], *args,
+                                      master2=single["w"][c])
+        else:
+            K.dbl_apply_worker_flat2d(single["w"][c], *args)
+    kw = {"masterC": plain["w"]} if master else {}
+    K.dbl_apply_worker_batched_plain(plain["shadow"] if master
+                                     else plain["w"], g, plain["v"], wid,
+                                     *scal, **kw)
+    torch.cuda.synchronize()
+    variant = "master" if master else "plain"
+    assert K.launch_count("dbl_apply_worker_batched", variant) == 1
+    assert K.launch_count("dbl_apply_worker_flat2d", variant) == n_cand
+    assert K.plain_count() == 0
+    for k in batched:
+        assert torch.equal(batched[k], single[k]), k
+        assert torch.equal(batched[k], plain[k]), k
+    for c in range(n_cand):
+        for i in range(n_workers):
+            assert torch.equal(batched["v"][c, i], v[c, i]) == (i != wid)
+    if master:
+        assert torch.equal(batched["shadow"],
+                           batched["w"].to(torch.bfloat16))

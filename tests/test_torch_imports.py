@@ -34,7 +34,8 @@ def test_port_imports_with_jax_blocked():
         "               for m in sys.modules)\n"
         "assert {'repro_torch.checkpoint', 'repro_torch.checkpoint.ckpt',\n"
         "        'repro_torch.launch.train',\n"
-        "        'repro_torch.examples.quickstart'} <= set(names)\n"
+        "        'repro_torch.examples.quickstart',\n"
+        "        'repro_torch.tune.autotune'} <= set(names)\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
@@ -88,6 +89,7 @@ def _entry_points():
     from repro_torch.examples import quickstart
     from repro_torch.launch import train
     from repro_torch.serve import ServeEngine
+    from repro_torch import tune
     cfg = get_config("cifar-resnet18")
     lm = reduced(get_config("phi3-mini-3.8b"), layers=1, d_model=64,
                  vocab=32)
@@ -108,6 +110,10 @@ def _entry_points():
         "convert.params_from_numpy": lambda d: convert.params_from_numpy(
             {"a": arr}, d),
         "FlatSpec.zeros_stacked": lambda d: spec.zeros_stacked(2, d),
+        "FlatSpec.zeros_candidates": lambda d: spec.zeros_candidates(3, 2,
+                                                                     d),
+        # validation resolves the device before it touches the problem
+        "tune.autotune": lambda d: tune.autotune([], None, device=d),
         "launch.train.run": lambda d: train.run(
             ["--steps", "1", "--seq", "16", "--global-batch", "8"]
             + ([] if d is None else ["--device", d])),
