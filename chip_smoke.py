@@ -140,15 +140,38 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     ``combined_space``'s axes at width 8 on 8 px on the card and on the CPU
     port: the same labels, pruning, replay tags and sim_times, every
     evaluation's loss and params within ``PS_PARITY_BAND``.
+21. the static decode: (a) ``flash_decode`` (B5) on the models' ``(B, S,
+    KV, hd)`` layer cache, read in place through its strides, at the
+    static decode geometries of ``B5_SHAPES`` (phi3-mini hd 96, gemma3-4b
+    hd 256 with its window, zamba2-2.7b's shared attention at hd 80), q
+    and cache each in f32 and bf16, at positions 0, the middle and the
+    last (``FD_F32_TOL``); ``flash_attention`` (B4) with a query offset
+    (offsets 0, 1, 17 and 512, chunks of 1, 5 and 64, with and without a
+    window, f32 and bf16; ``PF_F32_TOL``); each timed beside its plain
+    version, SDPA and its bound; (b) ``launch.serve.generate`` at full
+    width in bf16: phi3-mini-3.8b on 4 x 512 prompt tokens + 64 generated
+    (``max_seq`` 576) with exactly 32 B4 launches (the chunked prefill)
+    and 32 x 63 B5 (one a layer a decode step), no plain attention; ms of
+    the prefill and a decode step (CUDA events around each decode call),
+    tokens/s, peak memory and one profiled decode step (idle share, B5's
+    share, top kernels); zamba2-2.7b (9 B5 launches a step) and rwkv6-7b
+    (no kernel) on 4 x 32 + 32, ms a step; (c) reduced f32 phi3-mini,
+    gemma3-4b (window 16), zamba2-2.7b (6 layers) and rwkv6-7b,
+    ``generate`` on the card against the CPU port: identical greedy tokens,
+    logits within ``DECODE_PARITY_BAND``, the stepped prefill against the
+    chunked one; the static path's tokens against ``ServeEngine(backend=
+    "paged")`` over ``PAGED_DRAWS`` prompt draws, reported.
 
 The launch counts are set to 0 just before each path and read just after;
 the ``launches`` in the kernels line are those counts, summed over the
 main path and the short runs (for B1 and B2, the engine runs of phases 3-4
 and the LM runs of phases 18-19 on the card; for B5 and B6, the paged
-serving main path's timed run; B5 has no caller on that path, so its count
-is 0; for B4, B7 and B8, one forward of each model of phase 15; B3 adds
-phase 20's search, its one-store and batched launches, the batched form's
-records among its variants).  Launches
+serving main path's timed run, and for B5 the static decode runs of phase
+21 (b), on phi3-mini and zamba2-2.7b — the only path that calls B5, whose
+numbers in the line are its phi3 static decode form; for B4, B7 and B8,
+one forward of each model of phase 15, B4 adding phase 21's chunked
+prefill; B3 adds phase 20's search, its one-store and batched launches,
+the batched form's records among its variants).  Launches
 made to compare a kernel with its plain version are not counted.  B1's
 numbers in the line are its LM-store ones (phase 18), the shape this
 slice's main path gives it; the ResNet-store records stay among its
@@ -2800,6 +2823,446 @@ def tune_parity_phase(m, small):
             "launches": card["launches"]}
 
 
+# --------------------------- phase 21: static decode -------------------------
+# the static decode main path (launch.serve.generate): phi3-mini-3.8b at
+# full width and depth, bf16, 4 prompts of 512 tokens (one chunked prefill,
+# B4 with q_offset 0 in every layer) and 64 generated (63 one-token decode
+# steps, B5 in every layer), the cache 576 positions
+DEC_ARCH = "phi3-mini-3.8b"
+DEC_BATCH, DEC_PROMPT, DEC_GEN = 4, 512, 64
+DEC_MAX_SEQ = DEC_PROMPT + DEC_GEN
+# the recurrent and hybrid stacks at full width: 4 x 32 prompt tokens
+# stepped, 32 generated (zamba2-2.7b: B5 in its 9 shared-block calls a step)
+DEC_SHORT_ARCHS = ("zamba2-2.7b", "rwkv6-7b")
+DEC_SHORT_PROMPT, DEC_SHORT_GEN = 32, 32
+# B5 on the models' (B, S, KV, hd) layer cache, read through its
+# transpose(1, 2) view: (label, rows, heads, kv heads, hd, max_seq, window)
+# at the static decode geometries of phi3-mini-3.8b, gemma3-4b (its local
+# layers' window over a 2048-position cache) and zamba2-2.7b's shared
+# attention (hd 80); positions 0, the middle and max_seq - 1, timed at the
+# last
+B5_SHAPES = (("phi3-mini-3.8b static", 4, 32, 32, 96, 576, 0),
+             ("gemma3-4b static", 4, 8, 4, 256, 2048, 1024),
+             ("zamba2-2.7b static", 4, 32, 32, 80, 64, 0))
+# B4 with a query offset at phi3-mini's attention (4 rows, 32 heads, hd
+# 96): queries at offset..offset+T-1 over the first offset + T keys
+B4_OFFSETS, B4_CHUNKS, B4_WINDOWS = (0, 1, 17, 512), (1, 5, 64), (0, 100)
+# card vs CPU port on the reduced f32 configs (zamba2 at 6 layers so that
+# its shared block runs; gemma3's window 16 below prompt + generation):
+# greedy tokens identical, the generated tokens' logits (magnitude about
+# 4) within this band, as the prefill parity's
+DECODE_PARITY_ARCHS = (("phi3-mini-3.8b", 2), ("gemma3-4b", 2),
+                       ("zamba2-2.7b", 6), ("rwkv6-7b", 2))
+DECODE_PARITY_PROMPT, DECODE_PARITY_GEN = 20, 8
+DECODE_PARITY_BAND = 1e-4
+PAGED_DRAWS = 4          # prompt draws of the static-vs-paged comparison
+
+
+def _b5_bound(q, kt, pos, w, rate):
+    """(bound ms, bound_by, bytes): each live K/V row read once, q read
+    and the output written once; 4·hd operations a (query head, key)."""
+    rows, h, _, hd = q.shape
+    kvh, s = kt.shape[1], kt.shape[2]
+    live = _live(pos, s, w) * rows
+    nbytes = live * kvh * hd * 2 * kt.element_size() \
+        + 2 * q.numel() * q.element_size()
+    t_b, t_o = nbytes / rate, live * h * hd * 4 / F32_RATE
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations", \
+        nbytes
+
+
+def b5_static_phase(D, rate):
+    """Phase 21 (a), B5: on the reference's strided cache at every shape of
+    B5_SHAPES, q and cache each in f32 and bf16, at positions 0, the middle
+    and max_seq - 1, against its plain version (FD_F32_TOL; bf16 outputs
+    one bf16 ulp more); timed at max_seq - 1 (q and cache of one dtype)
+    beside the plain version, SDPA and the bytes bound."""
+    out = []
+    for si, (label, rows, h, kvh, hd, s, w) in enumerate(B5_SHAPES):
+        for qd in (torch.bfloat16, torch.float32):
+            for kd in (torch.bfloat16, torch.float32):
+                gen = torch.Generator(device="cuda").manual_seed(300 + si)
+                q = torch.randn(rows, h, 1, hd, generator=gen,
+                                device="cuda").to(qd)
+                kc, vc = (torch.randn(rows, s, kvh, hd, generator=gen,
+                                      device="cuda").to(kd) for _ in "kv")
+                kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)  # in place
+                for pos in (0, s // 2, s - 1):
+                    kern = lambda: D.FD.flash_decode(q, kt, vt, pos, window=w)
+                    plain = lambda: D.FD._xla_decode(q, kt, vt, pos, window=w)
+                    err, ok, worst = _fd_err(kern(), plain())
+                    if not ok:
+                        raise AssertionError(
+                            f"flash_decode {label} q {qd} cache {kd} pos "
+                            f"{pos}: kernel differs from its plain version "
+                            f"by {err}; worst (index, kernel, plain, diff / "
+                            f"tolerance) {worst}")
+                    rec = {"shape": label, "q": str(qd)[6:],
+                           "cache": str(kd)[6:], "layout": "(B, S, KV, hd)",
+                           "pos": pos, "window": w, "max_abs_err": err}
+                    if pos == s - 1 and qd == kd:
+                        bound_ms, by, nbytes = _b5_bound(q, kt, pos, w, rate)
+                        idx = torch.arange(s, device="cuda")
+                        lo = max(0, pos - w + 1) if w > 0 else 0
+                        mask = ((idx <= pos) & (idx >= lo))[None, None, None]
+                        rec.update(
+                            ms=cuda_ms(kern), device_ms=device_ms(kern),
+                            plain_ms=cuda_ms(plain), bound_ms=bound_ms,
+                            bound_by=by, bytes=nbytes,
+                            library_ms=cuda_ms(
+                                lambda: F.scaled_dot_product_attention(
+                                    q, kt, vt, attn_mask=mask,
+                                    enable_gqa=True)))
+                        log(f"    flash_decode {label} {rec['q']} (B, S, KV, "
+                            f"hd) cache, pos {pos}: kernel "
+                            f"{rec['ms'] * 1e3:.1f} us (device "
+                            f"{rec['device_ms'] * 1e3:.1f}), plain "
+                            f"{rec['plain_ms'] * 1e3:.1f} us, SDPA "
+                            f"{rec['library_ms'] * 1e3:.1f} us, bound "
+                            f"{bound_ms * 1e3:.1f} us by {by} "
+                            f"({bound_ms / rec['device_ms']:.0%} of device "
+                            f"time), err {err:.3g}")
+                    out.append(rec)
+                del q, kc, vc, kt, vt
+        log(f"  B5 {label}: rows {rows}, heads {h}/{kvh}, hd {hd}, cache "
+            f"(B, {s}, KV, hd), window {w}: within tolerance of the plain "
+            "version (q and cache bf16 / f32, 3 positions)")
+    return out
+
+
+def _offset_pairs(t: int, off: int, window: int) -> int:
+    """(query, key) pairs B4 computes for queries at off..off+t-1 over the
+    first off + t keys."""
+    return sum(min(off + i + 1, window) if window > 0 else off + i + 1
+               for i in range(t))
+
+
+def b4_offset_phase(D, rate):
+    """Phase 21 (a), B4: the query-offset form at phi3-mini's heads for
+    every offset, chunk length and window of B4_OFFSETS / B4_CHUNKS /
+    B4_WINDOWS in f32 and bf16, against its plain version (PF_F32_TOL;
+    bf16 one ulp more); timed beside its plain version, SDPA and its bound
+    at the decode path's two forms: a 64-token chunk at 512 and the
+    main path's 512-token prefill at 0."""
+    b, h, kvh, hd = 4, 32, 32, 96
+    out = []
+    cases = [(off, t, w) for off in B4_OFFSETS for t in B4_CHUNKS
+             for w in B4_WINDOWS] + [(0, DEC_PROMPT, 0)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for ci, (off, t, w) in enumerate(cases):
+            gen = torch.Generator(device="cuda").manual_seed(400 + ci)
+            q = torch.randn(b, h, t, hd, generator=gen, device="cuda") \
+                .to(dtype)
+            k, v = (torch.randn(b, kvh, off + t, hd, generator=gen,
+                                device="cuda").to(dtype) for _ in "kv")
+            kern = lambda: D.FA.flash_attention(q, k, v, window=w,
+                                                q_offset=off)
+            plain = lambda: D.FA.flash_attention_plain(q, k, v, window=w,
+                                                       q_offset=off)
+            err, ratio = _pf_err("flash_attention", kern(), plain())
+            if not ratio <= 1.0:
+                raise AssertionError(
+                    f"flash_attention q_offset {off} T {t} window {w} "
+                    f"{dtype}: kernel differs from its plain version by "
+                    f"{err} ({ratio:.3g} x the tolerance)")
+            rec = {"shape": "phi3-mini-3.8b static", "dtype": str(dtype)[6:],
+                   "q_offset": off, "chunk": t, "window": w,
+                   "max_abs_err": err, "err_over_tol": ratio}
+            if w == 0 and ((off, t) == (512, 64) or
+                           (t == DEC_PROMPT and dtype == torch.bfloat16)):
+                flops = 4 * hd * b * h * _offset_pairs(t, off, w)
+                nbytes = (2 * q.numel() + k.numel() + v.numel()) \
+                    * q.element_size()
+                op_rate = BF16_RATE if dtype == torch.bfloat16 else F32_RATE
+                t_b, t_o = nbytes / rate, flops / op_rate
+                i = off + torch.arange(t, device="cuda")
+                j = torch.arange(off + t, device="cuda")
+                mask = j[None, :] <= i[:, None]
+                rec.update(
+                    ms=cuda_ms(kern), device_ms=device_ms(kern),
+                    plain_ms=cuda_ms(plain, per_group=3, groups=3, warmup=1),
+                    bound_ms=1e3 * max(t_b, t_o),
+                    bound_by="bytes" if t_b >= t_o else "operations",
+                    flops=flops, bytes=nbytes,
+                    library_ms=cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask, enable_gqa=True)))
+                log(f"    flash_attention q_offset {off}, T {t} over "
+                    f"{off + t} keys, {rec['dtype']}: kernel "
+                    f"{rec['ms'] * 1e3:.1f} us (device "
+                    f"{rec['device_ms'] * 1e3:.1f}), plain "
+                    f"{rec['plain_ms'] * 1e3:.1f} us, SDPA "
+                    f"{rec['library_ms'] * 1e3:.1f} us, bound "
+                    f"{rec['bound_ms'] * 1e3:.1f} us by {rec['bound_by']}, "
+                    f"err {err:.3g}")
+            out.append(rec)
+            del q, k, v
+    log(f"  B4 with a query offset: {len(out)} cases within tolerance of the "
+        f"plain version (worst {max(r['err_over_tol'] for r in out):.3g} x "
+        "the tolerance)")
+    return out
+
+
+def _dec_counts(D):
+    return {"flash_decode": D.FD.launch_count("flash_decode"),
+            "flash_decode_paged": D.FD.launch_count("flash_decode_paged"),
+            "flash_attention": D.FA.launch_count(),
+            "mamba_ssd_scan": D.SSD.launch_count(),
+            "wkv6_chunked": D.WKV.launch_count(),
+            "plain_attention": D.FD.plain_count() + D.FA.plain_count()}
+
+
+def _reset_dec_counts(D):
+    for mod in (D.FD, D.FA, D.SSD, D.WKV):
+        mod.reset_counts()
+
+
+def _timed_generate(D, cfg, params, prompts, gen, max_seq):
+    """``launch.serve.generate`` with a CUDA event recorded before and
+    after each of its decode calls (``make_decode_step`` wrapped; no
+    sync in the loop) and the host clock around the call, ending in a
+    sync.  Returns (tokens, logits, wall s, [(T, ms from this call's
+    start to the next one's, or to its own end for the last)])."""
+    inner = D.serve.make_decode_step
+    marks = []
+
+    def make(cfg_, shape=None):
+        step = inner(cfg_, shape)
+
+        def timed(params_, cache, tokens, pos):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step(params_, cache, tokens, pos)
+            b.record()
+            marks.append((tokens.shape[1], a, b))
+            return out
+        return timed
+    D.serve.make_decode_step = make
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, logits = D.serve.generate(cfg, params, prompts, gen=gen,
+                                        max_seq=max_seq, return_logits=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        D.serve.make_decode_step = inner
+    steps = [(t, a.elapsed_time(marks[i + 1][1] if i + 1 < len(marks)
+                                else b))
+             for i, (t, a, b) in enumerate(marks)]
+    return toks, logits, wall, steps
+
+
+def _check_tokens(arch, toks, logits, cfg, b, n):
+    if tuple(toks.shape) != (b, n) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab_size or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} decode: tokens {tuple(toks.shape)} in "
+                             f"[{int(toks.min())}, {int(toks.max())}], "
+                             f"finite logits "
+                             f"{bool(torch.isfinite(logits).all())}")
+
+
+def _decode_profile(D, cfg, params, prompts):
+    """One one-token decode step at position DEC_PROMPT (after a chunked
+    prefill of the prompts) under torch.profiler: device busy ms, idle
+    share, B5's share and the top kernels."""
+    decode = D.serve.make_decode_step(cfg)
+    cache = D.models.init_cache(cfg, prompts.shape[0], DEC_MAX_SEQ,
+                                device="cuda")
+    logits, cache = decode(params, cache, prompts, 0)
+    nxt = logits.argmax(-1)[:, None]
+    kern, count, wall = traced_kernels(
+        lambda: decode(params, cache, nxt, DEC_PROMPT), ("decode_kernel",),
+        cfg.n_layers)
+    busy = sum(kern.values())
+    b5 = sum(us for n, us in kern.items() if "decode_kernel" in n)
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (wall * 1e6),
+            "kernel_launches": sum(count.values()),
+            "b5_launches": sum(c for n, c in count.items()
+                               if "decode_kernel" in n),
+            "b5_ms": b5 / 1e3, "b5_share": b5 / busy if busy else 0.0,
+            "top_kernels": [{"name": n[:90], "ms": us / 1e3,
+                             "share": us / busy} for n, us in top]}
+
+
+def decode_phase(D):
+    """Phase 21 (b): ``launch.serve.generate`` at full width in bf16
+    (weights from a seeded generator on the card): phi3-mini-3.8b on
+    4 x 512 + 64 — exactly 32 B4 launches (the chunked prefill) and 32 x
+    63 B5, no plain attention — then zamba2-2.7b (9 B5 launches a step,
+    hd 80) and rwkv6-7b (no kernel, no plain attention) on 4 x 32 + 32;
+    tokens in the vocabulary and finite logits.  Returns (records,
+    launches per kernel)."""
+    import numpy as np
+    out, launches = {}, {"flash_decode": 0, "flash_attention": 0}
+    for arch in (DEC_ARCH,) + DEC_SHORT_ARCHS:
+        full = arch == DEC_ARCH
+        plen, gen = (DEC_PROMPT, DEC_GEN) if full else (DEC_SHORT_PROMPT,
+                                                        DEC_SHORT_GEN)
+        cfg = D.get_config(arch)
+        segs = D.layout(cfg)
+        n_attn = sum(s.count for s in segs if s.kind in ("attn",
+                                                         "shared_attn"))
+        t0 = time.perf_counter()
+        params = D.models.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = torch.from_numpy(np.random.default_rng(11).integers(
+            0, cfg.vocab_size, (DEC_BATCH, plen))).cuda()
+        D.serve.generate(cfg, params, prompts[:, :8], gen=2, max_seq=10)
+        torch.cuda.synchronize()                            # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        _reset_dec_counts(D)
+        toks, logits, wall, steps = _timed_generate(
+            D, cfg, params, prompts, gen, plen + gen)
+        got = _dec_counts(D)
+        peak = torch.cuda.max_memory_allocated()
+        n_steps = gen - 1                    # one-token decode steps
+        calls = n_steps + (1 if full else plen)
+        want = {"flash_decode": n_attn * (calls - (1 if full else 0)),
+                "flash_attention": n_attn if full else 0,
+                "flash_decode_paged": 0, "mamba_ssd_scan": 0,
+                "wkv6_chunked": 0, "plain_attention": 0}
+        if got != want:
+            raise AssertionError(f"{arch} static decode: launches {got}, "
+                                 f"expected {want}")
+        _check_tokens(arch, toks, logits, cfg, DEC_BATCH, plen + gen)
+        if not torch.equal(toks[:, :plen], prompts):
+            raise AssertionError(f"{arch}: generate changed the prompts")
+        for k in launches:
+            launches[k] += got[k]
+        step_ms = [ms for t, ms in steps[-n_steps:]]
+        med = statistics.median(step_ms)
+        rec = {"params": sum(t.numel() for t in D.tree_leaves(params)),
+               "init_s": init_s, "batch": DEC_BATCH, "prompt": plen,
+               "generated": gen, "max_seq": plen + gen,
+               "prefill": "chunked" if full else "stepped",
+               "wall_s": wall, "tokens_per_s": DEC_BATCH * gen / wall,
+               "ms_per_step": med, "ms_per_step_min": min(step_ms),
+               "ms_per_step_max": max(step_ms),
+               "decode_tokens_per_s": DEC_BATCH / (med / 1e3),
+               "launches": got, "peak_bytes": peak}
+        if full:
+            rec["prefill_ms"] = steps[0][1]
+            rec["profile"] = _decode_profile(D, cfg, params, prompts)
+        else:
+            rec["stepped_prefill_ms"] = sum(ms for _, ms in steps[:plen])
+        out[arch] = rec
+        log(f"static decode: {arch} full width ({rec['params'] / 1e9:.2f} B "
+            f"params, bf16), {DEC_BATCH} x {plen} "
+            f"({rec['prefill']} prefill) + {gen}: {wall:.2f} s, "
+            f"{rec['tokens_per_s']:.1f} generated tokens/s; "
+            + (f"prefill {rec['prefill_ms']:.1f} ms, " if full else
+               f"stepped prefill {rec['stepped_prefill_ms']:.0f} ms, ")
+            + f"{med:.2f} ms a decode step (min {min(step_ms):.2f}, max "
+            f"{max(step_ms):.2f}; {rec['decode_tokens_per_s']:.0f} tokens/s "
+            f"at batch {DEC_BATCH}); launches {got}; peak "
+            f"{peak / 2**30:.2f} GiB")
+        if full:
+            p = rec["profile"]
+            log(f"  profiled decode step at position {DEC_PROMPT}: "
+                f"{p['wall_ms']:.2f} ms, device busy "
+                f"{p['device_busy_ms']:.2f} ms (idle "
+                f"{p['device_idle_share']:.1%}), {p['kernel_launches']} "
+                f"kernels; B5 {p['b5_launches']} launches, "
+                f"{p['b5_ms']:.3f} ms ({p['b5_share']:.1%} of device time)")
+            for k in p["top_kernels"]:
+                log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
+            if not p["b5_share"] > 0:
+                raise AssertionError("the profiled decode step finds no "
+                                     "time under B5's name")
+        del params, toks, logits, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def decode_parity_phase(D):
+    """Phase 21 (c): reduced f32 models, ``generate`` on the card against
+    the CPU port on the same params and prompts: identical greedy tokens
+    and the generated tokens' logits within DECODE_PARITY_BAND; for the
+    attention archs also the stepped prefill against the chunked one on
+    the card.  Then the static path's tokens against
+    ``ServeEngine(backend="paged")`` on the card over PAGED_DRAWS prompt
+    draws (reported, not asserted)."""
+    import numpy as np
+    out, threads = {}, torch.get_num_threads()
+    plen, gen = DECODE_PARITY_PROMPT, DECODE_PARITY_GEN
+    for arch, layers in DECODE_PARITY_ARCHS:
+        cfg = D.reduced(D.get_config(arch), layers=layers)
+        p_cpu = D.models.init_params(cfg, torch.Generator().manual_seed(3),
+                                     device="cpu")
+        p_card = D.tree_map(lambda t: t.cuda(), p_cpu)
+        run = lambda p, tok, **kw: D.serve.generate(
+            cfg, p, tok, gen=gen, max_seq=plen + gen, return_logits=True,
+            **kw)
+        rec = {"layers": layers, "paged_agree": []}
+        for draw in range(PAGED_DRAWS if D.serve.chunkable(cfg) else 1):
+            tok = torch.from_numpy(np.random.default_rng(5 + draw).integers(
+                0, cfg.vocab_size, (2, plen)))
+            _reset_dec_counts(D)
+            torch.backends.cuda.matmul.allow_tf32 = True  # the step turns
+            card_t, card_l = run(p_card, tok.cuda())       # it off itself
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("the decode step left TF32 on")
+            if draw == 0:
+                got = _dec_counts(D)
+                torch.set_num_threads(1)
+                try:
+                    cpu_t, cpu_l = run(p_cpu, tok)
+                finally:
+                    torch.set_num_threads(threads)
+                gap = float((card_l.cpu() - cpu_l).abs().max())
+                rec.update(logit_gap=gap, logit_max=float(cpu_l.abs().max()),
+                           tokens_equal=bool(torch.equal(card_t.cpu(),
+                                                         cpu_t)),
+                           launches=got)
+                attn = any(s.kind in ("attn", "shared_attn")
+                           for s in D.layout(cfg))
+                if not rec["tokens_equal"] or not gap <= DECODE_PARITY_BAND \
+                        or got["plain_attention"] or \
+                        attn != bool(got["flash_decode"]):
+                    raise AssertionError(
+                        f"{arch} reduced decode, card vs CPU: tokens equal "
+                        f"{rec['tokens_equal']}, logit gap {gap:.3g} (band "
+                        f"{DECODE_PARITY_BAND:g}), launches {got}")
+                if D.serve.chunkable(cfg):
+                    st_t, st_l = run(p_card, tok.cuda(), stepped_prefill=True)
+                    sgap = float((st_l - card_l).abs().max())
+                    rec.update(stepped_gap=sgap, stepped_tokens_equal=bool(
+                        torch.equal(st_t, card_t)))
+                    if not rec["stepped_tokens_equal"] or \
+                            not sgap <= DECODE_PARITY_BAND:
+                        raise AssertionError(
+                            f"{arch} reduced: the stepped prefill gives "
+                            f"other tokens or logits {sgap:.3g} apart")
+            if D.serve.chunkable(cfg):
+                spec = D.PageSpec(page_len=16, pages_per_slot=4, n_slots=2)
+                eng = D.ServeEngine(cfg, p_card, spec=spec,
+                                    prefill_chunk=16, device="cuda")
+                recs = eng.serve([D.Request(rid=i, tokens=tuple(
+                    tok[i].tolist()), max_new=gen) for i in range(2)])
+                rec["paged_agree"].append(all(
+                    r.tokens == card_t[i, plen:].tolist()
+                    for i, r in enumerate(recs)))
+        out[arch] = rec
+        log(f"decode parity {arch} reduced ({layers} layers, f32, {plen} + "
+            f"{gen}), card vs CPU: tokens equal, logit gap "
+            f"{rec['logit_gap']:.3g} (band {DECODE_PARITY_BAND:g}, logits up "
+            f"to {rec['logit_max']:.2f}); launches {rec['launches']}"
+            + (f"; stepped vs chunked prefill {rec['stepped_gap']:.3g}; "
+               f"static vs paged engine tokens agree in "
+               f"{sum(rec['paged_agree'])} of {len(rec['paged_agree'])} "
+               "draws" if "stepped_gap" in rec else ""))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -3301,6 +3764,44 @@ def main() -> int:
     b3["variants"].extend(batched_recs)
     b3["launches"] += tuned[WORKER] + tuned[BATCHED]
     b3["max_abs_err"] = max(r["max_abs_err"] for r in b3["variants"])
+
+    # 21. the static decode: B5 on the strided layer cache and B4's query
+    # offset against their plain versions, the full-width decode paths,
+    # card vs CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.launch import serve as serve_launch
+    D = SimpleNamespace(FD=FD, FA=FA, SSD=SSD, WKV=WKV, models=models,
+                        get_config=get_config, reduced=reduced, layout=layout,
+                        tree_leaves=tree_leaves, tree_map=tree_map,
+                        serve=serve_launch, ServeEngine=S.ServeEngine,
+                        PageSpec=S.PageSpec, Request=S.Request)
+    b5_recs = b5_static_phase(D, rate)
+    b4_recs = b4_offset_phase(D, rate)
+    log(f"[{time.perf_counter() - t_start:.0f} s] B5 strided / B4 offset "
+        "checked")
+    report["decode"], dec_launches = decode_phase(D)
+    log(f"[{time.perf_counter() - t_start:.0f} s] static decode main path "
+        "done")
+    report["decode_parity"] = decode_parity_phase(D)
+    log(f"[{time.perf_counter() - t_start:.0f} s] decode parity done")
+    # B5's line: the static decode path's form (phi3 geometry, bf16 q and
+    # (B, S, KV, hd) cache), its launches those of phase 21 (b); B4 adds
+    # its chunked prefills there to phase 15's count
+    b5 = next(entry for entry in line if entry["name"] == "flash_decode")
+    main = next(r for r in b5_recs if r["shape"] == B5_SHAPES[0][0] and
+                r["q"] == "bfloat16" and r["cache"] == "bfloat16" and
+                "ms" in r)
+    b5.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")})
+    b5["launches"] = dec_launches["flash_decode"]
+    b5["variants"].extend(b5_recs)
+    b4 = next(entry for entry in line if entry["name"] == "flash_attention")
+    b4["launches"] += dec_launches["flash_attention"]
+    b4["variants"].extend(b4_recs)
+    for entry in (b4, b5):
+        entry["max_abs_err"] = max(r["max_abs_err"]
+                                   for r in entry["variants"])
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:

@@ -1,5 +1,5 @@
-"""Carry weights, optimizer state and flat buffers across from the JAX
-package.
+"""Carry weights, optimizer state, decode caches and flat buffers across
+from the JAX package.
 
 The caller hands numpy arrays (for a JAX tree,
 ``jax.tree_util.tree_map(np.asarray, params)``); nothing here imports
@@ -90,6 +90,38 @@ def lm_params_from_numpy(tree, cfg, device=None):
                                  f"layers holds a leaf of shape "
                                  f"{np.shape(leaf)}")
     return params_from_numpy(tree, device)
+
+
+_CACHE_KEYS = {"attn": {"k", "v"}, "shared_attn": {"k", "v"},
+               "mamba2": {"h", "conv"},
+               "rwkv6": {"wkv", "shift_t", "shift_c"}}
+
+
+def cache_from_numpy(tree, cfg, device=None):
+    """The JAX package's decode cache (``init_cache`` of
+    ``repro.models.transformer`` or one a decode step returned, as a list
+    of numpy dicts) -> the port's on ``device`` (``None`` means the card),
+    leaf for leaf; this checks each segment's keys and leading count
+    against ``layout(cfg)``."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.transformer import layout
+    segs = layout(cfg)
+    if len(tree) != len(segs):
+        raise ValueError(f"{len(tree)} cache segments for {cfg.name}, whose "
+                         f"layout has {len(segs)}")
+    for seg, c in zip(segs, tree):
+        count = 1 if seg.kind == "shared_attn" else seg.count
+        if set(c) != _CACHE_KEYS[seg.kind] or any(
+                np.shape(leaf)[0] != count for leaf in tree_leaves(c)):
+            raise ValueError(f"a {seg.kind} segment of {count} layers holds "
+                             f"{ {k: np.shape(a) for k, a in c.items()} }")
+    return params_from_numpy(tree, device)
+
+
+def cache_to_numpy(tree):
+    """The port's decode cache -> the reference's tree of numpy arrays
+    (bf16 leaves as ``ml_dtypes``' bfloat16, bit for bit)."""
+    return params_to_numpy(tree)
 
 
 def opt_state_from_numpy(state, device=None):

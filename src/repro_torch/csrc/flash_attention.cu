@@ -5,8 +5,10 @@
 // src/repro/kernels/flash_attention.py (B4, :83; _kernel :28).  For each
 // (b, query head h) with KV head g = h / n_rep:
 //     o_i = Σ_j softmax_j(q_i·k_j · hd^-0.5) · v_j
-// over the keys j < sk with, when causal, j <= i and (window > 0) i − j <
-// window (query and key positions both count from 0).  q (B, H, Sq, hd),
+// over the keys j < sk with, when causal, j <= p_i and (window > 0) p_i − j
+// < window, where query i sits at position p_i = q_offset + i and keys
+// count from 0 (q_offset 0, Sq = Sk: the prefill; q_offset = pos over the
+// first pos + Sq keys: a chunk behind a KV cache).  q (B, H, Sq, hd),
 // k and v (B, KV, Sk, hd), all one dtype (f32 or bf16); scores, softmax and
 // the product with v in f32; the output (B, H, Sq, hd) in q's dtype,
 // rounded once.  Masked scores are −1e30, as the TPU kernel's, so a row
@@ -89,7 +91,7 @@ __global__ void __launch_bounds__(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int n_heads,
                  int kv_heads, int sq, int sk, int causal, int window,
-                 float scale) {
+                 int q_offset, float scale) {
   static_assert(HD % 16 == 0, "a thread owns hd/16 output columns");
   constexpr int kCols = HD / 16;
   extern __shared__ __align__(16) float smem[];
@@ -114,11 +116,13 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  : 0.f;
   }
 
-  // the key tiles some row of this query tile attends to
+  // the key tiles some row of this query tile attends to (row r sits at
+  // position q_offset + r)
+  const int p0 = q_offset + q0;
   int kt_lo = 0, kt_hi = (sk + kBk - 1) / kBk - 1;
   if (causal) {
-    kt_hi = min(kt_hi, (q0 + kBq - 1) / kBk);
-    if (window > 0) kt_lo = max(0, q0 - window + 1) / kBk;
+    kt_hi = min(kt_hi, (p0 + kBq - 1) / kBk);
+    if (window > 0) kt_lo = max(0, p0 - window + 1) / kBk;
   }
 
   float o[4][kCols], m[4], l[4];
@@ -160,14 +164,15 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // mask, then the online softmax of each of the thread's four rows
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+      const int qpos = p0 + ty * 4 + i;
       float mx = m[i];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx * 4 + j;
         if (key >= sk)
           s[i][j] = -INFINITY;
-        else if (causal && (key > row || (window > 0 && row - key >= window)))
+        else if (causal &&
+                 (key > qpos || (window > 0 && qpos - key >= window)))
           s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -273,7 +278,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ out, int n_heads,
                        int kv_heads, int sq, int sk, int causal, int window,
-                       float scale) {
+                       int q_offset, float scale) {
   using hopper::desc_sw32;
   using W = Tile<HD>;
   constexpr int kChunks = W::kChunks;
@@ -290,11 +295,13 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = qi * kBq;
   const int qmat = b * n_heads + h, kmat = b * kv_heads + g;
 
-  // the key tiles some row of this query tile attends to
+  // the key tiles some row of this query tile attends to (row r sits at
+  // position q_offset + r)
+  const int p0 = q_offset + q0;
   int kt_lo = 0, kt_hi = (sk + kBk - 1) / kBk - 1;
   if (causal) {
-    kt_hi = min(kt_hi, (q0 + kBq - 1) / kBk);
-    if (window > 0) kt_lo = max(0, q0 - window + 1) / kBk;
+    kt_hi = min(kt_hi, (p0 + kBq - 1) / kBk);
+    if (window > 0) kt_lo = max(0, p0 - window + 1) / kBk;
   }
   const int n_tiles = kt_hi - kt_lo + 1;
 
@@ -350,18 +357,19 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // scale in f32; mask only a tile that holds a masked pair
       const bool edge =
           k0 + kBk > sk ||
-          (causal && (k0 + kBk - 1 > q0 ||
-                      (window > 0 && q0 + kBq - 1 - k0 >= window)));
+          (causal && (k0 + kBk - 1 > p0 ||
+                      (window > 0 && p0 + kBq - 1 - k0 >= window)));
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int i = 0; i < kBk / 2; ++i) {
         float x = s[i] * scale;
         if (edge) {
-          const int row = row0 + 8 * ((i / 2) % 2);
+          const int qpos = q_offset + row0 + 8 * ((i / 2) % 2);
           const int key = k0 + 8 * (i / 4) + col0 + i % 2;
           if (key >= sk)
             x = -INFINITY;
-          else if (causal && (key > row || (window > 0 && row - key >= window)))
+          else if (causal &&
+                   (key > qpos || (window > 0 && qpos - key >= window)))
             x = kNegInf;
         }
         s[i] = x;
@@ -443,7 +451,8 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int HD>
 int launch_f32_hd(const void* q, const void* k, const void* v, void* out,
                   int b, int h, int kv, int sq, int sk, int causal,
-                  int window, float scale, cudaStream_t stream) {
+                  int window, int q_offset, float scale,
+                  cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   // above 48 KB a block's dynamic shared memory needs this opt-in (it
   // holds for the current device, so it is set at every launch)
@@ -455,14 +464,15 @@ int launch_f32_hd(const void* q, const void* k, const void* v, void* out,
   attention_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), h, kv, sq, sk,
-      causal, window, scale);
+      causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_bf16_hd(const void* q, const void* k, const void* v, void* out,
                    int b, int h, int kv, int sq, int sk, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, int q_offset, float scale,
+                   cudaStream_t stream) {
   using W = tc::Tile<HD>;
   CUtensorMap tq, tk, tv;
   if (!hopper_host::bf16_map_sw32(&tq, q, b * h, sq, HD, tc::kBq) ||
@@ -477,7 +487,7 @@ int launch_bf16_hd(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((sq + tc::kBq - 1) / tc::kBq, h, b);
   tc::attention_wgmma_kernel<HD><<<grid, tc::kThreads, W::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), h, kv, sq, sk, causal,
-      window, scale);
+      window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -485,23 +495,26 @@ int launch_bf16_hd(const void* q, const void* k, const void* v, void* out,
 
 // q and out (b, h, sq, hd), k and v (b, kv, sk, hd), one dtype (1 = bf16,
 // 0 = f32); bf16 pointers 16-byte aligned.  hd in {32, 64, 80, 96, 128,
-// 256}; h a multiple of kv.  Returns cudaGetLastError() (or
-// cudaErrorInvalidValue for arguments it does not take).
+// 256}; h a multiple of kv.  Query i sits at position q_offset + i (keys
+// count from 0): q_offset 0 with sq == sk is the prefill, q_offset = pos
+// over the first pos + sq keys a chunk behind a cache.  Returns
+// cudaGetLastError() (or cudaErrorInvalidValue for arguments it does not
+// take).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int b, int h,
                                      int kv, int sq, int sk, int hd,
-                                     int causal, int window, float scale,
-                                     int bf16, void* stream) {
+                                     int causal, int window, int q_offset,
+                                     float scale, int bf16, void* stream) {
   if (b < 1 || b > 65535 || h < 1 || h > 65535 || kv < 1 || h % kv != 0 ||
-      sq < 1 || sk < 1)
+      sq < 1 || sk < 1 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_ATTN(HH)                                                      \
   case HH:                                                                  \
     return bf16 ? launch_bf16_hd<HH>(q, k, v, out, b, h, kv, sq, sk,        \
-                                     causal, window, scale, s)              \
+                                     causal, window, q_offset, scale, s)    \
                 : launch_f32_hd<HH>(q, k, v, out, b, h, kv, sq, sk, causal, \
-                                    window, scale, s)
+                                    window, q_offset, scale, s)
   switch (hd) {
     REPRO_ATTN(32);
     REPRO_ATTN(64);

@@ -3,7 +3,9 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_decode.py:
 //   flash_decode        (B5, :99)  — _kernel (:30): q (B, H, 1, hd) over a
-//       contiguous cache (B, KV, S, hd), one scalar position `pos`;
+//       cache (B, KV, S, hd) read through its strides (the reference's
+//       contiguous (B, KV, S, hd) form, or the (B, S, KV, hd) layer cache
+//       of the models' decode step, in place), one scalar position `pos`;
 //   flash_decode_paged  (B6, :192) — _paged_kernel (:149): q (S, H, 1, hd)
 //       over a page pool (P, page_len, KV, hd) through a page table (S, PP)
 //       int32 and per-row lengths (S,) int32.
@@ -31,13 +33,20 @@
 // 3.35 TB/s of an H100 SXM, against ~25 Mflop.  Both designs therefore
 // stream K and V once and keep the rest on chip.
 //
-// B5 (decode_kernel<…, ContigRows>): one block of 32 warps per (row, query
+// B5 (decode_kernel<QT, KT, kTail>): one block of 32 warps per (row, query
 // head); the warps take pairs of consecutive keys in turn with plain
 // global loads, a warp splits hd over its lanes (lane l holds dims
-// l + 32·e: coalesced rows), warp-reduces the dot products with shuffles
-// and keeps a running max, sum and f32 hd-vector (the online softmax); at
-// the end the warps' states merge in shared memory.  With GQA each KV head
-// is read by its n_rep query heads' blocks, through L2.
+// l + 32·e: coalesced rows; when hd is a multiple of 16 but not of 32 —
+// zamba2-2.7b's 80 — the lanes past hd in the last chunk hold zeros and
+// load nothing, a per-lane check compiled in only then, kTail: in every
+// chunk it made the bf16 kernel measurably slower),
+// warp-reduces the dot products with shuffles and keeps a running max, sum
+// and f32 hd-vector (the online softmax); at the end the warps' states
+// merge in shared memory.  Key j of (row b, KV head g) starts at element
+// b·sb + g·sg + j·sj of the cache (StridedRows), so the models' (B, S, KV,
+// hd) layer cache is read where it lies, one row stride per key, with no
+// transposed copy.  With GQA each KV head is read by its n_rep query
+// heads' blocks, through L2.
 //
 // B6 (paged_kernel): a split-key decode over thread-block clusters.
 //   * One cluster of C blocks (C in {1, 2, 4, 8}, chosen by the wrapper
@@ -95,31 +104,40 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// B5: cache (B, KV, S, hd); element offset of key j of (row b, kv head g)
-struct ContigRows {
-  int kv_heads, seq, hd;
+// B5: element offset of key j of (row b, kv head g) in a cache read
+// through its strides (the last dimension contiguous); the key stride fits
+// 32 bits, so a key's offset is one 32 x 32 -> 64-bit multiply-add (a
+// 64 x 64-bit product in the key loop made the kernel measurably slower)
+struct StridedRows {
+  int64_t sb, sg;
+  int sj;
   __device__ __forceinline__ int64_t offset(int b, int g, int j) const {
-    return ((static_cast<int64_t>(b) * kv_heads + g) * seq + j) * hd;
+    return b * sb + g * sg + static_cast<int64_t>(j) * sj;
   }
 };
 
-template <typename QT, typename KT>
+// kTail: hd is no multiple of 32, so the last 32-dim chunk is partial and
+// each lane checks that its dim exists (the other chunks' guard stays
+// uniform across the warp)
+template <typename QT, typename KT, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
-              const KT* __restrict__ vc, QT* __restrict__ out, ContigRows rows,
+              const KT* __restrict__ vc, QT* __restrict__ out, StridedRows rows,
               int pos, int n_heads, int n_rep, int hd, int n_keys, int window,
               float scale) {
   const int h = blockIdx.x, b = blockIdx.y, g = h / n_rep;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_e = hd >> 5;
   const int hi = min(pos, n_keys - 1);
   const int lo = window > 0 ? max(0, pos - window + 1) : 0;
+  const int n_e = (hd + 31) >> 5;   // chunks of 32 dims: lane l holds l + 32·e
+  const bool tail = !kTail || lane + 32 * (n_e - 1) < hd;
+  auto has = [&](int e) { return e < n_e && (e < n_e - 1 || tail); };
 
   const QT* qrow = q + (static_cast<int64_t>(b) * n_heads + h) * hd;
   float qf[kMaxE], acc[kMaxE];
 #pragma unroll
   for (int e = 0; e < kMaxE; ++e) {
-    qf[e] = e < n_e ? load_f32(qrow, lane + 32 * e) * scale : 0.f;
+    qf[e] = has(e) ? load_f32(qrow, lane + 32 * e) * scale : 0.f;
     acc[e] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -132,7 +150,7 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
       const int64_t off = live ? rows.offset(b, g, base + c) : 0;
 #pragma unroll
       for (int e = 0; e < kMaxE; ++e) {
-        const bool on = live && e < n_e;
+        const bool on = live && has(e);
         kf[c][e] = on ? load_f32(kc, off + lane + 32 * e) : 0.f;
         vf[c][e] = on ? load_f32(vc, off + lane + 32 * e) : 0.f;
       }
@@ -182,7 +200,7 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
   }
 #pragma unroll
   for (int e = 0; e < kMaxE; ++e)
-    if (e < n_e) sm_acc[warp][lane + 32 * e] = acc[e];
+    if (has(e)) sm_acc[warp][lane + 32 * e] = acc[e];
   __syncthreads();
   float m_all = -INFINITY;
 #pragma unroll
@@ -203,26 +221,32 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
 }
 
 int launch(const void* q, const void* k, const void* v, void* out,
-           ContigRows rows, int pos, int n_rows, int n_heads, int kv_heads,
+           StridedRows rows, int pos, int n_rows, int n_heads, int kv_heads,
            int hd, int n_keys, int window, float scale, int q_bf16,
            int kv_bf16, cudaStream_t stream) {
-  if (hd < 32 || hd > 32 * kMaxE || hd % 32 != 0 || kv_heads < 1 ||
+  if (hd < 16 || hd > 32 * kMaxE || hd % 16 != 0 || kv_heads < 1 ||
       n_heads % kv_heads != 0 || n_rows < 1 || n_rows > 65535 ||
       n_keys < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_heads, n_rows);
   const int n_rep = n_heads / kv_heads;
   using bf16 = __nv_bfloat16;
-#define REPRO_DECODE(QT, KT)                                                \
-  decode_kernel<QT, KT><<<grid, kThreads, 0, stream>>>(                     \
+#define REPRO_DECODE_TAIL(QT, KT, TAIL)                                     \
+  decode_kernel<QT, KT, TAIL><<<grid, kThreads, 0, stream>>>(               \
       static_cast<const QT*>(q), static_cast<const KT*>(k),                 \
       static_cast<const KT*>(v), static_cast<QT*>(out), rows, pos, n_heads, \
       n_rep, hd, n_keys, window, scale)
+#define REPRO_DECODE(QT, KT)                                                \
+  do {                                                                      \
+    if (hd % 32) REPRO_DECODE_TAIL(QT, KT, true);                           \
+    else REPRO_DECODE_TAIL(QT, KT, false);                                  \
+  } while (0)
   if (q_bf16 && kv_bf16) REPRO_DECODE(bf16, bf16);
   else if (q_bf16) REPRO_DECODE(bf16, float);
   else if (kv_bf16) REPRO_DECODE(float, bf16);
   else REPRO_DECODE(float, float);
 #undef REPRO_DECODE
+#undef REPRO_DECODE_TAIL
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -564,14 +588,18 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// B5.  q (b, h, 1, hd), k/v (b, kv, seq, hd), out like q; dtypes by flag
-// (1 = bf16, 0 = f32).  Returns cudaGetLastError().
+// B5.  q (b, h, 1, hd) contiguous, out like q; k and v (b, kv, seq, hd)
+// read through the element strides (sb, sg, sj) of their first three
+// dimensions, the last one contiguous; hd a multiple of 16 up to 256;
+// dtypes by flag (1 = bf16, 0 = f32).  Returns cudaGetLastError().
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   void* out, int b, int h, int kv, int seq,
                                   int hd, int pos, int window, float scale,
-                                  int q_bf16, int kv_bf16, void* stream) {
-  return launch(q, k, v, out, ContigRows{kv, seq, hd}, pos, b, h, kv, hd, seq,
-                window, scale, q_bf16, kv_bf16,
+                                  int q_bf16, int kv_bf16, long long sb,
+                                  long long sg, long long sj, void* stream) {
+  if (sj < 1 || sj > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, out, StridedRows{sb, sg, static_cast<int>(sj)}, pos,
+                b, h, kv, hd, seq, window, scale, q_bf16, kv_bf16,
                 static_cast<cudaStream_t>(stream));
 }
 

@@ -4,8 +4,13 @@
 (``csrc/flash_attention.cu``) in place of the reference's Pallas TPU
 kernel (``kernels/flash_attention.py`` ``flash_attention``): q
 ``(B, H, Sq, hd)`` against k, v ``(B, KV, Sk, hd)`` with the KV head
-``h // n_rep``, query and key positions both from 0, masked to ``j <= i``
-(and ``i − j < window`` when ``window > 0``) when ``causal``; scores,
+``h // n_rep``, query ``i`` at position ``q_offset + i`` and keys from 0,
+masked to ``j <= q_offset + i`` (and ``q_offset + i − j < window`` when
+``window > 0``) when ``causal``.  ``q_offset = 0`` is the prefill (the
+TPU kernel's only form); ``q_offset = pos`` over the first ``pos + Sq``
+keys is a chunk of queries behind a KV cache (``models.transformer
+.decode_attention_dyn``), held against the reference's einsum form
+there, as the TPU kernel has no offset.  Scores,
 softmax and the product with v in f32, the output in q's dtype.  It skips
 key tiles wholly above the diagonal or before the window, and takes any
 ``Sq``/``Sk`` (the TPU kernel asks for multiples of its block).
@@ -47,16 +52,18 @@ def _lib():
     lib = library("flash_attention")
     if not getattr(lib, "_repro_bound", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_flash_attention.argtypes = [vp] * 4 + [i32] * 8 + [
+        lib.repro_flash_attention.argtypes = [vp] * 4 + [i32] * 9 + [
             ctypes.c_float, i32, vp]
         lib.repro_flash_attention.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
     """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) with H a multiple of KV,
-    one dtype (f32 or bf16).  Returns (B, H, Sq, hd) in q's dtype (B4)."""
+    one dtype (f32 or bf16); ``q_offset``: a host int >= 0, the position
+    of query 0.  Returns (B, H, Sq, hd) in q's dtype (B4)."""
     name = "flash_attention"
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
@@ -70,11 +77,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if q.dtype not in _c.FLOATS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: q, k, v must share one dtype, float32 or "
                          f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
-    window = int(window)
+    if isinstance(q_offset, torch.Tensor) or int(q_offset) != q_offset \
+            or q_offset < 0:
+        raise ValueError(f"{name}: q_offset must be a host int >= 0, got "
+                         f"{q_offset!r}")
+    window, q_offset = int(window), int(q_offset)
     variant = _c.variant_of(q)
     if q.device.type == "cpu":
         _COUNTS.plain(name, variant)
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} is not one of {HEAD_DIMS}")
     _c.check_launchable(name, q, k, v)
@@ -84,7 +96,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     out = torch.empty_like(q)
     err = _lib().repro_flash_attention(
         _c.ptr(q), _c.ptr(k), _c.ptr(v), _c.ptr(out), b, h, kvh, sq, sk, hd,
-        int(bool(causal)), window, hd ** -0.5, int(q.dtype == torch.bfloat16),
+        int(bool(causal)), window, q_offset, hd ** -0.5,
+        int(q.dtype == torch.bfloat16),
         _c.stream_of(q))
     _c.raise_on(err, name)
     _COUNTS.launch(name, variant)

@@ -3,15 +3,20 @@
 Two kernels, hand-written in CUDA for Hopper (``csrc/flash_decode.cu``),
 replace the reference's Pallas TPU kernels:
 
-  * ``flash_decode`` (B5) — q ``(B, H, 1, hd)`` over a contiguous cache
-    ``(B, KV, S, hd)`` and one position ``pos``;
+  * ``flash_decode`` (B5) — q ``(B, H, 1, hd)`` over a cache
+    ``(B, KV, S, hd)`` of any strides with a contiguous last dimension
+    (the reference's contiguous form, or the ``transpose(1, 2)`` view of
+    the models' ``(B, S, KV, hd)`` layer cache, read in place) and one
+    position ``pos``; head dims a multiple of 16 up to 256;
   * ``flash_decode_paged`` (B6) — q ``(S, H, 1, hd)`` over a page pool
     ``(P, page_len, KV, hd)`` through a page table ``(S, PP)`` and
     per-row ``lengths`` ``(S,)``: the paged serve step's decode attention.
     One launch splits each row's live keys over the blocks of a
     thread-block cluster (``cluster_size``), each block staging its keys in
     shared memory, and the cluster's leader merges the partial softmax
-    states through distributed shared memory.
+    states through distributed shared memory; head dims a multiple of 32
+    up to 256 (its 16-byte row chunks and 4-lane key split are laid out
+    for that).
 
 Both attend to the keys ``j <= pos`` (and ``j > pos - window`` when
 ``window > 0``), with the KV head ``h // n_rep`` (GQA), softmax in f32,
@@ -147,7 +152,7 @@ def paged_decode_ref(q, k_pages, v_pages, page_table, lengths, *,
 
 
 # -- checks and the library ---------------------------------------------------
-def _check_qkv(name, q, k, v, n_kv_heads: int):
+def _check_qkv(name, q, k, v, n_kv_heads: int, hd_step: int):
     if q.dim() != 4 or q.shape[2] != 1:
         raise ValueError(f"{name}: q must be (rows, H, 1, hd), got "
                          f"{tuple(q.shape)}")
@@ -163,9 +168,9 @@ def _check_qkv(name, q, k, v, n_kv_heads: int):
     if n_kv_heads < 1 or h % n_kv_heads:
         raise ValueError(f"{name}: {h} query heads over {n_kv_heads} KV "
                          "heads")
-    if hd % 32 or not 32 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {hd} is not a multiple of 32 "
-                         f"up to {MAX_HEAD_DIM}")
+    if hd % hd_step or not hd_step <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {hd} is not a multiple of "
+                         f"{hd_step} up to {MAX_HEAD_DIM}")
     for t in (k, v):
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
@@ -184,8 +189,9 @@ def _lib():
     lib = library("flash_decode")
     if not getattr(lib, "_repro_bound", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        i64 = ctypes.c_longlong
         lib.repro_flash_decode.argtypes = [vp, vp, vp, vp] + [i32] * 7 + [
-            f32, i32, i32, vp]
+            f32, i32, i32, i64, i64, i64, vp]
         lib.repro_flash_decode.restype = ctypes.c_int
         lib.repro_flash_decode_paged.argtypes = [vp] * 6 + [i32] * 8 + [
             f32, i32, i32, i32, vp]
@@ -200,12 +206,15 @@ def _is_bf16(t: torch.Tensor) -> int:
 
 # -- wrappers ----------------------------------------------------------------
 def flash_decode(q, k_cache, v_cache, pos: int, *, window: int = 0):
-    """q: (B, H, 1, hd); k_cache/v_cache: (B, KV, S, hd); ``pos``: host
-    int, the index of the newest token (keys ``0..pos`` attend, within the
-    last ``window`` when ``window > 0``).  Returns (B, H, 1, hd) in q's
-    dtype (B5).  ``pos`` must be ``>= 0``."""
+    """q: (B, H, 1, hd); k_cache/v_cache: (B, KV, S, hd), one layout (the
+    same strides; the last dimension contiguous; e.g. ``cache.transpose(1,
+    2)`` of a ``(B, S, KV, hd)`` cache, which the kernel reads in place);
+    ``pos``: host int, the index of the newest token (keys ``0..pos``
+    attend, within the last ``window`` when ``window > 0``).  Returns (B,
+    H, 1, hd) in q's dtype (B5).  ``pos`` must be ``>= 0``; hd a multiple
+    of 16 up to 256."""
     name = "flash_decode"
-    _check_qkv(name, q, k_cache, v_cache, k_cache.shape[1])
+    _check_qkv(name, q, k_cache, v_cache, k_cache.shape[1], 16)
     if k_cache.dim() != 4 or k_cache.shape[0] != q.shape[0]:
         raise ValueError(f"{name}: caches must be (B, KV, S, hd) with q's "
                          f"B, got {tuple(k_cache.shape)}")
@@ -218,14 +227,23 @@ def flash_decode(q, k_cache, v_cache, pos: int, *, window: int = 0):
         return _xla_decode(q, k_cache, v_cache, pos, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no {name} kernel for {q.device}")
-    _contiguous(name, q, k_cache, v_cache)
+    _contiguous(name, q)
+    for label, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _c.check_last_contiguous(name, label, t)
+    strides = _c.strides_of(k_cache, (0, 1, 2))
+    if _c.strides_of(v_cache, (0, 1, 2)) != strides:
+        raise ValueError(f"{name}: k and v caches must share one layout; got "
+                         f"strides {k_cache.stride()} and {v_cache.stride()}")
+    if not 0 < strides[2] < 2 ** 31:
+        raise ValueError(f"{name}: the kernel takes a key stride of 1 to "
+                         f"2^31 - 1 elements; got {strides[2]}")
     b, h, _, hd = q.shape
     kvh, s = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
     err = _lib().repro_flash_decode(
         _c.ptr(q), _c.ptr(k_cache), _c.ptr(v_cache), _c.ptr(out), b, h, kvh,
         s, hd, pos, window, hd ** -0.5, _is_bf16(q), _is_bf16(k_cache),
-        _c.stream_of(q))
+        *strides, _c.stream_of(q))
     _c.raise_on(err, name)
     _COUNTS.launch(name, variant)
     return out
@@ -254,7 +272,7 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
     if split is not None and split not in CLUSTER_SIZES:
         raise ValueError(f"{name}: split must be one of {CLUSTER_SIZES} or "
                          f"None, got {split!r}")
-    _check_qkv(name, q, k_pages, v_pages, k_pages.shape[2])
+    _check_qkv(name, q, k_pages, v_pages, k_pages.shape[2], 32)
     ns = q.shape[0]
     if k_pages.dim() != 4:
         raise ValueError(f"{name}: pages must be (P, page_len, KV, hd), got "

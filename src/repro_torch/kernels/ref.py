@@ -29,10 +29,10 @@ def dbl_merge_unfused(p, g_large, g_small, *, factor, lr):
     return tree_map(lambda w, s: (w.float() - lr * s).to(w.dtype), p, step)
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     """q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd) -> (B,H,Sq,hd). Naive softmax of
-    the NEG_INF-masked f32 scores (query and key positions both from 0),
-    cast to q's dtype."""
+    the NEG_INF-masked f32 scores (query i at position q_offset + i, keys
+    from 0; the reference's oracle has q_offset 0), cast to q's dtype."""
     b, h, sq, hd = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     n_rep = h // kvh
@@ -40,7 +40,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     v = torch.repeat_interleave(v, n_rep, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * hd ** -0.5
     if causal:
-        qp = torch.arange(sq, device=q.device)[:, None]
+        qp = q_offset + torch.arange(sq, device=q.device)[:, None]
         kp = torch.arange(sk, device=q.device)[None, :]
         mask = qp >= kp
         if window > 0:

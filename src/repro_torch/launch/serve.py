@@ -1,4 +1,14 @@
-"""Serving from the command line: continuous batching through ``ServeEngine``.
+"""Serving from the command line: static batching (``generate``) or
+continuous batching through ``ServeEngine``.
+
+Static batching (``--engine static``, the default) runs one fixed batch
+to completion through ``generate``.  Its prefill is ONE chunked decode
+call for attention archs — the whole prompt enters the KV cache at once
+(B4 with its query offset in every layer on the card) — and steps token
+by token for recurrent state (mamba2 / rwkv6), which has no cache to
+chunk into; every generated token is one decode step (B5 in every
+attention layer on the card).  Greedy only: sampling waits for ROADMAP
+A18.
 
 ``--engine continuous`` hands a synthetic request stream to
 ``repro_torch.serve.ServeEngine``: paged KV cache, admission the moment
@@ -7,14 +17,16 @@ the card the hand-written paged decode kernel in every layer of every
 one-token decode tick.  ``--spec-k`` turns on draft-free speculative
 decode (n-gram prompt lookup, greedy only) and ``--prefix-share``
 copy-on-write prefix sharing.  ``--temperature``/``--top-k`` sampling
-and the static ``generate`` path (``--engine static``) are not ported
-yet and raise, naming their ROADMAP items (A18, A12).
+is not ported yet and raises, naming ROADMAP A18.
 
 As the reference's CLI, ``--reduced`` is on by default (``store_true``
 with default ``True``), so the CLI always serves the reduced model; a
-full-width run goes through ``ServeEngine`` directly (``chip_smoke.py``).
+full-width run calls ``generate`` or ``ServeEngine`` directly
+(``chip_smoke.py``).
 
 Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+      --batch 4 --prompt-len 32 --gen 16 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
       --requests 16 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
@@ -32,7 +44,54 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.configs.base import MAMBA2, RWKV6
 from repro_torch.device import resolve_device
+from repro_torch.launch.steps import make_decode_step
+
+
+def chunkable(cfg) -> bool:
+    """Whole-prompt (T = P) prefill works iff every layer carries a KV
+    cache — recurrent segments must consume tokens one step at a time."""
+    if cfg.encoder_layers:
+        return False
+    from repro_torch.models.transformer import layout
+    return all(s.kind not in (MAMBA2, RWKV6) for s in layout(cfg))
+
+
+def generate(cfg, params, prompts, *, gen: int, max_seq: int, greedy=True,
+             rng=None, stepped_prefill: bool = False,
+             return_logits: bool = False):
+    """prompts: (B, P) int tensor on the params' device.  Returns (B, P +
+    gen) tokens in the prompts' dtype (and, with ``return_logits``, the
+    (B, gen, V) logits each generated token was the argmax of).
+
+    Attention archs prefill in ONE chunked decode call; recurrent archs —
+    or ``stepped_prefill=True`` — step token by token.  Greedy only:
+    ``greedy=False`` (the reference's threefry sampling with ``rng``)
+    waits for ROADMAP A18.  The loop reads nothing back from the card
+    until the end: each step's token is the argmax on the device."""
+    if not greedy:
+        raise NotImplementedError(
+            "sampled generation (greedy=False) needs the reference's "
+            "threefry streams: ROADMAP A18")
+    b, p = prompts.shape
+    cache = models.init_cache(cfg, b, max_seq, device=prompts.device)
+    decode = make_decode_step(cfg)
+    if stepped_prefill or not chunkable(cfg):
+        # prefill by stepping (the only correct path for recurrent state)
+        for t in range(p):
+            logits, cache = decode(params, cache, prompts[:, t:t + 1], t)
+    else:
+        logits, cache = decode(params, cache, prompts, 0)
+    out, seen = [prompts], []
+    for t in range(p, p + gen):
+        seen.append(logits)
+        nxt = torch.argmax(logits, dim=-1).to(prompts.dtype)[:, None]
+        out.append(nxt)
+        if t < p + gen - 1:
+            logits, cache = decode(params, cache, nxt, t)
+    toks = torch.cat(out, dim=1)
+    return (toks, torch.stack(seen, dim=1)) if return_logits else toks
 
 
 def _serve_continuous(cfg, params, args):
@@ -124,15 +183,30 @@ def run(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if args.engine == "static":
+    if args.engine == "static" and args.temperature > 0:
         raise NotImplementedError(
-            "--engine static needs the static generate path "
-            "(launch/steps.py, transformer.forward / decode_step), which "
-            "waits for ROADMAP A12; use --engine continuous")
+            "--temperature > 0 needs the reference's threefry streams: "
+            "ROADMAP A18")
     dev = resolve_device(args.device)
     params = models.init_params(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
-    return _serve_continuous(cfg, params, args)
+    if args.engine == "continuous":
+        return _serve_continuous(cfg, params, args)
+
+    prompts = torch.randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len),
+        generator=torch.Generator().manual_seed(args.seed)).to(dev)
+    t0 = time.time()
+    toks = generate(cfg, params, prompts, gen=args.gen,
+                    max_seq=args.prompt_len + args.gen,
+                    stepped_prefill=args.stepped_prefill)
+    sample = toks[0, :24].tolist()          # ends in the sync
+    dt = time.time() - t0
+    print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
+          f"gen={args.gen} on {dev}: {args.batch * args.gen / dt:.1f} tok/s "
+          f"({dt:.1f}s)")
+    print("sample:", sample)
+    return toks
 
 
 if __name__ == "__main__":

@@ -1,8 +1,5 @@
-"""Step functions shared by the entry points: the train step and the
-prefill step.
-
-``make_decode_step`` of the reference waits for the decode slice
-(ROADMAP A12b, A14)."""
+"""Step functions shared by the entry points: the train step, the
+prefill step and the decode step."""
 from __future__ import annotations
 
 import torch
@@ -43,3 +40,31 @@ def make_prefill_step(cfg: ModelConfig):
             logits = models.forward(params, cfg, tokens, last_only=True)
         return logits[:, 0]
     return prefill
+
+
+def make_decode_step(cfg: ModelConfig, shape=None):
+    """(params, cache, tokens, pos) -> (logits (B, V), cache).
+
+    tokens may be a chunk (B, T >= 1): attention archs take a whole
+    prompt or a chunk of one through the same step, and the returned
+    logits are those of the LAST chunk position — the classic one-token
+    decode when T = 1.  ``pos`` is a host int.  The cache is updated in
+    place (``models.decode_step``) and returned.  On the card it turns
+    TF32 off first (process-wide, as the prefill step does).
+
+    ``shape`` (an input shape whose window overrides the config's) needs
+    ``launch/specs.py``'s ``effective_window`` and
+    ``with_window_override``, which come with ROADMAP A12e."""
+    if shape is not None:
+        raise NotImplementedError(
+            "make_decode_step(shape=...) needs launch/specs.py "
+            "(effective_window, with_window_override): ROADMAP A12e")
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder decode waits for ROADMAP A12d")
+
+    def decode(params, cache, tokens, pos):
+        strict_f32(tokens.device)
+        logits, cache = models.decode_step(params, cfg, cache, tokens, pos)
+        return logits[:, -1], cache
+    return decode

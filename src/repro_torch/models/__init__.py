@@ -3,12 +3,15 @@
     init_params(cfg, gen, device=...)      -> params tree
     loss_fn(params, cfg, batch)            -> (loss, metrics)   [train]
     forward(...)                           -> logits            [prefill/eval]
+    init_cache(cfg, batch, max_seq, device=...) -> cache tree   [decode]
+    decode_step(params, cfg, cache, tok, pos)   -> (logits, cache)
 
 ``batch`` dicts carry an optional per-example ``weight`` — the hook used
 by dual-batch learning's model-update factor.  The CNN is ported whole,
 and so are the decoder-only LMs' (dense, SSM and hybrid stacks) init,
-forward and loss (``transformer``; MoE blocks raise until ROADMAP
-A12c/A19); the encoder-decoder models wait for A12d.
+forward, loss and decode (``transformer``; MoE blocks raise until ROADMAP
+A12c/A19); the encoder-decoder models wait for A12d.  ``decode_step``
+updates the cache in place and returns it.
 """
 from __future__ import annotations
 
@@ -41,3 +44,15 @@ def loss_fn(params, cfg, batch, **kw):
 
 def forward(params, cfg, *args, **kw):
     return _mod(cfg).forward(params, cfg, *args, **kw)
+
+
+def init_cache(cfg, batch, max_seq, dtype=None, device=None):
+    """``device=None`` means the card (raises without CUDA)."""
+    m = _mod(cfg)
+    if m is resnet:
+        raise ValueError("CNNs have no decode cache")
+    return m.init_cache(cfg, batch, max_seq, dtype, device=device)
+
+
+def decode_step(params, cfg, cache, tokens, pos, **kw):
+    return _mod(cfg).decode_step(params, cfg, cache, tokens, pos, **kw)

@@ -1,13 +1,13 @@
 """GQA attention: the prefill path (``chunked_attention`` and the
-self- and cross-attention sublayers built on it), head repetition and the
-q/k/v projection with RoPE.
+self- and cross-attention sublayers built on it), the single-token decode
+path (``decode_attention``), head repetition and the q/k/v projection
+with RoPE.
 
-``chunked_attention`` has two forms.  For CUDA tensors, when the keys
-are the queries' own (causal, ``q_offset == 0``, ``sq == sk``) or the
-attention is not causal, it launches the hand-written kernel B4
-(``kernels.flash_attention``) on ``(B, H, S, hd)`` copies of q, k and v;
-a causal call with an offset raises there (B4 places queries and keys
-from 0; attention behind a cache comes with ROADMAP A12).  On the CPU,
+``chunked_attention`` has two forms.  For CUDA tensors it launches the
+hand-written kernel B4 (``kernels.flash_attention``) on ``(B, H, S,
+hd)`` copies of q, k and v, query ``i`` at position ``q_offset + i``
+(the prefill's ``q_offset = 0``; a chunk behind a KV cache passes its
+position, ``models.transformer.decode_attention_dyn``).  On the CPU,
 and on any device when the caller asks for the training form
 (``train=True``: B4 has no backward), it runs the port of the
 reference's XLA scan, line for line, under autograd: an online
@@ -20,15 +20,18 @@ the product with v all in f32.  In f32 the two agree to a few 1e-5
 bf16 on the card the model therefore computes with f32 scores and f32
 ``p`` where the reference's scan rounds ``q·scale`` and ``p`` to bf16.
 
-The paged serve step has its own decode math (``serve.paged``); the
-reference's ``decode_attention`` waits for the decode slice (ROADMAP
-A14).
+``decode_attention`` is one query token over a ``(B, S, KV, hd)``
+cache: on the CPU the reference's einsum form line for line (f32 scores
+and softmax), on the card the kernel B5 (``kernels.flash_decode``),
+which reads the cache where it lies.  The paged serve step has its own
+decode math (``serve.paged``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.models.layers import apply_rope
 
 NEG_INF = -1e30
@@ -73,23 +76,17 @@ def chunked_attention(q, k, v, *, window: int = 0, causal: bool = True,
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.
     window: 0 (global) or a sliding window (applies when causal).
-    Returns (B, Sq, H, hd) in q's dtype.  Off the CPU this is B4, which
-    takes the keys as the queries' own or the attention as not causal,
-    unless ``train`` asks for the differentiable scan (see the module
+    q_offset: the position of query 0 (keys count from 0).
+    Returns (B, Sq, H, hd) in q's dtype.  Off the CPU this is B4, unless
+    ``train`` asks for the differentiable scan (see the module
     docstring)."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     window = int(window)
     if q.device.type != "cpu" and not train:
-        if causal and (q_offset != 0 or sq != sk):
-            raise NotImplementedError(
-                "causal attention with a query offset (q_offset "
-                f"{q_offset}, sq {sq}, sk {sk}) runs only on the CPU: B4 "
-                "places queries and keys from 0; attention behind a cache "
-                "comes with ROADMAP A12")
         t = lambda a: a.transpose(1, 2).contiguous()
         o = _fa.flash_attention(t(q), t(k), t(v), causal=causal,
-                                window=window)
+                                window=window, q_offset=q_offset)
         return o.transpose(1, 2)
     n_rep = h // kv
     k = gqa_expand(k, n_rep)
@@ -138,6 +135,35 @@ def chunked_attention(q, k, v, *, window: int = 0, causal: bool = True,
     _, l, acc = carry
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
+    """Single-token decode attention over a KV cache.
+
+    q: (B, 1, H, hd); k_cache/v_cache: (B, S, KV, hd); pos: host int (the
+    number of tokens already in the cache, i.e. the new token's index).
+    window: if > 0, attend only to the last ``window`` keys.  On CUDA
+    tensors this is B5 on the caches as they lie; on the CPU the
+    reference's einsum form (f32 scores, softmax and product)."""
+    if q.device.type != "cpu":
+        o = _fd.flash_decode(q.transpose(1, 2), k_cache.transpose(1, 2),
+                             v_cache.transpose(1, 2), pos, window=window)
+        return o.transpose(1, 2)
+    b, _, h, hd = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    n_rep = h // kvh
+    k = gqa_expand(k_cache, n_rep).float()
+    v = gqa_expand(v_cache, n_rep).float()
+    qf = q.float() * hd ** -0.5
+    scores = torch.einsum("bqhd,bshd->bhqs", qf, k)       # (B,H,1,S)
+    idx = torch.arange(s, device=q.device)
+    valid = idx <= pos
+    if window > 0:
+        valid = torch.logical_and(valid, idx > pos - window)
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", p, v)
+    return out.to(q.dtype)
 
 
 def attention_block(p, x, cfg, *, window: int = 0, positions=None,

@@ -1,5 +1,6 @@
-"""Mamba2 (SSD) block, prefill: the chunked SSD scan, the causal
-depthwise convolution and the block around them.
+"""Mamba2 (SSD) block: the chunked SSD scan, the causal depthwise
+convolution and the block around them (prefill), and the one-token
+recurrent step (decode).
 
 ``ssd_chunked`` is the reference's XLA scan line for line: within a chunk
 the output is a masked ``(C_i·B_j)·decay`` product, across chunks a
@@ -13,8 +14,10 @@ and C columns as they are) and takes y back as a view of ``(Bt, S, H,
 P)`` memory, so no copy is made on either side; on the CPU, and on any
 device when the caller asks for the training form (``train=True``: B7 has
 no backward), the block runs ``ssd_chunked`` under autograd.
-The one-token decode step (``ssd_decode_step``, ``mamba2_decode``) waits
-for the decode slice (ROADMAP A14).
+The one-token decode step (``ssd_decode_step``, ``mamba2_decode``) is
+the reference's plain ``jnp`` step in PyTorch on every device: an
+``(H, P, N)`` state update and a ``K − 1``-row convolution state per
+token need no kernel of their own.
 """
 from __future__ import annotations
 
@@ -85,6 +88,21 @@ def ssd_chunked(x, dt, A_log, B, C, D_skip, *, chunk: int, h0=None):
     return y.to(x.dtype), hprev
 
 
+def ssd_decode_step(h, x, dt, A_log, B, C, D_skip):
+    """One recurrent SSD step.
+
+    h: (Bt, H, P, N) f32; x: (Bt, H, P); dt: (Bt, H); B, C: (Bt, N).
+    Returns y (Bt, H, P) in x's dtype and the new state (f32)."""
+    a = -torch.exp(A_log.float())
+    alpha = torch.exp(dt.float() * a)                           # (Bt,H)
+    xin = x.float() * dt.float()[..., None]
+    hnew = h * alpha[..., None, None] \
+        + torch.einsum("bhp,bn->bhpn", xin, B.float())
+    y = torch.einsum("bhpn,bn->bhp", hnew, C.float())
+    y = y + x.float() * D_skip.float()[None, :, None]
+    return y.to(x.dtype), hnew
+
+
 def causal_conv1d(x, w, b, *, state=None):
     """Depthwise causal conv. x: (Bt, S, Ch); w: (K, Ch); b: (Ch,).
 
@@ -140,6 +158,26 @@ def mamba2_block(p, x, cfg, *, train: bool = False):
     y = y.reshape(bt, s, d_in) * F.silu(z)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps)
     return y @ p["w_out"]
+
+
+def mamba2_decode(p, x, cfg, state):
+    """One decode step.  x: (Bt, 1, D); state: {"h": (Bt, H, P, N) f32,
+    "conv": (Bt, K-1, d_in + 2N)}.  Returns (Bt, 1, D) and the new state
+    (fresh tensors; the caller's state is not touched)."""
+    s_cfg = cfg.ssm
+    bt = x.shape[0]
+    z, xs, Bv, Cv, dt, d_in, n, nh = mamba2_split(p, x, cfg)
+    conv_in = torch.cat([xs, Bv, Cv], dim=-1)
+    conv_out, conv_state = causal_conv1d(conv_in, p["conv_w"], p["conv_b"],
+                                         state=state["conv"])
+    conv_out = F.silu(conv_out)
+    xs, Bv, Cv = torch.split(conv_out, [d_in, n, n], dim=-1)
+    xh = xs[:, 0].reshape(bt, nh, s_cfg.head_dim)
+    y, h = ssd_decode_step(state["h"], xh, dt[:, 0], p["A_log"],
+                           Bv[:, 0], Cv[:, 0], p["D"])
+    y = y.reshape(bt, 1, d_in) * F.silu(z)
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+    return y @ p["w_out"], {"h": h, "conv": conv_state}
 
 
 def init_mamba2(normal, cfg, dtype, lead=()):

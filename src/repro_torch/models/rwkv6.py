@@ -1,5 +1,6 @@
-"""RWKV-6 (Finch) block, prefill: time-mix with data-dependent decay and
-channel-mix.
+"""RWKV-6 (Finch) block: time-mix with data-dependent decay and
+channel-mix, over a whole sequence (prefill) or one token from a state
+(decode).
 
 ``wkv6_scan`` is the reference's scan over time (the WKV recurrence) line
 for line.  On CUDA tensors ``time_mix`` launches the hand-written kernel
@@ -11,8 +12,11 @@ per-head group norm reads it without a copy, and nothing is cast or
 transposed around B8.  On the CPU ``time_mix`` runs ``wkv6_scan``, from
 a given state too, and so it does on any device when the caller asks for
 the training form (``train=True``: B8 has no backward), under autograd;
-on the card a given state raises.  The one-token decode step (``wkv6_step``)
-and a stateful WKV on the card wait for the decode slice (ROADMAP A14).
+on the card a given state raises (no reference path runs a whole
+sequence from a state).  The one-token decode step (``wkv6_step``,
+``time_mix(..., decode=True)``) is the reference's plain ``jnp`` step in
+PyTorch on every device: one ``(H, K, V)`` state update per token needs
+no kernel of its own.
 """
 from __future__ import annotations
 
@@ -42,6 +46,16 @@ def wkv6_scan(r, k, v, w, u, state=None):
     return wkv6_ref(r, k, v, w, u, state=state, out_dtype=torch.float32)
 
 
+def wkv6_step(S, r, k, v, w, u):
+    """Single decode step. r,k,w: (B,H,K); v: (B,H,V); S: (B,H,K,V) f32.
+    Returns y (B,H,V) f32 and the new state."""
+    kv = torch.einsum("bhk,bhv->bhkv", k.float(), v.float())
+    y = torch.einsum("bhk,bhkv->bhv", r.float(),
+                     S + u.float()[None, :, :, None] * kv)
+    S = S * w.float()[..., None] + kv
+    return y, S
+
+
 def _ddecay(p, xw):
     """Data-dependent decay (the RWKV6 signature): w = exp(-exp(w0 + lora))."""
     lora = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
@@ -54,21 +68,22 @@ def _mix(x, xx, mu):
 
 
 def time_mix(p, x, cfg, *, shift_state=None, wkv_state=None,
-             train: bool = False):
-    """Prefill time-mix.  Returns (out, last input, final WKV state); the
-    state is None where B8 ran (the kernel starts from zero and keeps no
-    final state).  On the card B8 reads r, k, v and the f32 decay as the
-    views the projections give and returns y (B, S, H, V) f32 in memory
-    order, which the group norm reads as it is.  ``train`` runs
-    ``wkv6_scan`` instead, on any device.  A ``wkv_state`` to start from
-    runs only on the CPU: B8 has no initial state, and that path is the
-    decode slice's (ROADMAP A14)."""
-    kernel = x.device.type != "cpu" and not train
+             decode: bool = False, train: bool = False):
+    """Time-mix.  Returns (out, last input, final WKV state); the state is
+    None where B8 ran (the kernel starts from zero and keeps no final
+    state).  On the card B8 reads r, k, v and the f32 decay as the views
+    the projections give and returns y (B, S, H, V) f32 in memory order,
+    which the group norm reads as it is.  ``train`` runs ``wkv6_scan``
+    instead, on any device.  ``decode`` runs one token (S = 1) from
+    ``wkv_state`` through ``wkv6_step``, on any device.  A whole sequence
+    from a ``wkv_state`` runs only on the CPU: B8 has no initial state,
+    and no reference path asks for one (its decode steps one token)."""
+    kernel = x.device.type != "cpu" and not train and not decode
     if wkv_state is not None and kernel:
         raise NotImplementedError(
-            "time_mix from a WKV state runs only on the CPU: B8 starts from "
-            "zero; stateful WKV on the card comes with the decode slice "
-            "(ROADMAP A14)")
+            "time_mix over a sequence from a WKV state runs only on the "
+            "CPU: B8 starts from zero; decode steps one token "
+            "(decode=True)")
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     xx = token_shift(x, shift_state)
@@ -79,7 +94,11 @@ def time_mix(p, x, cfg, *, shift_state=None, wkv_state=None,
     w = _ddecay(p, _mix(x, xx, p["mu_w"]))                     # (B,S,D)
 
     r, k, v, w = (t.reshape(b, s, h, hd) for t in (r, k, v, w))
-    if kernel:
+    if decode:
+        y, wkv_state = wkv6_step(wkv_state, r[:, 0], k[:, 0], v[:, 0],
+                                 w[:, 0], p["u"])
+        y = y[:, None]
+    elif kernel:
         t = lambda a: a.transpose(1, 2)                      # (B,H,S,·) views
         y = _wkv.wkv6_chunked(t(r), t(k), t(v), t(w), p["u"],
                               out_dtype=torch.float32).transpose(1, 2)

@@ -20,8 +20,20 @@ each block (``"block"``) or recomputes all but its matrix products
 recurrences run the kernels B4 / B7 / B8 on the card, which have no
 backward; ``train=True`` (``loss_fn`` passes it) runs the ports of the
 reference's scans instead, on any device, as the reference's training
-forward does.  ``init_cache`` / ``decode_step`` wait for the decode slice
-(A14); serving runs its own step (``serve.paged``).
+forward does.
+
+``init_cache`` / ``decode_step`` are the decode path with a contiguous
+cache (the static ``launch.serve.generate``; continuous serving runs its
+own step, ``serve.paged``): the reference's cache tree, per segment, and
+a chunk of T >= 1 tokens at positions ``pos..pos+T-1`` against it.
+``decode_step`` writes the new keys, values and recurrent states into the
+caller's cache tensors in place and returns that same tree.  Its
+attention (``decode_attention_dyn``) runs on the CPU the reference's
+einsum form line for line; on the card a one-token step launches B5 on
+each layer's cache where it lies, and a chunk (T > 1) B4 with the query
+offset ``pos`` over a copy of the first ``pos + T`` keys.  Mamba2 and
+RWKV-6 segments step one token (T = 1) in plain PyTorch on every device,
+as the reference's ``jnp`` steps do.
 """
 from __future__ import annotations
 
@@ -39,9 +51,12 @@ from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
-from repro_torch.models.attention import attention_block
+from repro_torch.models.attention import (NEG_INF, attention_block,
+                                         attn_project_qkv, chunked_attention,
+                                         decode_attention, gqa_expand)
 from repro_torch.models.layers import (chunked_cross_entropy, cross_entropy,
-                                      dropout, dtype_of, rms_norm, swiglu)
+                                      dropout, dtype_of, rms_norm,
+                                      rope_tables, swiglu)
 
 
 @dataclass(frozen=True)
@@ -310,3 +325,183 @@ def loss_fn(params, cfg: ModelConfig, batch, *, drop_rng=None,
         w = torch.ones_like(per_ex)
     loss = torch.sum(per_ex * w) / torch.clamp_min(torch.sum(w), 1e-9)
     return loss, {"loss": loss, "per_example": per_ex}
+
+
+# --------------------------- decode -----------------------------------------
+def _refuse_moe(cfg):
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE decode waits for ROADMAP A12c "
+            "(models/moe.py)")
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device=None):
+    """Per-segment cache tree for decode, on ``device`` (``None`` means
+    the card): the reference's tree and shapes — attention ``k``/``v``
+    ``(count, B, max_seq, KV, hd)`` (``(1, ...)`` for each call of the
+    shared block) in ``dtype`` (the compute dtype when None), Mamba2 ``h``
+    ``(count, B, nh, P, N)`` f32 and ``conv`` ``(count, B, d_conv-1,
+    d_in+2N)``, RWKV-6 ``wkv`` ``(count, B, H, hd, hd)`` f32 and
+    ``shift_t`` / ``shift_c`` ``(count, B, 1, D)``; all zeros."""
+    _refuse_moe(cfg)
+    device = resolve_device(device)
+    dtype = dtype or dtype_of(cfg.compute_dtype)
+    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt,
+                                                device=device)
+    caches = []
+    for seg in layout(cfg):
+        if seg.kind in (ATTN, SHARED_ATTN):
+            n = seg.count if seg.kind == ATTN else 1
+            shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            caches.append({"k": zeros(shape), "v": zeros(shape)})
+        elif seg.kind == MAMBA2:
+            sc = cfg.ssm
+            d_in = sc.expand * cfg.d_model
+            nh = d_in // sc.head_dim
+            caches.append({
+                "h": zeros((seg.count, batch, nh, sc.head_dim, sc.d_state),
+                           torch.float32),
+                "conv": zeros((seg.count, batch, sc.d_conv - 1,
+                               d_in + 2 * sc.d_state))})
+        elif seg.kind == RWKV6:
+            h, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+            caches.append({
+                "wkv": zeros((seg.count, batch, h, hd, hd), torch.float32),
+                "shift_t": zeros((seg.count, batch, 1, d)),
+                "shift_c": zeros((seg.count, batch, 1, d))})
+        else:
+            raise ValueError(seg.kind)
+    return caches
+
+
+def decode_attention_dyn(q, k_cache, v_cache, pos: int, window: int):
+    """Attention of a chunk of T >= 1 query tokens at positions
+    pos..pos+T-1 over a ``(B, S, KV, hd)`` cache that already holds them
+    (T = 1 is the classic single-token decode; T > 1 the chunked prefill
+    — causality within the chunk falls out of the same position mask).
+    ``window``: this layer's sliding window (0 = global).
+
+    On the CPU the reference's einsum form, line for line (f32 scores,
+    softmax and product).  On the card T = 1 is B5 over the cache as it
+    lies, and T > 1 B4 with ``q_offset = pos`` over the first ``pos + T``
+    keys, which ``chunked_attention`` copies into B4's ``(B, KV, Sk, hd)``
+    form (one copy of those keys per layer per chunk)."""
+    b, t, h, hd = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    if q.device.type != "cpu":
+        if t == 1:
+            return decode_attention(q, k_cache, v_cache, pos, window=window)
+        n = pos + t
+        k, v = k_cache[:, :n], v_cache[:, :n]
+        if k.dtype != q.dtype:                 # B4 takes one dtype
+            return chunked_attention(q.float(), k.float(), v.float(),
+                                     window=window,
+                                     q_offset=pos).to(q.dtype)
+        return chunked_attention(q, k, v, window=window, q_offset=pos)
+    n_rep = h // kvh
+    k = gqa_expand(k_cache, n_rep).float()
+    v = gqa_expand(v_cache, n_rep).float()
+    qf = q.float() * hd ** -0.5
+    scores = torch.einsum("bqhd,bshd->bhqs", qf, k)
+    idx = torch.arange(s, device=q.device)
+    qpos = pos + torch.arange(t, device=q.device)               # (T,)
+    valid = idx[None, :] <= qpos[:, None]                       # (T, S)
+    if window > 0:
+        valid = torch.logical_and(valid,
+                                  idx[None, :] > qpos[:, None] - window)
+    scores = torch.where(valid[None, None, :, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", p, v).to(q.dtype)
+
+
+def _decode_attn_layer(p, x, cfg, cache_k, cache_v, window, pos, rope):
+    """One attention block over a chunk; writes its keys and values into
+    ``cache_k`` / ``cache_v`` (``(B, S, KV, hd)`` views) at ``pos``."""
+    b, t = x.shape[:2]
+    xin = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = attn_project_qkv(p["attn"], xin, None, cfg, rope=rope)
+    cache_k[:, pos:pos + t] = k.to(cache_k.dtype)
+    cache_v[:, pos:pos + t] = v.to(cache_v.dtype)
+    o = decode_attention_dyn(q, cache_k, cache_v, pos, window)
+    h = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
+    hin = rms_norm(h, p["ln2"], cfg.norm_eps)
+    return h + swiglu(hin, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, caches, tokens, pos: int, *,
+                embeddings=None):
+    """Decode a chunk of T >= 1 tokens against the cache.
+
+    tokens: (B, T) int; pos: host int, the cache position of the FIRST
+    new token (the chunk occupies pos..pos+T-1).  T = 1 is the classic
+    one-token decode step; T > 1 is the batched or chunked prefill of
+    attention stacks.  Recurrent segments (mamba2 / rwkv6) accept only
+    T = 1, as the reference's do.  embeddings: optional (B, T, D) in place
+    of the token embedding.
+
+    Writes the chunk's keys, values and states into ``caches`` in place
+    and returns (logits (B, T, V) in the compute dtype, ``caches``)."""
+    _refuse_moe(cfg)
+    if isinstance(pos, torch.Tensor) or int(pos) != pos or pos < 0:
+        raise ValueError(f"pos must be a host int >= 0, got {pos!r}")
+    pos = int(pos)
+    cdt = dtype_of(cfg.compute_dtype)
+    if embeddings is None:
+        x = params["embed"][tokens].to(cdt)
+    else:
+        x = embeddings.to(cdt)
+    b, t = x.shape[:2]
+    segs = layout(cfg)
+    rope = None
+    if any(seg.kind in (ATTN, SHARED_ATTN) for seg in segs):
+        max_seq = next(c["k"].shape[2] for seg, c in zip(segs, caches)
+                       if seg.kind in (ATTN, SHARED_ATTN))
+        if pos + t > max_seq:
+            raise ValueError(f"a chunk of {t} at position {pos} does not fit "
+                             f"a cache of {max_seq} positions")
+        # one set of RoPE tables for every layer (the reference builds
+        # the same values in each)
+        positions = (pos + torch.arange(t, device=x.device)).expand(b, t)
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+    for seg, sp, cache in zip(segs, params["segments"], caches):
+        if seg.kind == SHARED_ATTN:
+            x = _decode_attn_layer(params["shared"], x, cfg, cache["k"][0],
+                                   cache["v"][0], 0, pos, rope)
+            continue
+        if seg.kind in (MAMBA2, RWKV6) and t != 1:
+            raise ValueError(f"chunked decode (T>1) requires attention "
+                             f"segments; {seg.kind} decode steps one token")
+        for i, p in enumerate(_layers(sp, seg.count)):
+            if seg.kind == ATTN:
+                x = _decode_attn_layer(p, x, cfg, cache["k"][i],
+                                       cache["v"][i], seg.windows[i], pos,
+                                       rope)
+            elif seg.kind == MAMBA2:
+                xin = rms_norm(x, p["ln1"], cfg.norm_eps)
+                y, st = m2.mamba2_decode(p["mamba"], xin, cfg,
+                                         {"h": cache["h"][i],
+                                          "conv": cache["conv"][i]})
+                x = x + y
+                cache["h"][i].copy_(st["h"])
+                cache["conv"][i].copy_(st["conv"])
+            elif seg.kind == RWKV6:
+                xin = rms_norm(x, p["ln1"], cfg.norm_eps)
+                y, _, wkv = rk.time_mix(
+                    p["rwkv"], xin, cfg, shift_state=cache["shift_t"][i],
+                    wkv_state=cache["wkv"][i], decode=True)
+                h = x + y
+                hin = rms_norm(h, p["ln2"], cfg.norm_eps)
+                y2, _ = rk.channel_mix(p["rwkv"], hin, cfg,
+                                       shift_state=cache["shift_c"][i])
+                x = h + y2
+                cache["wkv"][i].copy_(wkv)
+                cache["shift_t"][i].copy_(xin[:, -1:])
+                cache["shift_c"][i].copy_(hin[:, -1:])
+            else:
+                raise ValueError(seg.kind)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params.get("lm_head", params["embed"])
+    return torch.einsum("bsd,vd->bsv", x, head), caches

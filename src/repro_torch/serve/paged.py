@@ -59,7 +59,7 @@ def attention_segments(cfg: ModelConfig) -> Tuple[Segment, ...]:
     Paged KV needs KV-cache semantics per layer; recurrent segments
     (mamba2 / rwkv6) carry dense states and the weight-tied shared block
     would need its own one-layer pool — both stay on the static
-    ``generate`` path (ROADMAP A12).
+    ``launch.serve.generate`` path.
     """
     segs = layout(cfg)
     bad = sorted({s.kind for s in segs if s.kind != ATTN})

@@ -308,20 +308,28 @@ def test_prefill_step_launches_the_kernels(cuda):
 
 
 def test_stateful_paths_refused_on_the_card(cuda):
-    """A WKV state to start from and causal attention with a query offset
-    raise on CUDA tensors, naming their items (B8 and B4 start from 0)."""
+    """A whole-sequence WKV from a state raises on CUDA tensors (B8 starts
+    from zero; no reference path asks for it); causal attention with a
+    query offset runs B4 with that offset, within 2e-5 of its plain
+    version on the same tensors moved to the CPU."""
     from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention, rwkv6
     cfg = reduced(get_config("rwkv6-7b"))
     x = torch.zeros(1, 4, cfg.d_model, device=cuda)
     state = torch.zeros(1, cfg.n_heads, cfg.head_dim, cfg.head_dim,
                         device=cuda)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="from a WKV state"):
         rwkv6.time_mix({}, x, cfg, wkv_state=state)
-    q = torch.zeros(1, 2, 4, 16, device=cuda)
-    kv = torch.zeros(1, 6, 2, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="A12"):
-        attention.chunked_attention(q, kv, kv, q_offset=4)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(1, 2, 4, 32, generator=gen, device=cuda)
+    kv = torch.randn(1, 6, 2, 32, generator=gen, device=cuda)
+    fa.reset_counts()
+    got = attention.chunked_attention(q, kv, kv, q_offset=4, window=3)
+    assert fa.launch_count() == 1
+    want = attention.chunked_attention(q.cpu(), kv.cpu(), kv.cpu(),
+                                       q_offset=4, window=3)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
 
 
 def test_fused_lm_step_on_the_card(cuda):
@@ -422,3 +430,87 @@ def test_batched_worker_update_matches_single_launches(cuda, master, n_cand,
     if master:
         assert torch.equal(batched["shadow"],
                            batched["w"].to(torch.bfloat16))
+
+
+def _close_decode(got, want, dtype):
+    """f32 within 2e-5·(1 + |plain|); bf16 one bf16 ulp of the larger
+    magnitude more (both round the f32 result once)."""
+    g, p = got.float(), want.float()
+    limit = 2e-5 * (1.0 + p.abs())
+    if dtype == torch.bfloat16:
+        a = torch.maximum(g.abs(), p.abs()).clamp_min(2.0 ** -126)
+        limit = limit + torch.exp2(torch.floor(torch.log2(a)) - 7)
+    assert bool(((g - p).abs() <= limit).all()), \
+        float(((g - p).abs() / limit).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,window", [(80, 0), (96, 0), (256, 24), (48, 5)])
+def test_flash_decode_reads_the_layer_cache(cuda, dtype, hd, window):
+    """B5 on the models' (B, S, KV, hd) layer cache, read in place through
+    its transpose(1, 2) view (no copy), at hd 80 (zamba2-2.7b's shared
+    attention) and other multiples of 16, positions 0, the middle and the
+    last, against its plain version on the same tensors."""
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    b, h, kv, s = 3, 8, 2, 77
+    q = torch.randn(b, h, 1, hd, generator=gen, device=cuda).to(dtype)
+    kc, vc = (torch.randn(b, s, kv, hd, generator=gen, device=cuda)
+              .to(dtype) for _ in range(2))
+    fd.reset_counts()
+    for pos in (0, s // 2, s - 1):
+        got = fd.flash_decode(q, kc.transpose(1, 2), vc.transpose(1, 2), pos,
+                              window=window)
+        want = fd._xla_decode(q, kc.transpose(1, 2), vc.transpose(1, 2), pos,
+                              window=window)
+        _close_decode(got, want, dtype)
+    assert fd.launch_count("flash_decode") == 3 and fd.plain_count() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_with_a_query_offset(cuda, dtype):
+    """B4 with queries at offset..offset+T-1 over the first offset + T keys
+    (offsets 0, 1, 17 and 70; T 1, 5 and 64; with and without a window),
+    against its plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(dtype)
+    fa.reset_counts()
+    n = 0
+    for off in (0, 1, 17, 70):
+        for t in (1, 5, 64):
+            for w in (0, 24):
+                q, k, v = rn(2, 4, t, 64), rn(2, 2, off + t, 64), \
+                    rn(2, 2, off + t, 64)
+                _close_decode(
+                    fa.flash_attention(q, k, v, window=w, q_offset=off),
+                    fa.flash_attention_plain(q, k, v, window=w,
+                                             q_offset=off), dtype)
+                n += 1
+    assert fa.launch_count() == n and fa.plain_count() == 0
+
+
+def test_static_generate_launches_the_kernels(cuda):
+    """``launch.serve.generate`` on reduced f32 phi3-mini on the card: one
+    B4 launch a layer for the chunked prefill, one B5 launch a layer a
+    decode step, no plain run, and the CPU port's greedy tokens."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.serve import generate
+    cfg = reduced(get_config("phi3-mini-3.8b"))
+    params = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(1))
+    fa.reset_counts()
+    fd.reset_counts()
+    card = generate(cfg, tree_map(lambda t: t.cuda(), params),
+                    prompts.cuda(), gen=5, max_seq=17)
+    assert (fa.launch_count(), fd.launch_count("flash_decode")) == \
+        (cfg.n_layers, cfg.n_layers * 4)
+    assert fa.plain_count() + fd.plain_count() == 0
+    cpu = generate(cfg, params, prompts, gen=5, max_seq=17)
+    assert torch.equal(card.cpu(), cpu)

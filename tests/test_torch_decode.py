@@ -1,0 +1,521 @@
+"""The port's decode path with a cache (``models.init_cache`` /
+``decode_step``, ``launch.steps.make_decode_step``, the static
+``launch.serve.generate``) against the JAX package's, on the CPU.
+
+Reduced f32 configs, each with the reference's ``init_params`` carried
+over through ``convert.lm_params_from_numpy`` and the same numpy tokens:
+``phi3-mini-3.8b``, ``gemma3-4b`` (window 16, smaller than the prompt of
+20 plus the 6 generated tokens, so that the window masks keys),
+``zamba2-2.7b`` at 6 layers (so that its weight-tied shared block runs)
+and ``rwkv6-7b``; 2 prompts of ``PROMPT`` tokens, ``max_seq`` = PROMPT +
+GEN.
+
+``BAND`` 1e-4 on the logits (magnitude about 4) and on every cache leaf:
+the two packages run the same f32 math with other matmul and reduction
+orders.  Measured on the stepped prompt: logits 5.2e-6 (phi3), 3.8e-6
+(gemma3), 6.8e-6 (zamba2) and 6.2e-5 (rwkv6, at its second step; 1.1e-5
+from the fourth on), caches at most 1.5e-5 (rwkv6's WKV states reach
+14.6); the chunks 6.1e-6.  rwkv6's early steps are ill-conditioned, not
+apart: on these tokens the reference's own prefill forward and stepped
+decode differ by 1.7e-5, and the two packages' prefill forwards by
+7.8e-5.  The module functions (``decode_attention``,
+``decode_attention_dyn``, the SSD and WKV steps) are held within
+``FN_ATOL`` 2e-5 (measured at most 2.4e-6).  Two planted faults — the
+sliding window one key too wide (gap 1.28), the WKV bonus ``u`` dropped
+in the step (4.75) — land far outside the band.
+
+The kernels' plain forms on this path: B5 (``flash_decode``) on the
+strided ``(B, S, KV, hd)`` layer cache and at hd 80, against the
+reference's oracle ``ref.flash_decode_ref`` and its Pallas kernel in
+interpret mode (measured 3.6e-7 from both in f32); B4
+(``flash_attention``) with a query offset against the reference's
+``decode_attention_dyn`` (the Pallas B4 has no offset; measured 2.4e-7).
+On
+the card ``chip_smoke.py`` phase 21 holds the kernels against these plain
+forms and runs the path at full width.
+"""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro import models as jmodels
+from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
+from repro.kernels import flash_decode as jfd
+from repro.kernels import ref as jref
+from repro.launch.serve import chunkable as jchunkable
+from repro.launch.serve import generate as jgenerate
+from repro.launch.steps import make_decode_step as jmake_decode_step
+from repro.models import attention as jattention
+from repro.models import mamba2 as jmamba2
+from repro.models import rwkv6 as jrwkv6
+from repro.models import transformer as jtransformer
+from repro_torch import models
+from repro_torch.configs import get_config, reduced
+from repro_torch.convert import (cache_from_numpy, cache_to_numpy,
+                                 lm_params_from_numpy, tensor_from_numpy)
+from repro_torch.core.tree import tree_flatten
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.launch import serve
+from repro_torch.launch.steps import make_decode_step
+from repro_torch.models import attention, mamba2, rwkv6, transformer
+
+torch.set_num_threads(1)
+
+BAND = 1e-4
+FN_ATOL = 2e-5
+PROMPT, GEN, BATCH = 20, 6, 2
+MAX_SEQ = PROMPT + GEN
+ARCHS = [("phi3-mini-3.8b", 2), ("gemma3-4b", 2), ("zamba2-2.7b", 6),
+         ("rwkv6-7b", 2)]
+ATTN_ARCHS = ARCHS[:2]
+_CACHE = {}
+
+
+def _setup(arch, layers):
+    """(port cfg, JAX cfg, JAX params, port params, prompts)."""
+    key = (arch, layers)
+    if key not in _CACHE:
+        jcfg = jreduced(jget_config(arch), layers=layers)
+        cfg = reduced(get_config(arch), layers=layers)
+        jp = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
+        tp = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                  cfg, "cpu")
+        tok = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+        _CACHE[key] = (cfg, jcfg, jp, tp, tok)
+    return _CACHE[key]
+
+
+def _jdecode(jcfg):
+    """The reference's decode step, jitted once per config: full (B, T, V)
+    logits and the new cache."""
+    key = ("jdecode", jcfg.name, jcfg.n_layers)
+    if key not in _CACHE:
+        _CACHE[key] = jax.jit(lambda p, c, t, pos: jmodels.decode_step(
+            p, jcfg, c, t, pos))
+    return _CACHE[key]
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _gap(got, want):
+    return float(np.abs(np.asarray(got, np.float64)
+                        - np.asarray(want, np.float64)).max())
+
+
+def _cache_gap(port_cache, jcache):
+    got, want = cache_to_numpy(port_cache), _np(jcache)
+    gl, gd = tree_flatten(got)
+    wl, wd = tree_flatten(want)
+    assert gd == wd
+    return max(_gap(a, b) for a, b in zip(gl, wl))
+
+
+def _stepped(arch, layers):
+    """Both packages stepping the prompt one token at a time: per-step
+    logits (B, PROMPT, V) and the final caches."""
+    key = ("stepped", arch, layers)
+    if key not in _CACHE:
+        cfg, jcfg, jp, tp, tok = _setup(arch, layers)
+        jc = jmodels.init_cache(jcfg, BATCH, MAX_SEQ)
+        tc = models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu")
+        jl, tl = [], []
+        for t in range(PROMPT):
+            lg, jc = _jdecode(jcfg)(jp, jc, jnp.asarray(tok[:, t:t + 1]),
+                                    jnp.int32(t))
+            jl.append(np.asarray(lg))
+            lt, tc = models.decode_step(
+                tp, cfg, tc, torch.from_numpy(tok[:, t:t + 1]).long(), t)
+            tl.append(lt.numpy())
+        _CACHE[key] = (np.concatenate(tl, 1), np.concatenate(jl, 1), tc, jc)
+    return _CACHE[key]
+
+
+def _jgenerate(arch, layers, stepped):
+    key = ("jgen", arch, layers, stepped)
+    if key not in _CACHE:
+        _, jcfg, jp, _, tok = _setup(arch, layers)
+        _CACHE[key] = np.asarray(jgenerate(
+            jcfg, jp, jnp.asarray(tok), gen=GEN, max_seq=MAX_SEQ,
+            stepped_prefill=stepped))
+    return _CACHE[key]
+
+
+# ----------------------------- cache trees ----------------------------------
+@pytest.mark.parametrize("arch,layers", ARCHS)
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_init_cache_matches_reference(arch, layers, width):
+    """Segments, keys, shapes and dtypes of the cache tree equal the
+    reference's (full width on the meta device against ``eval_shape``)."""
+    if width == "full":
+        cfg, jcfg = get_config(arch), jget_config(arch)
+        want = jax.eval_shape(lambda: jmodels.init_cache(jcfg, 3, 7))
+        got = models.init_cache(cfg, 3, 7, device="meta")
+    else:
+        cfg, jcfg, _, _, _ = _setup(arch, layers)
+        want = jmodels.init_cache(jcfg, 3, 7)
+        got = models.init_cache(cfg, 3, 7, device="cpu")
+    gl, gd = tree_flatten(got)
+    wl, wd = tree_flatten(list(want))
+    assert gd == wd
+    for g, w in zip(gl, wl):
+        assert tuple(g.shape) == tuple(w.shape)
+        assert str(g.dtype)[6:] == str(w.dtype)
+        if width == "reduced":
+            assert not g.any()
+
+
+def test_init_cache_defaults_to_the_card_and_refuses_cnns():
+    cfg = reduced(get_config("phi3-mini-3.8b"))
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        models.init_cache(cfg, 1, 4)
+    with pytest.raises(ValueError, match="CNNs"):
+        models.init_cache(get_config("cifar-resnet18"), 1, 4, device="cpu")
+
+
+# --------------------------- module functions --------------------------------
+def _attn_inputs(seed, *, b=2, t=1, h=4, kv=2, hd=16, s=24):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, t, h, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, kv, hd)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("pos,window", [(0, 0), (13, 0), (13, 8), (23, 5)])
+def test_decode_attention_matches_reference(pos, window):
+    q, k, v = _attn_inputs(pos + window)
+    want = jattention.decode_attention(*map(jnp.asarray, (q, k, v)), pos,
+                                       window=window)
+    got = attention.decode_attention(*map(torch.from_numpy, (q, k, v)), pos,
+                                     window=window)
+    assert got.shape == want.shape
+    assert _gap(got, want) <= FN_ATOL
+
+
+@pytest.mark.parametrize("t,pos,window", [(1, 9, 0), (1, 9, 4), (5, 7, 0),
+                                          (5, 7, 4), (5, 0, 3)])
+def test_decode_attention_dyn_matches_reference(t, pos, window):
+    q, k, v = _attn_inputs(10 * t + pos, t=t)
+    want = jtransformer.decode_attention_dyn(*map(jnp.asarray, (q, k, v)),
+                                             jnp.int32(pos), window)
+    got = transformer.decode_attention_dyn(*map(torch.from_numpy, (q, k, v)),
+                                           pos, window)
+    assert got.shape == want.shape
+    assert _gap(got, want) <= FN_ATOL
+
+
+def test_ssd_decode_step_and_mamba2_decode_match_reference():
+    rng = np.random.default_rng(2)
+    bt, h, p, n = 2, 3, 8, 5
+    hs = rng.standard_normal((bt, h, p, n)).astype(np.float32)
+    x = rng.standard_normal((bt, h, p)).astype(np.float32)
+    dt = (0.05 + 0.1 * rng.random((bt, h))).astype(np.float32)
+    a_log = np.log(np.linspace(1, 8, h)).astype(np.float32)
+    B, C = (rng.standard_normal((bt, n)).astype(np.float32) for _ in "BC")
+    d = np.ones(h, np.float32)
+    args = (hs, x, dt, a_log, B, C, d)
+    jy, jh = jmamba2.ssd_decode_step(*map(jnp.asarray, args))
+    y, hn = mamba2.ssd_decode_step(*map(torch.from_numpy, args))
+    assert _gap(y, jy) <= FN_ATOL and _gap(hn, jh) <= FN_ATOL
+
+    cfg, jcfg, jp, tp, _ = _setup("zamba2-2.7b", 6)
+    sc = cfg.ssm
+    d_in = sc.expand * cfg.d_model
+    state = {"h": rng.standard_normal(
+        (bt, d_in // sc.head_dim, sc.head_dim, sc.d_state)).astype(np.float32),
+        "conv": rng.standard_normal(
+            (bt, sc.d_conv - 1, d_in + 2 * sc.d_state)).astype(np.float32)}
+    xin = rng.standard_normal((bt, 1, cfg.d_model)).astype(np.float32)
+    jlayer = jax.tree_util.tree_map(lambda a: a[0], jp["segments"][0])
+    tlayer = jax.tree_util.tree_map(lambda a: a[0], tp["segments"][0])
+    jy, jst = jmamba2.mamba2_decode(jlayer["mamba"], jnp.asarray(xin), jcfg,
+                                    jax.tree_util.tree_map(jnp.asarray,
+                                                           state))
+    y, st = mamba2.mamba2_decode(
+        tlayer["mamba"], torch.from_numpy(xin), cfg,
+        {k: torch.from_numpy(a) for k, a in state.items()})
+    assert _gap(y, jy) <= FN_ATOL
+    assert _gap(st["h"], jst["h"]) <= FN_ATOL
+    assert _gap(st["conv"], jst["conv"]) <= FN_ATOL
+
+
+def test_wkv6_step_time_mix_and_channel_mix_match_reference():
+    rng = np.random.default_rng(3)
+    b, h, kd = 2, 3, 8
+    S = rng.standard_normal((b, h, kd, kd)).astype(np.float32)
+    r, k, v = (rng.standard_normal((b, h, kd)).astype(np.float32)
+               for _ in range(3))
+    w = rng.random((b, h, kd)).astype(np.float32)
+    u = rng.standard_normal((h, kd)).astype(np.float32)
+    jy, jS = jrwkv6.wkv6_step(*map(jnp.asarray, (S, r, k, v, w, u)))
+    y, S2 = rwkv6.wkv6_step(*map(torch.from_numpy, (S, r, k, v, w, u)))
+    assert y.dtype == torch.float32
+    assert _gap(y, jy) <= FN_ATOL and _gap(S2, jS) <= FN_ATOL
+
+    cfg, jcfg, jp, tp, _ = _setup("rwkv6-7b", 2)
+    jlayer = jax.tree_util.tree_map(lambda a: a[1], jp["segments"][0])
+    tlayer = jax.tree_util.tree_map(lambda a: a[1], tp["segments"][0])
+    x = rng.standard_normal((b, 1, cfg.d_model)).astype(np.float32)
+    sh_t, sh_c = (rng.standard_normal((b, 1, cfg.d_model)).astype(np.float32)
+                  for _ in range(2))
+    wkv = rng.standard_normal((b, cfg.n_heads, cfg.head_dim, cfg.head_dim)) \
+        .astype(np.float32)
+    jo, jlast, jwkv = jrwkv6.time_mix(
+        jlayer["rwkv"], jnp.asarray(x), jcfg, shift_state=jnp.asarray(sh_t),
+        wkv_state=jnp.asarray(wkv), decode=True)
+    o, last, wkv2 = rwkv6.time_mix(
+        tlayer["rwkv"], torch.from_numpy(x), cfg,
+        shift_state=torch.from_numpy(sh_t), wkv_state=torch.from_numpy(wkv),
+        decode=True)
+    assert _gap(o, jo) <= FN_ATOL and _gap(wkv2, jwkv) <= FN_ATOL
+    assert _gap(last, jlast) == 0.0
+    jc, jcl = jrwkv6.channel_mix(jlayer["rwkv"], jnp.asarray(x), jcfg,
+                                 shift_state=jnp.asarray(sh_c))
+    c, cl = rwkv6.channel_mix(tlayer["rwkv"], torch.from_numpy(x), cfg,
+                              shift_state=torch.from_numpy(sh_c))
+    assert _gap(c, jc) <= FN_ATOL and _gap(cl, jcl) == 0.0
+
+
+# ------------------------------- decode_step ---------------------------------
+@pytest.mark.parametrize("arch,layers", ARCHS)
+def test_decode_step_one_token_matches_reference(arch, layers):
+    """T = 1 steps over the whole prompt: every step's logits and the final
+    caches within BAND; on the CPU no kernel wrapper runs."""
+    fd.reset_counts()
+    fa.reset_counts()
+    got, want, tc, jc = _stepped(arch, layers)
+    assert got.shape == want.shape == (BATCH, PROMPT,
+                                       _setup(arch, layers)[0].vocab_size)
+    assert _gap(got, want) <= BAND
+    assert _cache_gap(tc, jc) <= BAND
+    assert fd.launch_count() + fd.plain_count() == 0
+    assert fa.launch_count() + fa.plain_count() == 0
+
+
+@pytest.mark.parametrize("arch,layers", ATTN_ARCHS)
+def test_decode_step_chunks_match_reference(arch, layers):
+    """A chunk of PROMPT - 5 tokens at 0, then one of 5 at PROMPT - 5: the
+    logits of both chunks and the caches within BAND, and the same cache
+    as stepping the prompt token by token."""
+    cfg, jcfg, jp, tp, tok = _setup(arch, layers)
+    cut = PROMPT - 5
+    jc = jmodels.init_cache(jcfg, BATCH, MAX_SEQ)
+    tc = models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu")
+    for lo, hi in ((0, cut), (cut, PROMPT)):
+        jl, jc = _jdecode(jcfg)(jp, jc, jnp.asarray(tok[:, lo:hi]),
+                                jnp.int32(lo))
+        tl, tc2 = models.decode_step(tp, cfg, tc,
+                                     torch.from_numpy(tok[:, lo:hi]).long(),
+                                     lo)
+        assert tc2 is tc                          # updated in place
+        assert tl.shape == (BATCH, hi - lo, cfg.vocab_size)
+        assert _gap(tl, jl) <= BAND
+    assert _cache_gap(tc, jc) <= BAND
+    assert _cache_gap(tc, _stepped(arch, layers)[3]) <= BAND
+
+
+@pytest.mark.parametrize("arch,layers", ARCHS[2:])
+def test_recurrent_decode_refuses_chunks(arch, layers):
+    cfg, _, _, tp, tok = _setup(arch, layers)
+    cache = models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu")
+    with pytest.raises(ValueError, match="steps one token"):
+        models.decode_step(tp, cfg, cache, torch.from_numpy(tok[:, :3]), 0)
+
+
+def test_decode_step_continues_a_reference_cache():
+    """A cache the reference filled (3 steps), carried over with
+    ``cache_from_numpy``, decodes the next token as the reference does."""
+    cfg, jcfg, jp, tp, tok = _setup("zamba2-2.7b", 6)
+    jc = jmodels.init_cache(jcfg, BATCH, MAX_SEQ)
+    for t in range(3):
+        _, jc = _jdecode(jcfg)(jp, jc, jnp.asarray(tok[:, t:t + 1]),
+                               jnp.int32(t))
+    tc = cache_from_numpy(_np(jc), cfg, "cpu")
+    jl, jc = _jdecode(jcfg)(jp, jc, jnp.asarray(tok[:, 3:4]), jnp.int32(3))
+    tl, tc = models.decode_step(tp, cfg, tc, torch.from_numpy(tok[:, 3:4]), 3)
+    assert _gap(tl, jl) <= BAND and _cache_gap(tc, jc) <= BAND
+    with pytest.raises(ValueError, match="segments"):
+        cache_from_numpy(_np(jc)[:-1], cfg, "cpu")
+
+
+@pytest.mark.parametrize("arch,layers", ARCHS)
+def test_make_decode_step_matches_reference(arch, layers):
+    """The last position's logits (B, V) of a step, as the reference's
+    ``make_decode_step`` returns them."""
+    cfg, jcfg, jp, tp, tok = _setup(arch, layers)
+    t = 1 if arch in ("zamba2-2.7b", "rwkv6-7b") else 4
+    jl, _ = jax.jit(jmake_decode_step(jcfg))(
+        jp, jmodels.init_cache(jcfg, BATCH, MAX_SEQ), jnp.asarray(tok[:, :t]),
+        jnp.int32(0))
+    tl, _ = make_decode_step(cfg)(
+        tp, models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu"),
+        torch.from_numpy(tok[:, :t]).long(), 0)
+    assert tl.shape == (BATCH, cfg.vocab_size)
+    assert _gap(tl, jl) <= BAND
+
+
+def test_make_decode_step_refuses_what_waits():
+    from dataclasses import replace
+
+    from repro_torch.configs.base import InputShape, MoEConfig
+    cfg = reduced(get_config("phi3-mini-3.8b"))
+    with pytest.raises(NotImplementedError, match="A12e"):
+        make_decode_step(cfg, InputShape("decode_32k", 32768, 1, "decode"))
+    with pytest.raises(NotImplementedError, match="A12d"):
+        make_decode_step(replace(cfg, encoder_layers=2))
+    moe = replace(cfg, moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
+    with pytest.raises(NotImplementedError, match="A12c"):
+        models.init_cache(moe, 1, 4, device="cpu")
+
+
+# --------------------------------- generate ----------------------------------
+@pytest.mark.parametrize("arch", [a for a, _ in ARCHS] + ["encdec"])
+def test_chunkable_matches_reference(arch):
+    from dataclasses import replace
+    if arch == "encdec":                 # an encoder-decoder never chunks
+        cfg = replace(get_config("phi3-mini-3.8b"), encoder_layers=2)
+        jcfg = replace(jget_config("phi3-mini-3.8b"), encoder_layers=2)
+    else:
+        cfg, jcfg = get_config(arch), jget_config(arch)
+    assert serve.chunkable(cfg) == jchunkable(jcfg)
+
+
+@pytest.mark.parametrize("stepped", [False, True], ids=["chunked", "stepped"])
+@pytest.mark.parametrize("arch,layers", ARCHS)
+def test_generate_matches_reference(arch, layers, stepped):
+    """Greedy tokens identical to the reference's ``generate``; the chunked
+    and stepped prefills give the same tokens (recurrent archs always
+    step)."""
+    cfg, _, _, tp, tok = _setup(arch, layers)
+    want = _jgenerate(arch, layers, stepped or not jchunkable(
+        _setup(arch, layers)[1]))
+    got, logits = serve.generate(cfg, tp, torch.from_numpy(tok).long(),
+                                 gen=GEN, max_seq=MAX_SEQ,
+                                 stepped_prefill=stepped, return_logits=True)
+    assert got.shape == (BATCH, PROMPT + GEN) and logits.shape == (
+        BATCH, GEN, cfg.vocab_size)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(logits.argmax(-1).numpy(), want[:, PROMPT:])
+
+
+def test_generate_refuses_sampling():
+    cfg, _, _, tp, tok = _setup("phi3-mini-3.8b", 2)
+    with pytest.raises(NotImplementedError, match="A18"):
+        serve.generate(cfg, tp, torch.from_numpy(tok), gen=2,
+                       max_seq=PROMPT + 2, greedy=False)
+    with pytest.raises(NotImplementedError, match="A18"):
+        serve.run(["--device", "cpu", "--temperature", "0.5"])
+
+
+def test_static_cli(capsys):
+    toks = serve.run(["--arch", "rwkv6-7b", "--device", "cpu", "--batch",
+                      "2", "--prompt-len", "5", "--gen", "3"])
+    assert toks.shape == (2, 8)
+    assert "arch=rwkv6-7b-reduced batch=2" in capsys.readouterr().out
+
+
+# -------------------------- the kernels' plain forms --------------------------
+def _np_dtype(name):
+    return ml_dtypes.bfloat16 if name == "bf16" else np.float32
+
+
+@pytest.mark.parametrize("hd", [80, 96])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("pos,window", [(0, 0), (37, 0), (63, 16)])
+def test_flash_decode_strided_cache_matches_reference(hd, dt, pos, window):
+    """B5 on the ``(B, S, KV, hd)`` layer cache read through its
+    ``transpose(1, 2)`` view, against the reference's oracle
+    (``REF`` 1e-6; bf16 q one bf16 ulp more) and its Pallas kernel in
+    interpret mode (2e-5) on the contiguous ``(B, KV, S, hd)`` copy."""
+    rng = np.random.default_rng(hd + pos)
+    b, h, kv, s = 2, 4, 2, 64
+    q = rng.standard_normal((b, h, 1, hd)).astype(_np_dtype(dt))
+    kc, vc = (rng.standard_normal((b, s, kv, hd)).astype(_np_dtype(dt))
+              for _ in range(2))
+    tk, tv = (tensor_from_numpy(a, "cpu").transpose(1, 2) for a in (kc, vc))
+    assert not tk.is_contiguous()
+    fd.reset_counts()
+    got = fd.flash_decode(tensor_from_numpy(q, "cpu"), tk, tv, pos,
+                          window=window).float().numpy()
+    assert fd.plain_count("flash_decode") == 1 and fd.launch_count() == 0
+    jk, jv = (jnp.asarray(a).transpose(0, 2, 1, 3) for a in (kc, vc))
+    oracle = np.asarray(jref.flash_decode_ref(jnp.asarray(q), jk, jv, pos,
+                                              window=window), np.float32)
+    pallas = np.asarray(jfd.flash_decode(jnp.asarray(q), jk, jv, pos,
+                                         window=window, interpret=True),
+                        np.float32)
+    ulp = (np.abs(oracle) * 2.0 ** -7) if dt == "bf16" else 0.0
+    assert (np.abs(got - oracle) <= 1e-6 + ulp).all()
+    assert (np.abs(got - pallas) <= 2e-5 + ulp).all()
+
+
+@pytest.mark.parametrize("t,offset,window", [(1, 0, 0), (1, 17, 0),
+                                             (5, 1, 0), (5, 17, 8),
+                                             (5, 17, 0), (12, 0, 4)])
+def test_flash_attention_offset_matches_reference(t, offset, window):
+    """B4 with a query offset (queries at offset..offset+T-1 over the first
+    offset + T keys), its plain form on CPU tensors, against the
+    reference's ``decode_attention_dyn`` over a longer cache (the keys past
+    offset + T must not count) within FN_ATOL."""
+    rng = np.random.default_rng(100 + offset + t)
+    b, h, kv, hd, s = 2, 4, 2, 16, offset + t + 7
+    q = rng.standard_normal((b, t, h, hd)).astype(np.float32)
+    kc, vc = (rng.standard_normal((b, s, kv, hd)).astype(np.float32)
+              for _ in range(2))
+    want = jtransformer.decode_attention_dyn(
+        *map(jnp.asarray, (q, kc, vc)), jnp.int32(offset), window)
+    n = offset + t
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2).contiguous()
+                  for a in (q, kc[:, :n], vc[:, :n]))
+    fa.reset_counts()
+    got = fa.flash_attention(tq, tk, tv, window=window, q_offset=offset)
+    assert fa.plain_count() == 1 and fa.launch_count() == 0
+    assert _gap(got.transpose(1, 2), want) <= FN_ATOL
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(tq, tk, tv, q_offset=-1)
+
+
+# ------------------------------ planted faults -------------------------------
+def _window_off_by_one(orig):
+    def dyn(q, k_cache, v_cache, pos, window):
+        return orig(q, k_cache, v_cache, pos, window + 1 if window else 0)
+    return dyn
+
+
+def _step_without_u(orig):
+    def step(S, r, k, v, w, u):
+        return orig(S, r, k, v, w, torch.zeros_like(u))
+    return step
+
+
+@pytest.mark.parametrize("fault", ["window_off_by_one", "u_dropped"])
+def test_planted_fault_breaks_the_band(monkeypatch, fault):
+    arch, layers = (("gemma3-4b", 2) if fault == "window_off_by_one"
+                    else ("rwkv6-7b", 2))
+    want = _stepped(arch, layers)[1]          # before the fault is planted
+    if fault == "window_off_by_one":
+        monkeypatch.setattr(transformer, "decode_attention_dyn",
+                            _window_off_by_one(
+                                transformer.decode_attention_dyn))
+    else:
+        monkeypatch.setattr(rwkv6, "wkv6_step",
+                            _step_without_u(rwkv6.wkv6_step))
+    cfg, _, _, tp, tok = _setup(arch, layers)
+    tc = models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu")
+    got = []
+    for t in range(PROMPT):
+        lt, tc = models.decode_step(tp, cfg, tc,
+                                    torch.from_numpy(tok[:, t:t + 1]), t)
+        got.append(lt.numpy())
+    gap = _gap(np.concatenate(got, 1), want)
+    assert gap > 10 * BAND, gap

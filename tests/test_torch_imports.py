@@ -35,6 +35,8 @@ def test_port_imports_with_jax_blocked():
         "assert {'repro_torch.checkpoint', 'repro_torch.checkpoint.ckpt',\n"
         "        'repro_torch.launch.train',\n"
         "        'repro_torch.examples.quickstart',\n"
+        "        'repro_torch.examples.serve_decode',\n"
+        "        'repro_torch.launch.serve', 'repro_torch.launch.steps',\n"
         "        'repro_torch.tune.autotune'} <= set(names)\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -86,8 +88,9 @@ def _entry_points():
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.flat import flat_spec
     from repro_torch.models import resnet, transformer
-    from repro_torch.examples import quickstart
-    from repro_torch.launch import train
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.examples import quickstart, serve_decode
+    from repro_torch.launch import serve, train
     from repro_torch.serve import ServeEngine
     from repro_torch import tune
     cfg = get_config("cifar-resnet18")
@@ -119,6 +122,13 @@ def _entry_points():
             + ([] if d is None else ["--device", d])),
         "examples.quickstart": lambda d: quickstart.main(
             ["--steps", "1"] + ([] if d is None else ["--device", d])),
+        "models.init_cache": lambda d: tree_leaves(models.init_cache(
+            lm, 2, 8, device=d)),
+        "launch.serve.run static": lambda d: serve.run(
+            ["--batch", "1", "--prompt-len", "4", "--gen", "2"]
+            + ([] if d is None else ["--device", d])),
+        "examples.serve_decode": lambda d: serve_decode.main(
+            [] if d is None else ["--device", d]),
     }
 
 

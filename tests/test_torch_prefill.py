@@ -270,19 +270,21 @@ def test_chunked_attention_with_offset_matches_reference(window):
 
 
 def test_stateful_paths_refused_off_the_cpu():
-    """Off the CPU a WKV state to start from and causal attention with a
-    query offset raise, naming their items, rather than running the
-    eager scans on the card (meta tensors stand in for CUDA ones here)."""
+    """Off the CPU a whole-sequence WKV from a state raises (B8 starts from
+    zero, and no reference path asks for it), and causal attention with a
+    query offset goes to B4 (which takes the offset) rather than to the
+    eager scans: meta tensors stand in for CUDA ones here, and B4's
+    wrapper refuses them."""
     cfg = reduced(get_config("rwkv6-7b"))
     x = torch.empty(1, 4, cfg.d_model, device="meta")
     state = torch.empty(1, cfg.n_heads, cfg.head_dim, cfg.head_dim,
                         device="meta")
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="from a WKV state"):
         rwkv6.time_mix({}, x, cfg, wkv_state=state)
-    q = torch.empty(1, 2, 4, 16, device="meta")
-    kv = torch.empty(1, 6, 2, 16, device="meta")
-    with pytest.raises(NotImplementedError, match="A12"):
+    q = torch.empty(1, 2, 4, 32, device="meta")
+    kv = torch.empty(1, 6, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="no flash_attention kernel for meta"):
         attention.chunked_attention(q, kv, kv, q_offset=4)
-    q6 = torch.empty(1, 6, 4, 16, device="meta")
-    with pytest.raises(NotImplementedError, match="A12"):
+    q6 = torch.empty(1, 6, 4, 32, device="meta")
+    with pytest.raises(ValueError, match="no flash_attention kernel for meta"):
         attention.chunked_attention(q6, kv, kv, q_offset=2)

@@ -443,8 +443,11 @@ def test_launch_serve_cli(capsys):
     recs = cli.run(["--engine", "continuous", "--device", "cpu",
                     "--requests", "4", "--gen", "4"])
     assert len(recs) == 4 and "continuous requests=4" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A12"):
-        cli.run(["--device", "cpu"])
+    # the static engine is the default (tests/test_torch_decode.py holds
+    # its generate against the reference's)
+    toks = cli.run(["--device", "cpu", "--batch", "2", "--gen", "4"])
+    assert toks.shape == (2, 32 + 4)
+    assert "arch=gemma3-4b-reduced batch=2" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="A18"):
         cli.run(["--engine", "continuous", "--device", "cpu",
                  "--temperature", "0.5"])
