@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py --b5-times SRC    # B5's times alone, from SRC
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -58,8 +59,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     ``FD_SHAPES``; each timed at its first window beside its plain
     version, its library call (SDPA for B5; for B6 none, with gather +
     SDPA as a note) and its bytes bound, f32 and bf16 pages side by side;
-    B6 also at every cluster size of ``CLUSTER_SIZES`` (checked at every
-    shape, timed at the two full geometries);
+    both also at every cluster size of ``CLUSTER_SIZES`` (checked at every
+    shape, timed at the two full geometries), B5 with its position also
+    as a 0-d int32 tensor on the card, bit-equal to the host int;
 12. serving main path: ``ServeEngine(backend="paged")`` on
     ``phi3-mini-3.8b`` at full width (32 layers, bf16 params, f32 pages,
     weights from a seeded generator on the card) serving the 16 requests
@@ -145,13 +147,19 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     static decode geometries of ``B5_SHAPES`` (phi3-mini hd 96, gemma3-4b
     hd 256 with its window, zamba2-2.7b's shared attention at hd 80), q
     and cache each in f32 and bf16, at positions 0, the middle and the
-    last (``FD_F32_TOL``); ``flash_attention`` (B4) with a query offset
+    last and every cluster size (``FD_F32_TOL``), the position also as a
+    0-d int32 tensor on the card (bit-equal to the host int), and one
+    launch captured in a CUDA graph replayed at the three positions
+    written into its position tensor (bit-equal to eager launches);
+    ``flash_attention`` (B4) with a query offset
     (offsets 0, 1, 17 and 512, chunks of 1, 5 and 64, with and without a
     window, f32 and bf16; ``PF_F32_TOL``); each timed beside its plain
-    version, SDPA and its bound; (b) ``launch.serve.generate`` at full
-    width in bf16: phi3-mini-3.8b on 4 x 512 prompt tokens + 64 generated
-    (``max_seq`` 576) with exactly 32 B4 launches (the chunked prefill)
-    and 32 x 63 B5 (one a layer a decode step), no plain attention; ms of
+    version, SDPA and its bound (B5 also at every cluster size); (b)
+    ``launch.serve.generate`` at full width in bf16, its one-token steps
+    at a position kept on the card: phi3-mini-3.8b on 4 x 512 prompt
+    tokens + 64 generated (``max_seq`` 576) with exactly 32 B4 launches
+    (the chunked prefill) and 32 x 63 B5 (one a layer a decode step), no
+    plain attention; ms of
     the prefill and a decode step (CUDA events around each decode call),
     tokens/s, peak memory and one profiled decode step (idle share, B5's
     share, top kernels); zamba2-2.7b (9 B5 launches a step) and rwkv6-7b
@@ -179,6 +187,13 @@ variants.
 The last three lines of standard output are the card's name and power
 limit (as ``nvidia-smi`` gives them), one JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``.
+
+``--b5-times SRC`` runs none of that: it imports the port from SRC (for
+instance a parent commit's ``src``, unpacked by ``git archive``), builds
+its ``flash_decode.cu``, times B5 at the timed forms of phases 11 and
+21 (a) (``b5_times``) and prints the nvidia-smi line and one JSON line of
+records.  Alternating two trees in one call (parent, change, change,
+parent) compares them on one card and host.
 """
 import argparse
 import gc
@@ -931,6 +946,10 @@ def fd_kernel_phase(FD, rate):
                             rec.update(_fd_splits(
                                 FD, q, kp, vp, tbl, lens, w, r6, label,
                                 timed=wi == 0 and si < 2))
+                        else:
+                            rec.update(_b5_splits(
+                                FD, q, kc, vc, pos, w, r5, label,
+                                timed=wi == 0 and si < 2))
                         out[name].append(rec)
                 del q, kp, vp, tbl, lens, kc, vc
         log(f"  B5/B6 {label}: rows {rows}, heads {h}/{kvh}, hd {hd}, "
@@ -940,7 +959,7 @@ def fd_kernel_phase(FD, rate):
             for r in out[name]:
                 if r["shape"] == label and "split_ms" in r:
                     d = r["split_device_ms"]
-                    log(f"    flash_decode_paged q {r['q']} cache "
+                    log(f"    {name} q {r['q']} cache "
                         f"{r['cache']} by cluster size (chosen "
                         f"{r['split']}), event / device time: " + ", ".join(
                             f"{c}: {t * 1e3:.1f} / "
@@ -990,6 +1009,65 @@ def _fd_splits(FD, q, kp, vp, tbl, lens, w, ref, label, timed):
     if timed:
         rec.update(split_ms=times, split_device_ms=dev)
     return rec
+
+
+def _b5_splits(FD, q, kc, vc, pos, w, ref, label, timed):
+    """B5 at every cluster size, each against the plain version ``ref``
+    (within the phase's tolerance), and with ``pos`` as a 0-d int32
+    tensor on the card bit-equal to the host int at each; where
+    ``timed``, each size timed (events and device time).  Returns the
+    size the wrapper chooses itself, and the times."""
+    rows, h, _, hd = q.shape
+    kvh, s = kc.shape[1], kc.shape[2]
+    rec = {"split": FD.decode_cluster_size(
+        rows, h, kvh, s,
+        torch.cuda.get_device_properties(0).multi_processor_count, hd,
+        kc.element_size(), w)}
+    dev_pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    times, dev = {}, {}
+    for c in FD.CLUSTER_SIZES:
+        call = lambda: FD.flash_decode(q, kc, vc, pos, window=w, split=c)
+        out = call()
+        on_card = FD.flash_decode(q, kc, vc, dev_pos, window=w, split=c)
+        torch.cuda.synchronize()
+        err, ok, worst = _fd_err(out, ref)
+        if not ok:
+            raise AssertionError(
+                f"flash_decode {label} pos {pos} window {w} cluster {c}: "
+                f"kernel differs from its plain version by {err}; worst "
+                f"{worst}")
+        if not torch.equal(on_card, out):
+            raise AssertionError(
+                f"flash_decode {label} pos {pos} window {w} cluster {c}: "
+                "the device pos gives other bits than the host int")
+        if timed:
+            times[c] = cuda_ms(call)
+            dev[c] = device_ms(call)
+    if timed:
+        rec.update(split_ms=times, split_device_ms=dev)
+    return rec
+
+
+def _b5_replay(FD, q, kc, vc, w, positions, label):
+    """One B5 launch captured in a CUDA graph with its position in a 0-d
+    int32 tensor on the card, replayed at each of ``positions`` written
+    into that tensor: bit-equal to an eager launch at the host int."""
+    pos = torch.zeros((), dtype=torch.int32, device="cuda")
+    FD.flash_decode(q, kc, vc, pos, window=w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = FD.flash_decode(q, kc, vc, pos, window=w)
+    for p in positions:
+        pos.fill_(p)
+        graph.replay()
+        want = FD.flash_decode(q, kc, vc, p, window=w)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(
+                f"flash_decode {label}: the captured launch replayed at "
+                f"pos {p} differs from an eager launch")
+    del graph
 
 
 def _fd_times(FD, name, q, kp, vp, tbl, lens, kc, vc, pos, w, lengths,
@@ -2871,26 +2949,55 @@ def _b5_bound(q, kt, pos, w, rate):
         nbytes
 
 
+def _b5_static_inputs(si, qd, kd):
+    """q and the (B, S, KV, hd) layer caches of B5_SHAPES[si] on the card
+    (a seeded draw), the caches as B5 reads them: their transpose(1, 2)
+    views, in place."""
+    _, rows, h, kvh, hd, s, _ = B5_SHAPES[si]
+    gen = torch.Generator(device="cuda").manual_seed(300 + si)
+    q = torch.randn(rows, h, 1, hd, generator=gen, device="cuda").to(qd)
+    kc, vc = (torch.randn(rows, s, kvh, hd, generator=gen,
+                          device="cuda").to(kd) for _ in "kv")
+    return q, kc.transpose(1, 2), vc.transpose(1, 2)
+
+
+def _b5_time(FD, q, kt, vt, pos, w, rate):
+    """B5's event and device times at the size the wrapper chooses, and
+    its bytes bound; for a wrapper that takes ``pos`` on the card (the
+    split-key B5), also the device time of that form, which the decode
+    path runs (``device_ms_pos_on_card``)."""
+    kern = lambda: FD.flash_decode(q, kt, vt, pos, window=w)
+    bound_ms, by, nbytes = _b5_bound(q, kt, pos, w, rate)
+    rec = {"ms": cuda_ms(kern), "device_ms": device_ms(kern),
+           "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes}
+    if hasattr(FD, "decode_cluster_size"):
+        on_card = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        rec["device_ms_pos_on_card"] = device_ms(
+            lambda: FD.flash_decode(q, kt, vt, on_card, window=w))
+    return rec
+
+
 def b5_static_phase(D, rate):
     """Phase 21 (a), B5: on the reference's strided cache at every shape of
     B5_SHAPES, q and cache each in f32 and bf16, at positions 0, the middle
-    and max_seq - 1, against its plain version (FD_F32_TOL; bf16 outputs
-    one bf16 ulp more); timed at max_seq - 1 (q and cache of one dtype)
-    beside the plain version, SDPA and the bytes bound."""
+    and max_seq - 1, at every cluster size, against its plain version
+    (FD_F32_TOL; bf16 outputs one bf16 ulp more), with the position also
+    as a 0-d int32 tensor on the card (bit-equal to the host int); one
+    launch captured in a CUDA graph and replayed at the three positions
+    (bit-equal to eager launches); timed at max_seq - 1 (q and cache of
+    one dtype) beside the plain version, SDPA and the bytes bound, at the
+    size the wrapper chooses and at every size."""
     out = []
     for si, (label, rows, h, kvh, hd, s, w) in enumerate(B5_SHAPES):
         for qd in (torch.bfloat16, torch.float32):
             for kd in (torch.bfloat16, torch.float32):
-                gen = torch.Generator(device="cuda").manual_seed(300 + si)
-                q = torch.randn(rows, h, 1, hd, generator=gen,
-                                device="cuda").to(qd)
-                kc, vc = (torch.randn(rows, s, kvh, hd, generator=gen,
-                                      device="cuda").to(kd) for _ in "kv")
-                kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)  # in place
+                q, kt, vt = _b5_static_inputs(si, qd, kd)
                 for pos in (0, s // 2, s - 1):
-                    kern = lambda: D.FD.flash_decode(q, kt, vt, pos, window=w)
+                    timed = pos == s - 1 and qd == kd
                     plain = lambda: D.FD._xla_decode(q, kt, vt, pos, window=w)
-                    err, ok, worst = _fd_err(kern(), plain())
+                    ref = plain()
+                    err, ok, worst = _fd_err(
+                        D.FD.flash_decode(q, kt, vt, pos, window=w), ref)
                     if not ok:
                         raise AssertionError(
                             f"flash_decode {label} q {qd} cache {kd} pos "
@@ -2900,33 +3007,73 @@ def b5_static_phase(D, rate):
                     rec = {"shape": label, "q": str(qd)[6:],
                            "cache": str(kd)[6:], "layout": "(B, S, KV, hd)",
                            "pos": pos, "window": w, "max_abs_err": err}
-                    if pos == s - 1 and qd == kd:
-                        bound_ms, by, nbytes = _b5_bound(q, kt, pos, w, rate)
+                    rec.update(_b5_splits(D.FD, q, kt, vt, pos, w, ref,
+                                          label, timed))
+                    if timed:
                         idx = torch.arange(s, device="cuda")
                         lo = max(0, pos - w + 1) if w > 0 else 0
                         mask = ((idx <= pos) & (idx >= lo))[None, None, None]
-                        rec.update(
-                            ms=cuda_ms(kern), device_ms=device_ms(kern),
-                            plain_ms=cuda_ms(plain), bound_ms=bound_ms,
-                            bound_by=by, bytes=nbytes,
-                            library_ms=cuda_ms(
-                                lambda: F.scaled_dot_product_attention(
-                                    q, kt, vt, attn_mask=mask,
-                                    enable_gqa=True)))
+                        rec.update(_b5_time(D.FD, q, kt, vt, pos, w, rate),
+                                   plain_ms=cuda_ms(plain),
+                                   library_ms=cuda_ms(
+                                       lambda: F.scaled_dot_product_attention(
+                                           q, kt, vt, attn_mask=mask,
+                                           enable_gqa=True)))
+                        _b5_replay(D.FD, q, kt, vt, w, (0, s // 2, s - 1),
+                                   label)
+                        d = rec["split_device_ms"]
                         log(f"    flash_decode {label} {rec['q']} (B, S, KV, "
                             f"hd) cache, pos {pos}: kernel "
                             f"{rec['ms'] * 1e3:.1f} us (device "
-                            f"{rec['device_ms'] * 1e3:.1f}), plain "
+                            f"{rec['device_ms'] * 1e3:.1f}, pos on the card "
+                            f"{rec['device_ms_pos_on_card'] * 1e3:.1f}; "
+                            f"cluster {rec['split']}), plain "
                             f"{rec['plain_ms'] * 1e3:.1f} us, SDPA "
                             f"{rec['library_ms'] * 1e3:.1f} us, bound "
-                            f"{bound_ms * 1e3:.1f} us by {by} "
-                            f"({bound_ms / rec['device_ms']:.0%} of device "
-                            f"time), err {err:.3g}")
+                            f"{rec['bound_ms'] * 1e3:.1f} us by "
+                            f"{rec['bound_by']} ({rec['bound_ms'] / rec['device_ms']:.0%} "
+                            f"of device time), err {err:.3g}; device time by "
+                            "cluster size " + ", ".join(
+                                f"{c}: {t * 1e3:.1f} us"
+                                for c, t in d.items()))
                     out.append(rec)
-                del q, kc, vc, kt, vt
+                del q, kt, vt
         log(f"  B5 {label}: rows {rows}, heads {h}/{kvh}, hd {hd}, cache "
             f"(B, {s}, KV, hd), window {w}: within tolerance of the plain "
-            "version (q and cache bf16 / f32, 3 positions)")
+            "version (q and cache bf16 / f32, 3 positions, every cluster "
+            "size), the device pos bit-equal to the host int, a captured "
+            "launch replayed at 3 positions bit-equal to eager launches")
+    return out
+
+
+def b5_times(FD, rate):
+    """B5 alone, timed (events and device time, at the cluster size the
+    wrapper chooses, the position a host int) at the timed forms of phase
+    11 (phi3-mini and gemma3-4b, q bf16, f32 and bf16 caches, contiguous)
+    and phase 21 (a) (B5_SHAPES at max_seq - 1, q and cache of one dtype):
+    the records of ``--b5-times``, which runs them from another checkout
+    of the port (a parent's) to compare in one call."""
+    out = []
+    for si, shape in enumerate(FD_SHAPES[:2]):
+        label, w, pos = shape[0], shape[9][0], shape[8] - 7
+        for kd in (torch.float32, torch.bfloat16):
+            q, _, _, _, _, kc, vc, _ = _fd_inputs(shape, torch.bfloat16, kd,
+                                                  seed=100 + si)
+            out.append({"shape": label, "q": "bfloat16",
+                        "cache": str(kd)[6:], "pos": pos, "window": w,
+                        **_b5_time(FD, q, kc, vc, pos, w, rate)})
+    for si, (label, _, _, _, _, s, w) in enumerate(B5_SHAPES):
+        for dt in (torch.bfloat16, torch.float32):
+            q, kt, vt = _b5_static_inputs(si, dt, dt)
+            out.append({"shape": label, "q": str(dt)[6:],
+                        "cache": str(dt)[6:], "pos": s - 1, "window": w,
+                        **_b5_time(FD, q, kt, vt, s - 1, w, rate)})
+    for r in out:
+        log(f"  B5 {r['shape']} q {r['q']} cache {r['cache']}: "
+            f"{r['ms'] * 1e3:.2f} us, device {r['device_ms'] * 1e3:.2f} us"
+            + (f", pos on the card {r['device_ms_pos_on_card'] * 1e3:.2f} "
+               "us" if "device_ms_pos_on_card" in r else "")
+            + f" (bound {r['bound_ms'] * 1e3:.2f} us)")
     return out
 
 
@@ -3066,15 +3213,17 @@ def _check_tokens(arch, toks, logits, cfg, b, n):
 
 def _decode_profile(D, cfg, params, prompts):
     """One one-token decode step at position DEC_PROMPT (after a chunked
-    prefill of the prompts) under torch.profiler: device busy ms, idle
+    prefill of the prompts; the position a 0-d int32 tensor on the card,
+    as ``generate`` passes it) under torch.profiler: device busy ms, idle
     share, B5's share and the top kernels."""
     decode = D.serve.make_decode_step(cfg)
     cache = D.models.init_cache(cfg, prompts.shape[0], DEC_MAX_SEQ,
                                 device="cuda")
     logits, cache = decode(params, cache, prompts, 0)
     nxt = logits.argmax(-1)[:, None]
+    pos = torch.tensor(DEC_PROMPT, dtype=torch.int32, device="cuda")
     kern, count, wall = traced_kernels(
-        lambda: decode(params, cache, nxt, DEC_PROMPT), ("decode_kernel",),
+        lambda: decode(params, cache, nxt, pos), ("decode_kernel",),
         cfg.n_layers)
     busy = sum(kern.values())
     b5 = sum(us for n, us in kern.items() if "decode_kernel" in n)
@@ -3267,18 +3416,29 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--b5-times", metavar="SRC", default=None,
+                    help="only time B5 (flash_decode) from the port under "
+                    "SRC (a directory holding repro_torch, e.g. a parent "
+                    "commit's src), print the records and stop")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    src = os.path.join(ROOT, "src")
+    src = args.b5_times or os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
-        print("chip_smoke: no src/repro_torch beside this script",
-              file=sys.stderr)
+        print(f"chip_smoke: no repro_torch under {src}", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    if args.b5_times:
+        from repro_torch.kernels import flash_decode as FD
+        name = torch.cuda.get_device_name(0)
+        log(f"B5 from {os.path.abspath(src)} on {name}")
+        recs = b5_times(FD, mem_rate(name))
+        print(nvidia_smi_line(), flush=True)
+        print(json.dumps({"src": src, "b5": recs}), flush=True)
+        return 0
     from dataclasses import replace
     from types import SimpleNamespace
 

@@ -5,7 +5,9 @@
 //   flash_decode        (B5, :99)  — _kernel (:30): q (B, H, 1, hd) over a
 //       cache (B, KV, S, hd) read through its strides (the reference's
 //       contiguous (B, KV, S, hd) form, or the (B, S, KV, hd) layer cache
-//       of the models' decode step, in place), one scalar position `pos`;
+//       of the models' decode step, in place), one scalar position `pos`
+//       (read from device memory, as the Pallas kernel reads its
+//       scalar-prefetch operand, or passed as a launch argument);
 //   flash_decode_paged  (B6, :192) — _paged_kernel (:149): q (S, H, 1, hd)
 //       over a page pool (P, page_len, KV, hd) through a page table (S, PP)
 //       int32 and per-row lengths (S,) int32.
@@ -33,49 +35,59 @@
 // 3.35 TB/s of an H100 SXM, against ~25 Mflop.  Both designs therefore
 // stream K and V once and keep the rest on chip.
 //
-// B5 (decode_kernel<QT, KT, kTail>): one block of 32 warps per (row, query
-// head); the warps take pairs of consecutive keys in turn with plain
-// global loads, a warp splits hd over its lanes (lane l holds dims
-// l + 32·e: coalesced rows; when hd is a multiple of 16 but not of 32 —
-// zamba2-2.7b's 80 — the lanes past hd in the last chunk hold zeros and
-// load nothing, a per-lane check compiled in only then, kTail: in every
-// chunk it made the bf16 kernel measurably slower),
-// warp-reduces the dot products with shuffles and keeps a running max, sum
-// and f32 hd-vector (the online softmax); at the end the warps' states
-// merge in shared memory.  Key j of (row b, KV head g) starts at element
-// b·sb + g·sg + j·sj of the cache (StridedRows), so the models' (B, S, KV,
-// hd) layer cache is read where it lies, one row stride per key, with no
-// transposed copy.  With GQA each KV head is read by its n_rep query
-// heads' blocks, through L2.
-//
-// B6 (paged_kernel): a split-key decode over thread-block clusters.
+// Both are split-key decodes over thread-block clusters:
 //   * One cluster of C blocks (C in {1, 2, 4, 8}, chosen by the wrapper
-//     from the grid: few rows × heads get a wide split) per (row, KV head,
-//     group of up to kRep query heads).  The row's live keys [lo, hi] are
-//     cut into stages of kStageKeys keys and the stages into C contiguous
-//     shares; a block whose share is empty keeps m = −inf.  Each block
+//     from the grid, the SM count and the cache length — and for B5 the
+//     window — never from pos: few rows × heads get a wide split) per
+//     (row, KV head, group of up to kRep query heads).  The row's live
+//     keys [lo, hi] are cut into stages of 8 keys a warp and the stages
+//     into C contiguous shares, each block cutting its own share on the
+//     card; a block whose share is empty keeps m = −inf.  Each block
 //     serves every query head of its group from the same staged keys, so
-//     with GQA a page is read from device memory once, not n_rep times.
-//   * Each block (4 warps) stages K and V rows in shared memory through a
-//     ring of kStages stages filled by cp.async (16 bytes a thread and
-//     copy, the page id read from the table and clamped per key; keys past
-//     the share are zero-filled), and computes on one stage while the next
-//     two land (cp.async groups, one __syncthreads a stage).
+//     with GQA a K/V row is read from device memory once, not n_rep times.
+//   * Each block stages K and V rows in shared memory through a ring of
+//     stages filled by cp.async (16 bytes a thread and copy; keys past the
+//     share are zero-filled), and computes on one stage while the next
+//     ones land (cp.async groups, one __syncthreads a stage).
 //   * A warp takes 8 keys of a stage at once, 4 lanes a key: each lane
 //     holds a quarter of the dot products of its key with every query head
 //     of the group (rows read as 16-byte chunks, bf16 widened to f32 after
-//     the stage; the chunk order rotates with the key so the 8 keys of a
-//     quarter-warp fall in different banks), 2 shuffles finish them.  So 8
-//     keys' products are in flight at once, and the online-softmax step —
-//     max over the 8 keys, exp, rescale — runs once per 8 keys, where the
-//     B5 design waits on a chain per key pair.  Then lane l adds p·v for
-//     dims l + 32·e of the 8 keys.
-//   * Each warp leaves (m, l, acc) per head in its block's shared memory;
-//     after a cluster barrier the leader block (rank 0) reads the C blocks'
-//     states through distributed shared memory (map_shared_rank), merges
-//     them and writes the output; a second barrier keeps every block's
-//     shared memory alive until the leader has read it.  One launch, no
-//     global workspace.
+//     the stage), 2 shuffles finish them.  So 8 keys' products are in
+//     flight at once, and the online-softmax step — max over the 8 keys,
+//     exp, rescale — runs once per 8 keys.  Then lane l adds p·v for dims
+//     l + 32·e of the 8 keys.
+//   * After the key loop the cluster's partial softmax states (m, l, acc)
+//     are merged by the leader block (rank 0) through distributed shared
+//     memory (map_shared_rank), which writes the output; a second cluster
+//     barrier keeps every block's shared memory alive until the leader has
+//     read it.  One launch, no global workspace.
+//
+// B5 (dense::decode_kernel<KT, kRep, kE>) reads key j of (row b, KV head g)
+// at element b·sb + g·sg + j·sj of the cache (StridedRows), so the models'
+// (B, S, KV, hd) layer cache is read where it lies, one row stride a key,
+// with no transposed copy.  It reads `pos` through a pointer when one is
+// given, so its launch arguments are the same at every decode step (a
+// captured step replays at any position); q's loads are issued before
+// pos's, and the first stages before q is stored, so their latencies
+// overlap.  A block has 8 warps (4 for f32 rows of more than 128 dims):
+// a stage's work is a chain of dependent steps in each warp, and a block
+// streams its share as fast as its warps' chains allow.  It is compiled
+// for each kE = ceil(hd / 32) (hd any multiple of 16 up to 256), so every
+// loop over a row runs as far as hd needs and no further; when hd is no
+// multiple of 32 (zamba2-2.7b's 80) a bf16 row is no whole number of the
+// 4 lanes' 16-byte chunks and the last 32-dim column of p·v is partial,
+// and only the last chunk and column check their lanes.  Its ring is
+// sized by hd (2-4 stages of about kRingTarget bytes), and a staged row's
+// pitch is padded so that the two keys a quarter-warp reads start 64
+// bytes apart modulo 128 (other banks).  Each block first merges its
+// warps' states in its own shared memory, so the leader merges C states,
+// not C per warp; a block alone in its cluster (C = 1, launched without a
+// cluster) writes the output itself.
+//
+// B6 (paged::paged_kernel<QT, KT, kRep>) reads each key through the page
+// table (the page id read from the table and clamped per key), with 4
+// warps a block, a fixed 3-stage ring and the chunk order rotating with
+// the key; its leader merges every warp's state of the cluster.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,186 +96,12 @@
 
 namespace {
 
-constexpr int kWarps = 32;      // a 1024-thread block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kKeys = 2;        // keys a warp carries per step
-constexpr int kMaxE = 8;        // hd / 32 <= 8, i.e. hd <= 256
-
-// one element as f32, through the read-only cache; a bf16 element is read as
-// its 16 raw bits and widened exactly (bf16 is the top half of an f32)
-__device__ __forceinline__ float load_f32(const float* p, int64_t i) {
-  return __ldg(p + i);
-}
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t i) {
-  const unsigned short bits =
-      __ldg(reinterpret_cast<const unsigned short*>(p) + i);
-  return __uint_as_float(static_cast<unsigned int>(bits) << 16);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// B5: element offset of key j of (row b, kv head g) in a cache read
-// through its strides (the last dimension contiguous); the key stride fits
-// 32 bits, so a key's offset is one 32 x 32 -> 64-bit multiply-add (a
-// 64 x 64-bit product in the key loop made the kernel measurably slower)
-struct StridedRows {
-  int64_t sb, sg;
-  int sj;
-  __device__ __forceinline__ int64_t offset(int b, int g, int j) const {
-    return b * sb + g * sg + static_cast<int64_t>(j) * sj;
-  }
-};
-
-// kTail: hd is no multiple of 32, so the last 32-dim chunk is partial and
-// each lane checks that its dim exists (the other chunks' guard stays
-// uniform across the warp)
-template <typename QT, typename KT, bool kTail>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
-              const KT* __restrict__ vc, QT* __restrict__ out, StridedRows rows,
-              int pos, int n_heads, int n_rep, int hd, int n_keys, int window,
-              float scale) {
-  const int h = blockIdx.x, b = blockIdx.y, g = h / n_rep;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int hi = min(pos, n_keys - 1);
-  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
-  const int n_e = (hd + 31) >> 5;   // chunks of 32 dims: lane l holds l + 32·e
-  const bool tail = !kTail || lane + 32 * (n_e - 1) < hd;
-  auto has = [&](int e) { return e < n_e && (e < n_e - 1 || tail); };
-
-  const QT* qrow = q + (static_cast<int64_t>(b) * n_heads + h) * hd;
-  float qf[kMaxE], acc[kMaxE];
-#pragma unroll
-  for (int e = 0; e < kMaxE; ++e) {
-    qf[e] = has(e) ? load_f32(qrow, lane + 32 * e) * scale : 0.f;
-    acc[e] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int base = lo + warp * kKeys; base <= hi; base += kWarps * kKeys) {
-    float kf[kKeys][kMaxE], vf[kKeys][kMaxE];
-#pragma unroll
-    for (int c = 0; c < kKeys; ++c) {
-      const bool live = base + c <= hi;
-      const int64_t off = live ? rows.offset(b, g, base + c) : 0;
-#pragma unroll
-      for (int e = 0; e < kMaxE; ++e) {
-        const bool on = live && has(e);
-        kf[c][e] = on ? load_f32(kc, off + lane + 32 * e) : 0.f;
-        vf[c][e] = on ? load_f32(vc, off + lane + 32 * e) : 0.f;
-      }
-    }
-    float s[kKeys];
-#pragma unroll
-    for (int c = 0; c < kKeys; ++c) {
-      float d = 0.f;
-#pragma unroll
-      for (int e = 0; e < kMaxE; ++e) d += qf[e] * kf[c][e];
-      s[c] = d;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-      for (int c = 0; c < kKeys; ++c)
-        s[c] += __shfl_xor_sync(0xffffffffu, s[c], o);
-    }
-    float m_new = m;
-#pragma unroll
-    for (int c = 0; c < kKeys; ++c)
-      if (base + c <= hi) m_new = fmaxf(m_new, s[c]);
-    const float alpha = expf(m - m_new);        // 0 on the first step
-    float p[kKeys], p_sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kKeys; ++c) {
-      p[c] = base + c <= hi ? expf(s[c] - m_new) : 0.f;
-      p_sum += p[c];
-    }
-    l = l * alpha + p_sum;
-#pragma unroll
-    for (int e = 0; e < kMaxE; ++e) {
-      float a = acc[e] * alpha;
-#pragma unroll
-      for (int c = 0; c < kKeys; ++c) a += p[c] * vf[c][e];
-      acc[e] = a;
-    }
-    m = m_new;
-  }
-
-  // merge the warps' partial softmax states
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][32 * kMaxE];
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-#pragma unroll
-  for (int e = 0; e < kMaxE; ++e)
-    if (has(e)) sm_acc[warp][lane + 32 * e] = acc[e];
-  __syncthreads();
-  float m_all = -INFINITY;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sm_m[w]);
-  QT* orow = out + (static_cast<int64_t>(b) * n_heads + h) * hd;
-  for (int d = threadIdx.x; d < hd; d += kThreads) {
-    float num = 0.f, den = 0.f;
-    if (m_all != -INFINITY) {               // no key in range: zeros
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float wt = expf(sm_m[w] - m_all);
-        num += wt * sm_acc[w][d];
-        den += wt * sm_l[w];
-      }
-    }
-    store(orow + d, den > 0.f ? num / den : 0.f);
-  }
-}
-
-int launch(const void* q, const void* k, const void* v, void* out,
-           StridedRows rows, int pos, int n_rows, int n_heads, int kv_heads,
-           int hd, int n_keys, int window, float scale, int q_bf16,
-           int kv_bf16, cudaStream_t stream) {
-  if (hd < 16 || hd > 32 * kMaxE || hd % 16 != 0 || kv_heads < 1 ||
-      n_heads % kv_heads != 0 || n_rows < 1 || n_rows > 65535 ||
-      n_keys < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n_heads, n_rows);
-  const int n_rep = n_heads / kv_heads;
-  using bf16 = __nv_bfloat16;
-#define REPRO_DECODE_TAIL(QT, KT, TAIL)                                     \
-  decode_kernel<QT, KT, TAIL><<<grid, kThreads, 0, stream>>>(               \
-      static_cast<const QT*>(q), static_cast<const KT*>(k),                 \
-      static_cast<const KT*>(v), static_cast<QT*>(out), rows, pos, n_heads, \
-      n_rep, hd, n_keys, window, scale)
-#define REPRO_DECODE(QT, KT)                                                \
-  do {                                                                      \
-    if (hd % 32) REPRO_DECODE_TAIL(QT, KT, true);                           \
-    else REPRO_DECODE_TAIL(QT, KT, false);                                  \
-  } while (0)
-  if (q_bf16 && kv_bf16) REPRO_DECODE(bf16, bf16);
-  else if (q_bf16) REPRO_DECODE(bf16, float);
-  else if (kv_bf16) REPRO_DECODE(float, bf16);
-  else REPRO_DECODE(float, float);
-#undef REPRO_DECODE
-#undef REPRO_DECODE_TAIL
-  return static_cast<int>(cudaGetLastError());
-}
-
-
-// ---- B6: the split-key paged decode over a cluster ---------------------------
-namespace paged {
-
-namespace cg = cooperative_groups;
-
-constexpr int kWarps = 4;                  // a 128-thread block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kKeysPerWarp = 8;            // 4 lanes a key
-constexpr int kStageKeys = kWarps * kKeysPerWarp;   // keys a stage
-constexpr int kStages = 3;                 // the cp.async ring
-constexpr int kMaxE = 8;                   // hd / 32 <= 8
-constexpr int kMaxSmem = 232448;           // an H100 block's shared memory
-
+// cp.async and the reads of staged rows, shared by B5 and B6
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
@@ -297,6 +135,421 @@ __device__ __forceinline__ float widen1(const __nv_bfloat16* p) {
   return __uint_as_float(
       static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(p)) << 16);
 }
+
+// B5: element offset of key j of (row b, kv head g) in a cache read
+// through its strides (the last dimension contiguous); the key stride fits
+// 32 bits, so a key's offset is one 32 x 32 -> 64-bit multiply-add (a
+// 64 x 64-bit product in the key loop made the kernel measurably slower)
+struct StridedRows {
+  int64_t sb, sg;
+  int sj;
+};
+
+// ---- B5: the split-key decode over a strided cache ---------------------------
+namespace dense {
+
+namespace cg = cooperative_groups;
+
+constexpr int kKeysPerWarp = 8;            // 4 lanes a key
+constexpr int kMinStages = 2, kMaxStages = 4;       // the cp.async ring
+constexpr int kRingTarget = 65536;         // bytes a block's ring aims at
+constexpr int kMaxE = 8;                   // hd / 32 <= 8
+constexpr int kMaxSmem = 232448;           // an H100 block's shared memory
+
+// Warps a block, 8 keys each a stage: 8, or 4 for f32 rows of more than
+// 128 dims (two 64-key stages of those would not fit a block).  Twice the
+// warps of a 4-warp block stream a block's share twice as fast: a stage's
+// work is a chain of dependent steps per warp, and a block is as fast as
+// its warps' chains allow.
+__host__ __device__ constexpr int block_warps(int esz, int n_e) {
+  return esz == 4 && n_e > 4 ? 4 : 8;
+}
+// Bytes from one staged row to the next: the row padded so that rows
+// start 64 bytes apart modulo 128 (a row is a multiple of 32 bytes).  A
+// quarter-warp reads two keys' 64 contiguous bytes, which then fall in the
+// two halves of the banks.
+__host__ __device__ inline int row_pitch(int hd, int esz) {
+  const int row = hd * esz;
+  return row + (192 - row % 128) % 128;
+}
+__host__ __device__ inline int stage_bytes(int pitch, int warps) {
+  return 2 * kKeysPerWarp * warps * pitch;   // K rows, then V rows
+}
+// stages of the ring: as many as fit kRingTarget, 2 to 4
+__host__ __device__ inline int ring_stages(int pitch, int warps) {
+  const int n = kRingTarget / stage_bytes(pitch, warps);
+  return n < kMinStages ? kMinStages : n > kMaxStages ? kMaxStages : n;
+}
+__host__ __device__ inline size_t q_bytes(int rep, int hd) {
+  return (static_cast<size_t>(rep) * hd * 4 + 15) / 16 * 16;
+}
+// Shared memory: the group's q (f32, scaled), then the ring; after the key
+// loop the ring's bytes hold each warp's (m, l, acc), then the block's.
+__host__ __device__ inline size_t smem_bytes(int rep, int hd, int esz) {
+  const int warps = block_warps(esz, (hd + 31) / 32);
+  const int pitch = row_pitch(hd, esz);
+  const size_t ring = static_cast<size_t>(ring_stages(pitch, warps)) *
+                      stage_bytes(pitch, warps);
+  const size_t parts = static_cast<size_t>(warps + 1) * rep * (hd + 2) * 4;
+  return q_bytes(rep, hd) + (ring > parts ? ring : parts);
+}
+
+// kE = ceil(hd / 32): the 32-dim columns of p·v a lane holds, so every
+// loop over a row runs exactly as far as hd needs.  When hd is no multiple
+// of 32 the last column is partial and a bf16 row's 16-byte chunks are no
+// multiple of the 4 lanes of a key: lanes check their dim and chunk in the
+// last column and chunk only.
+template <typename KT, int kRep, int kE>
+__global__ void __launch_bounds__(32 * block_warps(sizeof(KT), kE))
+decode_kernel(const void* __restrict__ q, const KT* __restrict__ kc,
+              const KT* __restrict__ vc, void* __restrict__ out,
+              StridedRows rows, const int* __restrict__ pos_dev, int pos_arg,
+              int n_heads, int n_rep, int n_groups, int hd, int n_keys,
+              int window, float scale, int q_bf16) {
+  constexpr int kWarps = block_warps(sizeof(KT), kE);
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kStageKeys = kKeysPerWarp * kWarps;   // keys a stage
+  constexpr int kElems = 16 / sizeof(KT);     // elements of a 16-byte chunk
+  constexpr int kI = 8 * kE / kElems;          // chunks a lane reads, at most
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_split = static_cast<int>(cluster.num_blocks());
+  const int g = blockIdx.y / n_groups, grp = blockIdx.y % n_groups;
+  const int b = blockIdx.z;
+  const int h0 = g * n_rep + grp * kRep;
+  const int nh = min(kRep, n_rep - grp * kRep);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pitch = row_pitch(hd, sizeof(KT));
+  const int pitch_e = pitch / static_cast<int>(sizeof(KT));
+  const int n_stages = ring_stages(pitch, kWarps);
+  const int st_bytes = stage_bytes(pitch, kWarps);
+
+  float* q_s = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + q_bytes(kRep, hd);
+  const uint32_t ring_u32 =
+      static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+
+  // q's elements of this thread, read before pos so that the two loads'
+  // latencies overlap (q goes to shared memory once the first stages are
+  // in flight)
+  constexpr int kQPer = (kRep * 32 * kE + kThreads - 1) / kThreads;
+  float qr[kQPer];
+#pragma unroll
+  for (int u = 0; u < kQPer; ++u) {
+    const int i = tid + u * kThreads, hh = i / hd;
+    qr[u] = 0.f;
+    if (i < kRep * hd && hh < nh) {
+      const int64_t e =
+          (static_cast<int64_t>(b) * n_heads + h0 + hh) * hd + i % hd;
+      qr[u] = q_bf16 ? widen1(static_cast<const __nv_bfloat16*>(q) + e)
+                     : widen1(static_cast<const float*>(q) + e);
+    }
+  }
+
+  // the live keys and this block's share of their stages, cut on the card
+  const int pos = pos_dev != nullptr ? __ldg(pos_dev) : pos_arg;
+  const int hi = min(pos, n_keys - 1);
+  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
+  const int n_live = hi - lo + 1;
+  const int n_st = n_live > 0 ? (n_live + kStageKeys - 1) / kStageKeys : 0;
+  const int per = (n_st + n_split - 1) / n_split;
+  const int st0 = min(n_st, rank * per), st1 = min(n_st, st0 + per);
+
+  const int row_chunks = hd / kElems;          // 16-byte chunks of a row
+  const int64_t head = b * rows.sb + g * rows.sg;
+  auto load = [&](int st, int slot) {
+    const int base = lo + st * kStageKeys;
+    const uint32_t k_dst = ring_u32 + static_cast<uint32_t>(slot * st_bytes);
+    const uint32_t v_dst = k_dst + static_cast<uint32_t>(kStageKeys * pitch);
+    for (int i = tid; i < kStageKeys * row_chunks; i += kThreads) {
+      const int kk = i / row_chunks, c = i - kk * row_chunks;
+      const int j = base + kk;
+      const KT* ks = kc;
+      const KT* vs = vc;
+      int bytes = 0;
+      if (j <= hi) {
+        const int64_t off =
+            head + static_cast<int64_t>(j) * rows.sj + c * kElems;
+        ks += off;
+        vs += off;
+        bytes = 16;
+      }
+      const uint32_t o = static_cast<uint32_t>(kk * pitch + c * 16);
+      cp_async16(k_dst + o, ks, bytes);            // 0 bytes: zero-filled
+      cp_async16(v_dst + o, vs, bytes);
+    }
+  };
+
+  // per warp and head: the running max, sum and f32 hd-vector
+  float m[kRep], l[kRep], acc[kRep][kE];
+#pragma unroll
+  for (int hh = 0; hh < kRep; ++hh) {
+    m[hh] = -INFINITY;
+    l[hh] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[hh][e] = 0.f;
+  }
+  const int kk = warp * kKeysPerWarp + (lane >> 2), part = lane & 3;
+  // lane l holds dims l + 32·e; in the last column only the lanes below hd
+  const bool last = lane + 32 * (kE - 1) < hd;
+
+  for (int i = 0; i < n_stages - 1; ++i) {
+    if (st0 + i < st1) load(st0 + i, i);
+    cp_async_commit();
+  }
+  // q, once the first stages are in flight (the loop's first barrier
+  // publishes it)
+#pragma unroll
+  for (int u = 0; u < kQPer; ++u) {
+    const int i = tid + u * kThreads;
+    if (i < kRep * hd) q_s[i] = qr[u] * scale;
+  }
+  for (int st = st0; st < st1; ++st) {
+    // stage st landed once at most n_stages - 2 younger groups are pending
+    if (n_stages == 4) cp_async_wait<2>();
+    else if (n_stages == 3) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();             // stage st landed; stage st - 1 is free
+    {
+      const int nx = st + n_stages - 1;
+      if (nx < st1) load(nx, (nx - st0) % n_stages);
+      cp_async_commit();
+    }
+    const int slot = (st - st0) % n_stages;
+    const KT* k_s = reinterpret_cast<const KT*>(ring + slot * st_bytes);
+    const KT* v_s = k_s + kStageKeys * pitch_e;
+    const int j = lo + st * kStageKeys + kk;
+
+    // this lane's quarter of q·k for every head of the group
+    float sc[kRep];
+#pragma unroll
+    for (int hh = 0; hh < kRep; ++hh) sc[hh] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kI; ++i) {
+      const int c = part + 4 * i;
+      if (i < kI - 1 || c < row_chunks) {
+        float x[8];
+        widen(k_s + kk * pitch_e + c * kElems, x);
+#pragma unroll
+        for (int hh = 0; hh < kRep; ++hh) {
+          const float* qc = q_s + hh * hd + c * kElems;
+#pragma unroll
+          for (int t = 0; t < kElems; ++t) sc[hh] = fmaf(qc[t], x[t], sc[hh]);
+        }
+      }
+    }
+    const bool valid = j <= hi;
+    float p[kRep];
+#pragma unroll
+    for (int hh = 0; hh < kRep; ++hh) {
+      float v = sc[hh];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v = valid ? v : -INFINITY;
+      float mx = v;
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[hh], mx);
+      float alpha = 1.f;
+      p[hh] = 0.f;
+      if (m_new != -INFINITY) {                   // else no key yet
+        p[hh] = valid ? expf(v - m_new) : 0.f;
+        alpha = expf(m[hh] - m_new);              // 0 on the first key
+      }
+      float ps = p[hh];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      l[hh] = l[hh] * alpha + ps;
+      m[hh] = m_new;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[hh][e] *= alpha;
+    }
+    // acc += p·v over the warp's 8 keys; lane l holds dims l + 32·e
+#pragma unroll
+    for (int k = 0; k < kKeysPerWarp; ++k) {
+      const KT* vrow = v_s + (warp * kKeysPerWarp + k) * pitch_e + lane;
+      float vv[kE];
+#pragma unroll
+      for (int e = 0; e < kE; ++e)
+        vv[e] = e < kE - 1 || last ? widen1(vrow + 32 * e) : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < kRep; ++hh) {
+        const float pk = __shfl_sync(0xffffffffu, p[hh], 4 * k);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) acc[hh][e] = fmaf(pk, vv[e], acc[hh][e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();               // the ring's bytes now hold the states
+
+  float* part_m = reinterpret_cast<float*>(ring);              // [warp][head]
+  float* part_l = part_m + kWarps * kRep;
+  float* part_acc = part_l + kWarps * kRep;                    // [warp][head][hd]
+  float* blk_m = part_acc + kWarps * kRep * hd;                // [head]
+  float* blk_l = blk_m + kRep;
+  float* blk_acc = blk_l + kRep;                               // [head][hd]
+#pragma unroll
+  for (int hh = 0; hh < kRep; ++hh) {
+    if (lane == 0) {
+      part_m[warp * kRep + hh] = m[hh];
+      part_l[warp * kRep + hh] = l[hh];
+    }
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+      if (e < kE - 1 || last)
+        part_acc[(warp * kRep + hh) * hd + lane + 32 * e] = acc[hh][e];
+  }
+  __syncthreads();
+  auto put = [&](int hh, int d, float o) {
+    const int64_t at = (static_cast<int64_t>(b) * n_heads + h0 + hh) * hd + d;
+    if (q_bf16) store(static_cast<__nv_bfloat16*>(out) + at, o);
+    else store(static_cast<float*>(out) + at, o);
+  };
+  // this block's state: its warps' states merged (alone in its cluster,
+  // the block writes the output itself)
+  for (int i = tid; i < kRep * hd; i += kThreads) {
+    const int hh = i / hd, d = i - hh * hd;
+    float mb = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, part_m[w * kRep + hh]);
+    float a = 0.f, lb = 0.f;
+    if (mb != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float wt = expf(part_m[w * kRep + hh] - mb);
+        a = fmaf(wt, part_acc[(w * kRep + hh) * hd + d], a);
+        lb = fmaf(wt, part_l[w * kRep + hh], lb);
+      }
+    }
+    if (n_split == 1) {
+      if (hh < nh) put(hh, d, lb > 0.f ? a / lb : 0.f);
+      continue;
+    }
+    blk_acc[i] = a;
+    if (d == 0) {
+      blk_m[hh] = mb;
+      blk_l[hh] = lb;
+    }
+  }
+  if (n_split == 1) return;
+  cluster.sync();                // every block's state is in place
+
+  if (rank == 0) {
+    for (int i = tid; i < nh * hd; i += kThreads) {
+      const int hh = i / hd, d = i - hh * hd;
+      float m_all = -INFINITY;
+      for (int r = 0; r < n_split; ++r)
+        m_all = fmaxf(m_all, *cluster.map_shared_rank(blk_m + hh, r));
+      float num = 0.f, den = 0.f;
+      if (m_all != -INFINITY) {                  // no key in range: zeros
+        for (int r = 0; r < n_split; ++r) {
+          const float wt =
+              expf(*cluster.map_shared_rank(blk_m + hh, r) - m_all);
+          num = fmaf(wt, *cluster.map_shared_rank(blk_acc + i, r), num);
+          den = fmaf(wt, *cluster.map_shared_rank(blk_l + hh, r), den);
+        }
+      }
+      put(hh, d, den > 0.f ? num / den : 0.f);
+    }
+  }
+  cluster.sync();                // the leader is done reading
+}
+
+template <typename KT, int kRep, int kE>
+int launch(const void* q, const void* k, const void* v, void* out,
+           StridedRows rows, const int* pos_dev, int pos_arg, int n_rows,
+           int n_heads, int kv_heads, int hd, int n_keys, int window,
+           float scale, int q_bf16, int n_split, cudaStream_t stream) {
+  const int n_rep = n_heads / kv_heads;
+  const int n_groups = (n_rep + kRep - 1) / kRep;
+  const size_t smem = smem_bytes(kRep, hd, sizeof(KT));
+  auto kernel = decode_kernel<KT, kRep, kE>;
+  // the most any hd asks (227 KB), set once: a decode step launches this
+  // every layer, and the host's time a call is what a step waits on
+  static bool opted_in = false;
+  cudaError_t err;
+  if (!opted_in) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, kv_heads * n_groups, n_rows);
+  cfg.blockDim = dim3(32 * block_warps(sizeof(KT), kE));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = n_split > 1;    // C = 1: a plain launch (a cluster of one)
+  err = cudaLaunchKernelEx(&cfg, kernel, q, static_cast<const KT*>(k),
+                           static_cast<const KT*>(v), out, rows, pos_dev,
+                           pos_arg, n_heads, n_rep, n_groups, hd, n_keys,
+                           window, scale, q_bf16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename KT, int kRep>
+int by_columns(const void* q, const void* k, const void* v, void* out,
+               StridedRows rows, const int* pos_dev, int pos_arg, int n_rows,
+               int n_heads, int kv_heads, int hd, int n_keys, int window,
+               float scale, int q_bf16, int n_split, cudaStream_t stream) {
+#define REPRO_DENSE(E)                                                        \
+  case E:                                                                     \
+    return launch<KT, kRep, E>(q, k, v, out, rows, pos_dev, pos_arg, n_rows,  \
+                               n_heads, kv_heads, hd, n_keys, window, scale,  \
+                               q_bf16, n_split, stream)
+  switch ((hd + 31) / 32) {
+    REPRO_DENSE(1); REPRO_DENSE(2); REPRO_DENSE(3); REPRO_DENSE(4);
+    REPRO_DENSE(5); REPRO_DENSE(6); REPRO_DENSE(7); REPRO_DENSE(8);
+  }
+#undef REPRO_DENSE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename KT>
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             StridedRows rows, const int* pos_dev, int pos_arg, int n_rows,
+             int n_heads, int kv_heads, int hd, int n_keys, int window,
+             float scale, int q_bf16, int n_split, cudaStream_t stream) {
+  const int n_rep = n_heads / kv_heads;
+#define REPRO_DENSE(R)                                                        \
+  return by_columns<KT, R>(q, k, v, out, rows, pos_dev, pos_arg, n_rows,      \
+                           n_heads, kv_heads, hd, n_keys, window, scale,      \
+                           q_bf16, n_split, stream)
+  if (n_rep == 1) REPRO_DENSE(1);
+  if (n_rep == 2) REPRO_DENSE(2);
+  if (n_rep <= 4) REPRO_DENSE(4);
+  REPRO_DENSE(8);
+#undef REPRO_DENSE
+}
+
+}  // namespace dense
+
+
+// ---- B6: the split-key paged decode over a cluster ---------------------------
+namespace paged {
+
+namespace cg = cooperative_groups;
+
+constexpr int kWarps = 4;                  // a 128-thread block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKeysPerWarp = 8;            // 4 lanes a key
+constexpr int kStageKeys = kWarps * kKeysPerWarp;   // keys a stage
+constexpr int kStages = 3;                 // the cp.async ring
+constexpr int kMaxE = 8;                   // hd / 32 <= 8
+constexpr int kMaxSmem = 232448;           // an H100 block's shared memory
 
 // Shared memory: the group's q (f32, scaled), then the ring of K and V
 // stages; after the key loop the stages' bytes hold each warp's (m, l, acc).
@@ -590,17 +843,34 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 
 // B5.  q (b, h, 1, hd) contiguous, out like q; k and v (b, kv, seq, hd)
 // read through the element strides (sb, sg, sj) of their first three
-// dimensions, the last one contiguous; hd a multiple of 16 up to 256;
-// dtypes by flag (1 = bf16, 0 = f32).  Returns cudaGetLastError().
+// dimensions, the last one contiguous, every row 16-byte aligned; hd a
+// multiple of 16 up to 256; dtypes by flag (1 = bf16, 0 = f32).  The
+// position is *pos_dev when pos_dev is not null, else pos.  n_split: the
+// blocks of a cluster (1, 2, 4 or 8) that share each row's keys.  Returns
+// cudaGetLastError().
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   void* out, int b, int h, int kv, int seq,
-                                  int hd, int pos, int window, float scale,
-                                  int q_bf16, int kv_bf16, long long sb,
-                                  long long sg, long long sj, void* stream) {
-  if (sj < 1 || sj > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(q, k, v, out, StridedRows{sb, sg, static_cast<int>(sj)}, pos,
-                b, h, kv, hd, seq, window, scale, q_bf16, kv_bf16,
-                static_cast<cudaStream_t>(stream));
+                                  int hd, int pos, const int* pos_dev,
+                                  int window, float scale, int q_bf16,
+                                  int kv_bf16, long long sb, long long sg,
+                                  long long sj, int n_split, void* stream) {
+  const long long esz = kv_bf16 ? 2 : 4;
+  const uintptr_t misaligned =
+      (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16;
+  if (hd < 16 || hd > 32 * dense::kMaxE || hd % 16 != 0 || kv < 1 ||
+      h % kv != 0 || b < 1 || b > 65535 || seq < 1 ||
+      kv * ((h / kv + 7) / 8) > 65535 || sj < 1 || sj > INT32_MAX ||
+      misaligned || (sb * esz) % 16 || (sg * esz) % 16 || (sj * esz) % 16 ||
+      (n_split != 1 && n_split != 2 && n_split != 4 && n_split != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StridedRows rows{sb, sg, static_cast<int>(sj)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_DENSE(KT)                                                      \
+  return dense::dispatch<KT>(q, k, v, out, rows, pos_dev, pos, b, h, kv, hd, \
+                             seq, window, scale, q_bf16, n_split, s)
+  if (kv_bf16) REPRO_DENSE(__nv_bfloat16);
+  REPRO_DENSE(float);
+#undef REPRO_DENSE
 }
 
 // B6.  q (rows, h, 1, hd), k/v pages (n_pages, page_len, kv, hd), table

@@ -1,22 +1,27 @@
 """One-query decode attention over a KV cache (the serving hot spot).
 
 Two kernels, hand-written in CUDA for Hopper (``csrc/flash_decode.cu``),
-replace the reference's Pallas TPU kernels:
+replace the reference's Pallas TPU kernels.  Both split each row's live
+keys over the blocks of a thread-block cluster (``split``; by default
+``decode_cluster_size`` / ``cluster_size`` choose from the grid, the SM
+count and the cache length), one block serving a KV head's query heads
+from keys it stages in shared memory, and the cluster's leader merges the
+partial softmax states through distributed shared memory:
 
   * ``flash_decode`` (B5) — q ``(B, H, 1, hd)`` over a cache
-    ``(B, KV, S, hd)`` of any strides with a contiguous last dimension
-    (the reference's contiguous form, or the ``transpose(1, 2)`` view of
-    the models' ``(B, S, KV, hd)`` layer cache, read in place) and one
-    position ``pos``; head dims a multiple of 16 up to 256;
+    ``(B, KV, S, hd)`` of any 16-byte-aligned strides with a contiguous
+    last dimension (the reference's contiguous form, or the
+    ``transpose(1, 2)`` view of the models' ``(B, S, KV, hd)`` layer
+    cache, read in place) and one position ``pos``: a host int, or a 0-d
+    int32 tensor on q's device that the kernel reads from device memory
+    (as the Pallas kernel reads its scalar-prefetch operand), so that its
+    launch arguments stay the same from one decode step to the next; head
+    dims a multiple of 16 up to 256;
   * ``flash_decode_paged`` (B6) — q ``(S, H, 1, hd)`` over a page pool
     ``(P, page_len, KV, hd)`` through a page table ``(S, PP)`` and
-    per-row ``lengths`` ``(S,)``: the paged serve step's decode attention.
-    One launch splits each row's live keys over the blocks of a
-    thread-block cluster (``cluster_size``), each block staging its keys in
-    shared memory, and the cluster's leader merges the partial softmax
-    states through distributed shared memory; head dims a multiple of 32
-    up to 256 (its 16-byte row chunks and 4-lane key split are laid out
-    for that).
+    per-row ``lengths`` ``(S,)``: the paged serve step's decode attention;
+    head dims a multiple of 32 up to 256 (its 16-byte row chunks and
+    4-lane key split are laid out for that).
 
 Both attend to the keys ``j <= pos`` (and ``j > pos - window`` when
 ``window > 0``), with the KV head ``h // n_rep`` (GQA), softmax in f32,
@@ -52,10 +57,15 @@ reset_counts = _COUNTS.reset
 
 MAX_HEAD_DIM = 256
 
-# B6 splits each row's live keys over the blocks of a thread-block cluster
+# B5 and B6 split each row's live keys over the blocks of a thread-block
+# cluster, in stages of keys
 CLUSTER_SIZES = (1, 2, 4, 8)
-STAGE_KEYS = 32          # keys a block stages at a time (csrc kStageKeys)
-_STAGES, _WARPS = 3, 4   # csrc kStages, kWarps
+STAGE_KEYS = 32          # keys a B6 block stages at a time (csrc kStageKeys)
+_STAGES, _WARPS = 3, 4   # B6's ring (csrc paged::kStages), warps a block
+# B5 (csrc dense::): its ring's target bytes and most stages, and the
+# least K/V bytes a block should stream
+_RING_TARGET, _MAX_STAGES = 65536, 4
+_MIN_BLOCK_BYTES = 96 * 1024
 _SMEM_PER_SM = 233472    # bytes of shared memory an H100 SM gives its blocks
 _SM_COUNT = {}
 
@@ -70,6 +80,26 @@ def _block_smem(hd: int, kv_bytes: int, rep: int) -> int:
     of the K/V ring and the warps' partial states."""
     ring = 2 * _STAGES * STAGE_KEYS * hd * kv_bytes
     return rep * hd * 4 + max(ring, _WARPS * rep * (hd + 2) * 4)
+
+
+def _dense_warps(hd: int, kv_bytes: int) -> int:
+    """Warps of a B5 block (csrc ``dense::block_warps``), 8 keys each a
+    stage: 8, or 4 for f32 rows of more than 128 dims."""
+    return 4 if kv_bytes == 4 and hd > 128 else 8
+
+
+def _dense_smem(hd: int, kv_bytes: int, rep: int) -> int:
+    """A B5 block's shared memory (csrc ``dense::smem_bytes``): q, then
+    the larger of the ring — 2 to 4 stages of K and V rows, as many as
+    fit 64 KB, each row padded so that rows start 64 bytes apart modulo
+    128 — and the warps' and the block's partial states."""
+    warps = _dense_warps(hd, kv_bytes)
+    row = hd * kv_bytes
+    pitch = row + (192 - row % 128) % 128
+    stage = 2 * 8 * warps * pitch
+    stages = min(_MAX_STAGES, max(2, _RING_TARGET // stage))
+    q = -(-rep * hd * 4 // 16) * 16
+    return q + max(stages * stage, (warps + 1) * rep * (hd + 2) * 4)
 
 
 @functools.lru_cache(maxsize=256)
@@ -92,6 +122,40 @@ def cluster_size(rows: int, heads: int, kv_heads: int, n_keys: int,
         if clusters * c >= target or 2 * c > most:
             return c
     return CLUSTER_SIZES[-1]
+
+
+@functools.lru_cache(maxsize=256)
+def decode_cluster_size(rows: int, heads: int, kv_heads: int, n_keys: int,
+                        n_sm: int, hd: int, kv_bytes: int,
+                        window: int = 0) -> int:
+    """The blocks of B5's cluster a row's keys are split over: the most of
+    ``CLUSTER_SIZES`` that keep every block of the grid resident at once
+    and give each block at least ``_MIN_BLOCK_BYTES`` of K and V at the
+    longest live range (``n_keys``, the cache's length, or ``window`` when
+    it is shorter); 1 when even 2 would not.  Past one wave of blocks the
+    tail wave costs, and a shorter share costs a block its fixed latency
+    (the first stage, the merge) for less streaming.  Resident: by shared
+    memory, at most 8 blocks an SM; where one block fills an SM, clusters
+    of at most 4 on at most three quarters of the SMs, since a cluster's
+    blocks share one GPC of 14-18 SMs and a full card leaves some
+    clusters to a second wave.  Read from the cache's length and the
+    layer's window, never from ``pos``, so that a decode step launches B5
+    with the same arguments at every position."""
+    rep = _group(heads // kv_heads)
+    clusters = rows * kv_heads * -(-(heads // kv_heads) // rep)
+    per_sm = max(1, min(8, _SMEM_PER_SM
+                        // (_dense_smem(hd, kv_bytes, rep) + 1024)))
+    stage_keys = 8 * _dense_warps(hd, kv_bytes)
+    live = min(n_keys, window) if window > 0 else n_keys
+    n_st = -(-live // stage_keys)
+    stage = 2 * stage_keys * hd * kv_bytes
+    slots = per_sm * n_sm if per_sm > 1 else 3 * n_sm // 4
+    best = 1
+    for c in CLUSTER_SIZES[1:]:
+        if clusters * c <= slots and (per_sm > 1 or c <= 4) and \
+                -(-n_st // c) * stage >= _MIN_BLOCK_BYTES:
+            best = c
+    return best
 
 
 def _sm_count(device) -> int:
@@ -190,8 +254,8 @@ def _lib():
     if not getattr(lib, "_repro_bound", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         i64 = ctypes.c_longlong
-        lib.repro_flash_decode.argtypes = [vp, vp, vp, vp] + [i32] * 7 + [
-            f32, i32, i32, i64, i64, i64, vp]
+        lib.repro_flash_decode.argtypes = [vp, vp, vp, vp] + [i32] * 6 + [
+            vp, i32, f32, i32, i32, i64, i64, i64, i32, vp]
         lib.repro_flash_decode.restype = ctypes.c_int
         lib.repro_flash_decode_paged.argtypes = [vp] * 6 + [i32] * 8 + [
             f32, i32, i32, i32, vp]
@@ -204,23 +268,50 @@ def _is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
+def _check_pos(name, pos, device):
+    """``pos`` as the kernel takes it: a host int >= 0, or a 0-d int32
+    tensor on ``device`` (its value stays on the device: the caller keeps
+    it in ``[0, S)``; a negative one gives zeros on the card)."""
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0 or pos.dtype != torch.int32 \
+                or pos.device != device:
+            raise ValueError(f"{name}: a tensor pos must be 0-d int32 on "
+                             f"{device}, got {tuple(pos.shape)} {pos.dtype} "
+                             f"on {pos.device}")
+        return pos
+    if isinstance(pos, bool) or int(pos) != pos or pos < 0:
+        raise ValueError(f"{name}: pos must be an int >= 0 or a 0-d int32 "
+                         f"tensor, got {pos!r}")
+    return int(pos)
+
+
 # -- wrappers ----------------------------------------------------------------
-def flash_decode(q, k_cache, v_cache, pos: int, *, window: int = 0):
+def flash_decode(q, k_cache, v_cache, pos, *, window: int = 0, split=None):
     """q: (B, H, 1, hd); k_cache/v_cache: (B, KV, S, hd), one layout (the
     same strides; the last dimension contiguous; e.g. ``cache.transpose(1,
     2)`` of a ``(B, S, KV, hd)`` cache, which the kernel reads in place);
-    ``pos``: host int, the index of the newest token (keys ``0..pos``
-    attend, within the last ``window`` when ``window > 0``).  Returns (B,
-    H, 1, hd) in q's dtype (B5).  ``pos`` must be ``>= 0``; hd a multiple
-    of 16 up to 256."""
+    ``pos``: the index of the newest token (keys ``0..pos`` attend, within
+    the last ``window`` when ``window > 0``), a host int ``>= 0`` or a 0-d
+    int32 tensor on q's device, which the kernel reads on the card (no
+    copy to the host: the caller keeps ``0 <= pos``); the plain version
+    gives the same bits for both.  Returns (B, H, 1, hd) in q's dtype
+    (B5); hd a multiple of 16 up to 256.
+
+    ``split``: the blocks of the kernel's cluster that share a row's keys
+    (one of ``CLUSTER_SIZES``; ``None`` chooses by
+    ``decode_cluster_size``, from the cache's length and the window, not
+    from ``pos``).  It changes the float order only; the plain version does
+    not read it."""
     name = "flash_decode"
+    if split is not None and split not in CLUSTER_SIZES:
+        raise ValueError(f"{name}: split must be one of {CLUSTER_SIZES} or "
+                         f"None, got {split!r}")
     _check_qkv(name, q, k_cache, v_cache, k_cache.shape[1], 16)
     if k_cache.dim() != 4 or k_cache.shape[0] != q.shape[0]:
         raise ValueError(f"{name}: caches must be (B, KV, S, hd) with q's "
                          f"B, got {tuple(k_cache.shape)}")
-    if isinstance(pos, torch.Tensor) or int(pos) != pos or pos < 0:
-        raise ValueError(f"{name}: pos must be a host int >= 0, got {pos!r}")
-    pos, window = int(pos), int(window)
+    pos = _check_pos(name, pos, q.device)
+    window = int(window)
     variant = _c.variant_of(k_cache)
     if q.device.type == "cpu":
         _COUNTS.plain(name, variant)
@@ -237,13 +328,25 @@ def flash_decode(q, k_cache, v_cache, pos: int, *, window: int = 0):
     if not 0 < strides[2] < 2 ** 31:
         raise ValueError(f"{name}: the kernel takes a key stride of 1 to "
                          f"2^31 - 1 elements; got {strides[2]}")
+    esz = k_cache.element_size()
+    for t in (k_cache, v_cache):
+        if t.data_ptr() % 16 or any(st * esz % 16 for st in strides):
+            raise ValueError(f"{name}: the kernel copies cache rows in "
+                             "16-byte pieces and needs 16-byte-aligned rows; "
+                             f"got strides {t.stride()} and base offset "
+                             f"{t.data_ptr() % 16}")
     b, h, _, hd = q.shape
     kvh, s = k_cache.shape[1], k_cache.shape[2]
+    if split is None:
+        split = decode_cluster_size(b, h, kvh, s, _sm_count(q.device), hd,
+                                    esz, window)
+    host_pos, pos_ptr = (pos, None) if isinstance(pos, int) else \
+        (0, _c.ptr(pos))
     out = torch.empty_like(q)
     err = _lib().repro_flash_decode(
         _c.ptr(q), _c.ptr(k_cache), _c.ptr(v_cache), _c.ptr(out), b, h, kvh,
-        s, hd, pos, window, hd ** -0.5, _is_bf16(q), _is_bf16(k_cache),
-        *strides, _c.stream_of(q))
+        s, hd, host_pos, pos_ptr, window, hd ** -0.5, _is_bf16(q),
+        _is_bf16(k_cache), *strides, int(split), _c.stream_of(q))
     _c.raise_on(err, name)
     _COUNTS.launch(name, variant)
     return out

@@ -36,7 +36,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def flash_decode(q, k_cache, v_cache, pos, *, window: int = 0,
                  backend: str = "auto"):
     """Single-token decode attention. q: (B,H,1,hd); caches (B,KV,S,hd);
-    ``pos`` a host int."""
+    ``pos`` a host int or a 0-d int32 tensor on q's device."""
     _fd.resolve_impl(backend, q.device)
     return _fd.flash_decode(q, k_cache, v_cache, pos, window=window)
 

@@ -7,7 +7,8 @@ call for attention archs — the whole prompt enters the KV cache at once
 (B4 with its query offset in every layer on the card) — and steps token
 by token for recurrent state (mamba2 / rwkv6), which has no cache to
 chunk into; every generated token is one decode step (B5 in every
-attention layer on the card).  Greedy only: sampling waits for ROADMAP
+attention layer on the card, reading the step's position from the
+device).  Greedy only: sampling waits for ROADMAP
 A18.
 
 ``--engine continuous`` hands a synthetic request stream to
@@ -65,11 +66,16 @@ def generate(cfg, params, prompts, *, gen: int, max_seq: int, greedy=True,
     gen) tokens in the prompts' dtype (and, with ``return_logits``, the
     (B, gen, V) logits each generated token was the argmax of).
 
-    Attention archs prefill in ONE chunked decode call; recurrent archs —
-    or ``stepped_prefill=True`` — step token by token.  Greedy only:
-    ``greedy=False`` (the reference's threefry sampling with ``rng``)
-    waits for ROADMAP A18.  The loop reads nothing back from the card
-    until the end: each step's token is the argmax on the device."""
+    Attention archs prefill in ONE chunked decode call (at the host
+    position 0); recurrent archs — or ``stepped_prefill=True`` — step
+    token by token.  Every one-token step, the stepped prefill's too,
+    takes its position from one int32 tensor on the prompts' device,
+    advanced in place after the step, as the reference passes a traced
+    ``jnp.int32(t)``: B5 reads it there, so each step launches its
+    kernels with the same arguments.  Greedy only: ``greedy=False`` (the
+    reference's threefry sampling with ``rng``) waits for ROADMAP A18.
+    The loop reads nothing back from the card until the end: each step's
+    token is the argmax on the device."""
     if not greedy:
         raise NotImplementedError(
             "sampled generation (greedy=False) needs the reference's "
@@ -79,17 +85,21 @@ def generate(cfg, params, prompts, *, gen: int, max_seq: int, greedy=True,
     decode = make_decode_step(cfg)
     if stepped_prefill or not chunkable(cfg):
         # prefill by stepping (the only correct path for recurrent state)
+        pos = torch.zeros((), dtype=torch.int32, device=prompts.device)
         for t in range(p):
-            logits, cache = decode(params, cache, prompts[:, t:t + 1], t)
+            logits, cache = decode(params, cache, prompts[:, t:t + 1], pos)
+            pos.add_(1)
     else:
         logits, cache = decode(params, cache, prompts, 0)
+        pos = torch.full((), p, dtype=torch.int32, device=prompts.device)
     out, seen = [prompts], []
     for t in range(p, p + gen):
         seen.append(logits)
         nxt = torch.argmax(logits, dim=-1).to(prompts.dtype)[:, None]
         out.append(nxt)
         if t < p + gen - 1:
-            logits, cache = decode(params, cache, nxt, t)
+            logits, cache = decode(params, cache, nxt, pos)
+            pos.add_(1)
     toks = torch.cat(out, dim=1)
     return (toks, torch.stack(seen, dim=1)) if return_logits else toks
 

@@ -48,9 +48,12 @@ def make_decode_step(cfg: ModelConfig, shape=None):
     tokens may be a chunk (B, T >= 1): attention archs take a whole
     prompt or a chunk of one through the same step, and the returned
     logits are those of the LAST chunk position — the classic one-token
-    decode when T = 1.  ``pos`` is a host int.  The cache is updated in
-    place (``models.decode_step``) and returned.  On the card it turns
-    TF32 off first (process-wide, as the prefill step does).
+    decode when T = 1.  ``pos`` is a host int, or for T = 1 a 0-d integer
+    tensor on the tokens' device (the reference's traced ``pos``), read
+    on the device with no copy to the host: then the caller keeps ``0 <=
+    pos < max_seq`` (``models.decode_step``).  The cache is updated in
+    place and returned.  On the card it turns TF32 off first
+    (process-wide, as the prefill step does).
 
     ``shape`` (an input shape whose window overrides the config's) needs
     ``launch/specs.py``'s ``effective_window`` and

@@ -137,14 +137,16 @@ def chunked_attention(q, k, v, *, window: int = 0, causal: bool = True,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
+def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
     """Single-token decode attention over a KV cache.
 
-    q: (B, 1, H, hd); k_cache/v_cache: (B, S, KV, hd); pos: host int (the
-    number of tokens already in the cache, i.e. the new token's index).
-    window: if > 0, attend only to the last ``window`` keys.  On CUDA
-    tensors this is B5 on the caches as they lie; on the CPU the
-    reference's einsum form (f32 scores, softmax and product)."""
+    q: (B, 1, H, hd); k_cache/v_cache: (B, S, KV, hd); pos: the number of
+    tokens already in the cache, i.e. the new token's index — a host int,
+    or a 0-d int32 tensor on q's device (the reference's traced position),
+    which B5 reads on the card.  window: if > 0, attend only to the last
+    ``window`` keys.  On CUDA tensors this is B5 on the caches as they lie;
+    on the CPU the reference's einsum form (f32 scores, softmax and
+    product), the same bits for either form of ``pos``."""
     if q.device.type != "cpu":
         o = _fd.flash_decode(q.transpose(1, 2), k_cache.transpose(1, 2),
                              v_cache.transpose(1, 2), pos, window=window)

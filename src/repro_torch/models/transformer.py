@@ -375,12 +375,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     return caches
 
 
-def decode_attention_dyn(q, k_cache, v_cache, pos: int, window: int):
+def _refuse_device_chunk(pos, t: int):
+    if isinstance(pos, torch.Tensor) and t > 1:
+        raise ValueError(
+            f"a chunk of {t} tokens takes a host int pos: B4's offset form "
+            "copies the first pos + T keys, a host length, until it reads "
+            "the layer cache through its strides (ROADMAP B4 (c))")
+
+
+def decode_attention_dyn(q, k_cache, v_cache, pos, window: int):
     """Attention of a chunk of T >= 1 query tokens at positions
     pos..pos+T-1 over a ``(B, S, KV, hd)`` cache that already holds them
     (T = 1 is the classic single-token decode; T > 1 the chunked prefill
     — causality within the chunk falls out of the same position mask).
-    ``window``: this layer's sliding window (0 = global).
+    ``window``: this layer's sliding window (0 = global).  ``pos``: a host
+    int, or for T = 1 a 0-d int32 tensor on q's device.
 
     On the CPU the reference's einsum form, line for line (f32 scores,
     softmax and product).  On the card T = 1 is B5 over the cache as it
@@ -389,6 +398,7 @@ def decode_attention_dyn(q, k_cache, v_cache, pos: int, window: int):
     form (one copy of those keys per layer per chunk)."""
     b, t, h, hd = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
+    _refuse_device_chunk(pos, t)
     if q.device.type != "cpu":
         if t == 1:
             return decode_attention(q, k_cache, v_cache, pos, window=window)
@@ -415,50 +425,80 @@ def decode_attention_dyn(q, k_cache, v_cache, pos: int, window: int):
     return torch.einsum("bhqs,bshd->bqhd", p, v).to(q.dtype)
 
 
-def _decode_attn_layer(p, x, cfg, cache_k, cache_v, window, pos, rope):
+def _decode_attn_layer(p, x, cfg, cache_k, cache_v, window, pos, rope,
+                       slot):
     """One attention block over a chunk; writes its keys and values into
-    ``cache_k`` / ``cache_v`` (``(B, S, KV, hd)`` views) at ``pos``."""
+    ``cache_k`` / ``cache_v`` (``(B, S, KV, hd)`` views) at ``pos`` — for
+    a tensor ``pos`` at ``slot``, its int64 index on the same device."""
     b, t = x.shape[:2]
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn_project_qkv(p["attn"], xin, None, cfg, rope=rope)
-    cache_k[:, pos:pos + t] = k.to(cache_k.dtype)
-    cache_v[:, pos:pos + t] = v.to(cache_v.dtype)
+    if slot is None:
+        cache_k[:, pos:pos + t] = k.to(cache_k.dtype)
+        cache_v[:, pos:pos + t] = v.to(cache_v.dtype)
+    else:
+        cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
     o = decode_attention_dyn(q, cache_k, cache_v, pos, window)
     h = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
     hin = rms_norm(h, p["ln2"], cfg.norm_eps)
     return h + swiglu(hin, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
 
 
+def _pos_arg(pos, t: int, device):
+    """``decode_step``'s ``pos``: a host int >= 0, or (T = 1 only) a 0-d
+    integer tensor on ``device``, returned as int32 (B5 reads int32)."""
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0 or pos.dtype.is_floating_point or \
+                pos.dtype.is_complex or pos.dtype == torch.bool or \
+                pos.device != device:
+            raise ValueError(f"a tensor pos must be a 0-d integer tensor on "
+                             f"{device}, got {tuple(pos.shape)} {pos.dtype} "
+                             f"on {pos.device}")
+        _refuse_device_chunk(pos, t)
+        return pos.to(torch.int32)
+    if isinstance(pos, bool) or int(pos) != pos or pos < 0:
+        raise ValueError(f"pos must be an int >= 0 or a 0-d integer tensor, "
+                         f"got {pos!r}")
+    return int(pos)
+
+
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, caches, tokens, pos: int, *,
+def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
                 embeddings=None):
     """Decode a chunk of T >= 1 tokens against the cache.
 
-    tokens: (B, T) int; pos: host int, the cache position of the FIRST
-    new token (the chunk occupies pos..pos+T-1).  T = 1 is the classic
-    one-token decode step; T > 1 is the batched or chunked prefill of
-    attention stacks.  Recurrent segments (mamba2 / rwkv6) accept only
-    T = 1, as the reference's do.  embeddings: optional (B, T, D) in place
-    of the token embedding.
+    tokens: (B, T) int; pos: the cache position of the FIRST new token
+    (the chunk occupies pos..pos+T-1), a host int, or for T = 1 a 0-d
+    integer tensor on the tokens' device — the reference's traced
+    ``jnp.int32(pos)``: the cache write, RoPE and B5 then read it on the
+    device, with no copy to the host, so the caller keeps ``0 <= pos <
+    max_seq`` (the write index is clamped to the cache, as the
+    reference's ``dynamic_update_slice`` clamps its start; a host int
+    past the cache raises).  A tensor ``pos`` with T > 1 raises (ROADMAP
+    B4 (c)).  T = 1 is the classic one-token decode step; T > 1 is the
+    batched or chunked prefill of attention stacks.  Recurrent segments
+    (mamba2 / rwkv6) accept only T = 1, as the reference's do.
+    embeddings: optional (B, T, D) in place of the token embedding.
 
     Writes the chunk's keys, values and states into ``caches`` in place
     and returns (logits (B, T, V) in the compute dtype, ``caches``)."""
     _refuse_moe(cfg)
-    if isinstance(pos, torch.Tensor) or int(pos) != pos or pos < 0:
-        raise ValueError(f"pos must be a host int >= 0, got {pos!r}")
-    pos = int(pos)
     cdt = dtype_of(cfg.compute_dtype)
     if embeddings is None:
         x = params["embed"][tokens].to(cdt)
     else:
         x = embeddings.to(cdt)
     b, t = x.shape[:2]
+    pos = _pos_arg(pos, t, x.device)
     segs = layout(cfg)
-    rope = None
+    rope = slot = None
     if any(seg.kind in (ATTN, SHARED_ATTN) for seg in segs):
         max_seq = next(c["k"].shape[2] for seg, c in zip(segs, caches)
                        if seg.kind in (ATTN, SHARED_ATTN))
-        if pos + t > max_seq:
+        if isinstance(pos, torch.Tensor):
+            slot = pos.clamp(0, max_seq - 1).long().reshape(1)
+        elif pos + t > max_seq:
             raise ValueError(f"a chunk of {t} at position {pos} does not fit "
                              f"a cache of {max_seq} positions")
         # one set of RoPE tables for every layer (the reference builds
@@ -469,7 +509,7 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos: int, *,
     for seg, sp, cache in zip(segs, params["segments"], caches):
         if seg.kind == SHARED_ATTN:
             x = _decode_attn_layer(params["shared"], x, cfg, cache["k"][0],
-                                   cache["v"][0], 0, pos, rope)
+                                   cache["v"][0], 0, pos, rope, slot)
             continue
         if seg.kind in (MAMBA2, RWKV6) and t != 1:
             raise ValueError(f"chunked decode (T>1) requires attention "
@@ -478,7 +518,7 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos: int, *,
             if seg.kind == ATTN:
                 x = _decode_attn_layer(p, x, cfg, cache["k"][i],
                                        cache["v"][i], seg.windows[i], pos,
-                                       rope)
+                                       rope, slot)
             elif seg.kind == MAMBA2:
                 xin = rms_norm(x, p["ln1"], cfg.norm_eps)
                 y, st = m2.mamba2_decode(p["mamba"], xin, cfg,

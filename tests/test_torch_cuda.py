@@ -467,6 +467,84 @@ def test_flash_decode_reads_the_layer_cache(cuda, dtype, hd, window):
     assert fd.launch_count("flash_decode") == 3 and fd.plain_count() == 0
 
 
+# B5 cases: (hd, heads, kv heads, cache length, window) — zamba2-2.7b's hd
+# 80 (a bf16 row no whole number of the 4 lanes' chunks), phi3-mini's 96,
+# gemma3-4b's 256 with GQA and a window, n_rep 4
+B5_SPLIT_CASES = [(80, 4, 4, 64, 0), (96, 4, 2, 150, 0), (256, 4, 2, 200, 24),
+                  (64, 8, 2, 77, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,h,kv,s,window", B5_SPLIT_CASES)
+def test_flash_decode_every_cluster_size(cuda, dtype, hd, h, kv, s, window):
+    """B5 at every cluster size the wrapper can choose, on the layer
+    cache's (B, S, KV, hd) view, at positions 0, the middle and the last
+    (short ranges leave most of 8 shares empty): within 2e-5 of its plain
+    version at each (bf16 one ulp more), one launch a call."""
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(hd + s)
+    b = 3
+    q = torch.randn(b, h, 1, hd, generator=gen, device=cuda).to(dtype)
+    kc, vc = (torch.randn(b, s, kv, hd, generator=gen, device=cuda)
+              .to(dtype).transpose(1, 2) for _ in range(2))
+    fd.reset_counts()
+    for pos in (0, s // 2, s - 1):
+        want = fd._xla_decode(q, kc, vc, pos, window=window)
+        for split in fd.CLUSTER_SIZES:
+            _close_decode(fd.flash_decode(q, kc, vc, pos, window=window,
+                                          split=split), want, dtype)
+    assert fd.launch_count("flash_decode") == 3 * len(fd.CLUSTER_SIZES)
+    assert fd.plain_count() == 0
+
+
+def _b5_inputs(cuda, dtype=torch.bfloat16, b=4, h=8, kv=4, hd=96, s=300):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn(b, h, 1, hd, generator=gen, device=cuda).to(dtype)
+    kc, vc = (torch.randn(b, s, kv, hd, generator=gen, device=cuda)
+              .to(dtype).transpose(1, 2) for _ in range(2))
+    return q, kc, vc
+
+
+def test_flash_decode_device_pos_equals_host_int(cuda):
+    """B5 with pos a 0-d int32 tensor on the card gives the bits of the
+    host int, at every cluster size and with a window; a pos tensor of
+    another dtype, shape or device is refused."""
+    from repro_torch.kernels import flash_decode as fd
+    q, kc, vc = _b5_inputs(cuda)
+    for pos in (0, 151, 299):
+        dev = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        for split in fd.CLUSTER_SIZES:
+            for w in (0, 40):
+                assert torch.equal(
+                    fd.flash_decode(q, kc, vc, dev, window=w, split=split),
+                    fd.flash_decode(q, kc, vc, pos, window=w, split=split))
+    for bad in (torch.tensor(3.0, device=cuda),
+                torch.tensor([3], dtype=torch.int32, device=cuda),
+                torch.tensor(3, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="0-d int32"):
+            fd.flash_decode(q, kc, vc, bad)
+
+
+def test_flash_decode_replays_in_a_cuda_graph(cuda):
+    """One B5 launch captured in a CUDA graph with its position in a
+    device tensor, replayed at three positions written into that tensor:
+    bit-equal to eager launches at each, so the launch's arguments serve
+    every position."""
+    from repro_torch.kernels import flash_decode as fd
+    q, kc, vc = _b5_inputs(cuda)
+    pos = torch.zeros((), dtype=torch.int32, device=cuda)
+    fd.flash_decode(q, kc, vc, pos, window=64)           # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd.flash_decode(q, kc, vc, pos, window=64)
+    for p in (5, 170, 299):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fd.flash_decode(q, kc, vc, p, window=64))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_with_a_query_offset(cuda, dtype):
     """B4 with queries at offset..offset+T-1 over the first offset + T keys

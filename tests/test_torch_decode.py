@@ -33,6 +33,13 @@ interpret mode (measured 3.6e-7 from both in f32); B4
 On
 the card ``chip_smoke.py`` phase 21 holds the kernels against these plain
 forms and runs the path at full width.
+
+A device ``pos`` (a 0-d integer tensor, the reference's traced
+``jnp.int32(pos)``) through ``decode_step``, ``make_decode_step`` and B5's
+wrapper gives the host int's logits and caches bit for bit (and stays
+within BAND of the reference's jitted step); ``generate`` steps on one
+such tensor; a tensor ``pos`` with a chunk (T > 1), or of another dtype,
+shape or device, is refused.
 """
 import jax
 import jax.numpy as jnp
@@ -376,6 +383,115 @@ def test_make_decode_step_refuses_what_waits():
     moe = replace(cfg, moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
     with pytest.raises(NotImplementedError, match="A12c"):
         models.init_cache(moe, 1, 4, device="cpu")
+
+
+# ----------------------------- a device pos ----------------------------------
+def _pos(t):
+    return torch.tensor(t, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("arch,layers", ARCHS)
+def test_decode_step_tensor_pos_matches_host_int(arch, layers):
+    """T = 1 steps over the prompt with ``pos`` a 0-d int32 tensor (the
+    reference's traced ``jnp.int32(t)``): the host int's logits and caches
+    bit for bit, and within BAND of the reference's jitted step."""
+    cfg, _, _, tp, tok = _setup(arch, layers)
+    want, jwant, tc_int, jc = _stepped(arch, layers)
+    tc = models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu")
+    got = []
+    for t in range(PROMPT):
+        lt, tc = models.decode_step(
+            tp, cfg, tc, torch.from_numpy(tok[:, t:t + 1]).long(), _pos(t))
+        got.append(lt.numpy())
+    got = np.concatenate(got, 1)
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(tree_flatten(tc)[0], tree_flatten(tc_int)[0]):
+        assert torch.equal(a, b)
+    assert _gap(got, jwant) <= BAND and _cache_gap(tc, jc) <= BAND
+
+
+@pytest.mark.parametrize("arch,layers", ARCHS)
+def test_make_decode_step_tensor_pos_matches_host_int(arch, layers):
+    """``make_decode_step`` one token after a stepped prompt of 3, at an
+    int64 0-d tensor ``pos``: the host int's logits bit for bit, within
+    BAND of the reference's step jitted with ``jnp.int32(3)``."""
+    cfg, jcfg, jp, tp, tok = _setup(arch, layers)
+    jc = jmodels.init_cache(jcfg, BATCH, MAX_SEQ)
+    jstep = jax.jit(jmake_decode_step(jcfg))
+    step = make_decode_step(cfg)
+    caches = [models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu")
+              for _ in range(2)]
+    for t in range(4):
+        x = tok[:, t:t + 1]
+        jl, jc = jstep(jp, jc, jnp.asarray(x), jnp.int32(t))
+        li, caches[0] = step(tp, caches[0], torch.from_numpy(x).long(), t)
+        lt, caches[1] = step(tp, caches[1], torch.from_numpy(x).long(),
+                             torch.tensor(t))
+    assert torch.equal(lt, li)
+    assert _gap(lt, jl) <= BAND
+
+
+def test_tensor_pos_refusals():
+    """A tensor ``pos`` must be a 0-d integer on the tokens' device, and
+    only for T = 1 (a chunk copies the first pos + T keys for B4, a host
+    length: ROADMAP B4 (c)); B5's wrapper takes a 0-d int32 on q's
+    device; on the CPU a tensor pos gives B5's plain form the host int's
+    bits."""
+    cfg, _, _, tp, tok = _setup("phi3-mini-3.8b", 2)
+    cache = models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu")
+    one, chunk = (torch.from_numpy(tok[:, :n]).long() for n in (1, 3))
+    with pytest.raises(ValueError, match=r"B4 \(c\)"):
+        models.decode_step(tp, cfg, cache, chunk, _pos(0))
+    for bad in (torch.tensor(2.0), torch.tensor([2]), _pos(2).to("meta"),
+                torch.tensor(True)):
+        with pytest.raises(ValueError, match="0-d integer"):
+            models.decode_step(tp, cfg, cache, one, bad)
+    q, k, v = _attn_inputs(7, t=3)
+    with pytest.raises(ValueError, match=r"B4 \(c\)"):
+        transformer.decode_attention_dyn(*map(torch.from_numpy, (q, k, v)),
+                                         _pos(2), 0)
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 1, 80)).astype(
+        np.float32))
+    kc, vc = (torch.from_numpy(rng.standard_normal((2, 40, 2, 80)).astype(
+        np.float32)).transpose(1, 2) for _ in "kv")
+    for pos, w in ((0, 0), (23, 0), (39, 8)):
+        assert torch.equal(fd.flash_decode(q, kc, vc, _pos(pos), window=w),
+                           fd.flash_decode(q, kc, vc, pos, window=w))
+    for bad in (torch.tensor(3.0), torch.tensor([3], dtype=torch.int32),
+                torch.tensor(3), _pos(3).to("meta")):
+        with pytest.raises(ValueError, match="0-d int32"):
+            fd.flash_decode(q, kc, vc, bad)
+
+
+def test_generate_steps_on_a_device_pos(monkeypatch):
+    """``generate`` prefills in one chunk at the host 0 and takes every
+    one-token step's position from one int32 tensor on the prompts'
+    device, advanced in place; the stepped prefill steps on it from 0."""
+    cfg, _, _, tp, tok = _setup("phi3-mini-3.8b", 2)
+    seen = []
+    inner = serve.make_decode_step
+
+    def make(cfg_, shape=None):
+        step = inner(cfg_, shape)
+
+        def record(params, cache, tokens, pos):
+            seen.append((tokens.shape[1], pos if isinstance(pos, int) else
+                         (pos.dtype, tuple(pos.shape), int(pos), id(pos))))
+            return step(params, cache, tokens, pos)
+        return record
+    monkeypatch.setattr(serve, "make_decode_step", make)
+    for stepped in (False, True):
+        seen.clear()
+        serve.generate(cfg, tp, torch.from_numpy(tok).long(), gen=3,
+                       max_seq=PROMPT + 3, stepped_prefill=stepped)
+        steps = [p for t, p in seen if not isinstance(p, int)]
+        first = 0 if stepped else PROMPT
+        assert [p[2] for p in steps] == list(range(first, PROMPT + 2))
+        assert {p[:2] for p in steps} == {(torch.int32, ())}
+        assert len({p[3] for p in steps}) == 1          # one tensor
+        assert [p for t, p in seen if isinstance(p, int)] == \
+            ([] if stepped else [0])
 
 
 # --------------------------------- generate ----------------------------------

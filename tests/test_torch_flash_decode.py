@@ -19,6 +19,11 @@ Tolerances, each beside the gap it measured:
 * bf16 outputs (q in bf16): one bf16 ulp of the larger magnitude plus
   ``REF_ATOL`` — both round f32 values that differ by up to that much.
 
+``test_dense_split_merge_matches_pallas`` emulates B5's order of work on
+the card (the split of the live keys over a cluster, the online softmax
+per 8 keys, the warps' and the blocks' merges) and holds it within 2e-5
+of the Pallas kernel in interpret mode.
+
 The wrappers, given CPU tensors, run the plain versions and count a plain
 run, never a launch.  (On the card the kernels are held against the same
 plain versions by ``chip_smoke.py``.)
@@ -151,6 +156,111 @@ def test_contig_wrapper_matches_interpreted_kernel(n_rep, window):
     ok, err = _close(got, want, INTERPRET_ATOL)
     assert ok, err
     assert fd.plain_count("flash_decode") == 1 and fd.launch_count() == 0
+
+
+# -- B5's split over a cluster ----------------------------------------------------
+def _dense_split_arithmetic(q, k, v, pos, *, window, n_split):
+    """The arithmetic of B5's cluster kernel in plain PyTorch, for every row
+    and query head at once: the live keys [lo, hi] cut into stages of 8
+    keys a warp (8 warps a block, 4 for f32 rows of more than 128 dims)
+    and the stages into ``n_split`` contiguous shares (a share may be
+    empty); inside a block each warp takes its 8 keys of every stage and
+    keeps its own online softmax (m, l, acc) for every query head of its
+    KV head's group, updated once per 8 keys; each block merges its warps'
+    states, and the leader merges the blocks' (a block alone in its
+    cluster writes its own); m = −inf contributes nothing, and a row with
+    no key in range gets zeros."""
+    b, h, _, hd = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    warps = fd._dense_warps(hd, k.element_size())
+    stage = 8 * warps
+    n_rep = h // kvh
+    hi = min(pos, s - 1)
+    lo = max(0, pos - window + 1) if window > 0 else 0
+    n_st = -(-(hi - lo + 1) // stage) if hi >= lo else 0
+    per = -(-n_st // n_split)
+    per_warp = stage // warps
+    ninf = -float("inf")
+    qf = q[:, :, 0].float() * hd ** -0.5                        # (b, h, hd)
+    kf = torch.repeat_interleave(k.float(), n_rep, 1)           # (b, h, s, hd)
+    vf = torch.repeat_interleave(v.float(), n_rep, 1)
+
+    def merge(states):
+        ms = torch.stack([x[0] for x in states])
+        m = ms.amax(0)
+        live = m > ninf
+        wt = torch.where(live[None], torch.exp(
+            ms - torch.where(live, m, 0.0)[None]), 0.0)
+        acc = sum(wt[i][..., None] * x[2] for i, x in enumerate(states))
+        l = sum(wt[i] * x[1] for i, x in enumerate(states))
+        return m, l, acc
+
+    blocks = []
+    for rank in range(n_split):
+        st0 = min(n_st, rank * per)
+        st1 = min(n_st, st0 + per)
+        states = []
+        for wp in range(warps):
+            m = torch.full((b, h), ninf)
+            l, acc = torch.zeros(b, h), torch.zeros(b, h, hd)
+            for st in range(st0, st1):
+                j = lo + st * stage + wp * per_warp + torch.arange(per_warp)
+                valid = j <= hi
+                jj = j.clamp(max=s - 1)
+                sc = torch.einsum("bhd,bhjd->bhj", qf, kf[:, :, jj])
+                sc = torch.where(valid, sc, ninf)
+                m_new = torch.maximum(m, sc.amax(-1))
+                live = m_new > ninf
+                safe = torch.where(live, m_new, 0.0)
+                p = torch.where(live[..., None],
+                                torch.exp(sc - safe[..., None]), 0.0)
+                alpha = torch.where(live, torch.exp(m - safe), 1.0)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bhj,bhjd->bhd", p, vf[:, :, jj])
+                m = m_new
+            states.append((m, l, acc))
+        blocks.append(merge(states))
+    _, l, acc = blocks[0] if n_split == 1 else merge(blocks)
+    out = torch.where(l[..., None] > 0,
+                      acc / l[..., None].clamp_min(1e-30), 0.0)
+    return out[:, :, None].to(q.dtype)
+
+
+_PALLAS = {}
+B5_SPLIT_S = 80           # 2 or 3 stages: most of 8 shares stay empty
+
+
+def _pallas_decode(hd, n_rep, window, pos):
+    """(inputs, the reference's Pallas kernel in interpret mode) for one
+    case, drawn and run once per (hd, n_rep, window, pos)."""
+    key = (hd, n_rep, window, pos)
+    if key not in _PALLAS:
+        q, k, v = _contig_inputs(10 + hd + n_rep, n_rep, "f32", "f32", hd=hd,
+                                 s=B5_SPLIT_S)
+        want = np.asarray(jfd.flash_decode(
+            *map(jnp.asarray, (q, k, v)), pos, window=window,
+            interpret=True), np.float32)
+        _PALLAS[key] = ((q, k, v), want)
+    return _PALLAS[key]
+
+
+@pytest.mark.parametrize("n_rep", [1, 2, 4])
+@pytest.mark.parametrize("hd", [80, 96, 256])
+@pytest.mark.parametrize("n_split", [1, 2, 8])
+def test_dense_split_merge_matches_pallas(n_split, hd, n_rep):
+    """B5's split of the live keys over a cluster, its per-8-keys online
+    softmax and the two-level merge, emulated, lie within 2e-5 of the
+    Pallas kernel in interpret mode at 1, 2 and 8 blocks a cluster, hd 80
+    (zamba2-2.7b), 96 (phi3-mini) and 256 (gemma3-4b), n_rep 1, 2 and 4,
+    windows 0 and 16, and positions 0, the middle and the last."""
+    for window in (0, 16):
+        for pos in (0, B5_SPLIT_S // 2, B5_SPLIT_S - 1):
+            (q, k, v), want = _pallas_decode(hd, n_rep, window, pos)
+            got = _dense_split_arithmetic(*map(_t, (q, k, v)), pos,
+                                          window=window, n_split=n_split)
+            ok, err = _close(got, want, INTERPRET_ATOL)
+            assert ok, (window, pos, err)
 
 
 def test_dead_row_reads_the_clamped_page():
