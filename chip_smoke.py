@@ -169,6 +169,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     logits within ``DECODE_PARITY_BAND``, the stepped prefill against the
     chunked one; the static path's tokens against ``ServeEngine(backend=
     "paged")`` over ``PAGED_DRAWS`` prompt draws, reported.
+22. the MoE family, ``granite-moe-3b-a800m`` (40 experts, top-8, GQA 24 /
+    8 heads of 64, n_rep 3): (a) its kernel geometries ride in phases 11,
+    14 and 21 (rows of ``FD_SHAPES``, ``FA_SHAPES`` and ``B5_SHAPES``: B5
+    and B6 serve 3 heads from their kRep = 4 form); at full width in bf16
+    (weights from a seeded generator on the card) (b) the prefill (2 x
+    2048, 32 B4 launches) with the MoE layer's device time split into
+    router, routing, dispatch / combine einsums and expert einsums
+    (``record_function`` ranges under ``torch.profiler``), (c) the static
+    decode (4 x 512 + 64: 32 B4 and 32 x 63 B5 launches), (d) the paged
+    engine on phase 12's requests (32 B6 launches a tick), (e) LM training
+    through the CLI (``GRANITE_TRAIN_ARGV``, phase 18's cut to 8 steps: one
+    B1 launch a step at granite's store, finite loss, aux > 0), each path
+    with phase 15 / 21 / 12 / 18's records; (f) reduced f32 granite (6 / 2
+    heads of 64) on the card against the CPU port: prefill, ``generate``,
+    the paged engine and 4 training steps within phases 16 / 21 / 13 /
+    19's bands, each CPU leg on the card's expert choices (``RouteSides``)
+    after the free CPU run's choices differed at most at near-ties
+    (``ROUTE_TIE``); a planted fault (token-major capacity queues) outside
+    the prefill band.
 
 The launch counts are set to 0 just before each path and read just after;
 the ``launches`` in the kernels line are those counts, summed over the
@@ -179,7 +198,9 @@ serving main path's timed run, and for B5 the static decode runs of phase
 numbers in the line are its phi3 static decode form; for B4, B7 and B8,
 one forward of each model of phase 15, B4 adding phase 21's chunked
 prefill; B3 adds phase 20's search, its one-store and batched launches,
-the batched form's records among its variants).  Launches
+the batched form's records among its variants; phase 22 adds granite's
+B4, B5, B6 and B1 launches on its four paths and its card-vs-CPU
+training steps, B1's granite-store record among its variants).  Launches
 made to compare a kernel with its plain version are not counted.  B1's
 numbers in the line are its LM-store ones (phase 18), the shape this
 slice's main path gives it; the ResNet-store records stay among its
@@ -817,13 +838,17 @@ FD_REFERENCE = "src/repro/kernels/flash_decode.py"
 FD_INFO = {"flash_decode": 99, "flash_decode_paged": 192}
 # (label, rows, heads, kv heads, hd, page_len, pages per slot, pages, longest
 # length, windows): phi3-mini and gemma3-4b at full geometry, and the
-# reduced shapes of tests/test_torch_serve.py.  Each row of a table gets
-# its own pages (a permutation of the pool); row 1 is dead (every entry the
-# sentinel id n_pages, length 0).
+# reduced shapes of tests/test_torch_serve.py; then granite-moe-3b-a800m
+# (phase 22 (a): n_rep 3, hd 64, full and reduced heads).  Each row of a
+# table gets its own pages (a permutation of the pool); row 1 is dead
+# (every entry the sentinel id n_pages, length 0).
+GRANITE = "granite-moe-3b-a800m"
 FD_SHAPES = (("phi3-mini-3.8b", 8, 32, 32, 96, 16, 64, 512, 1023, (0, 64)),
              ("gemma3-4b", 8, 8, 4, 256, 16, 128, 1024, 2047, (1024,)),
              ("gemma3-4b-reduced", 2, 4, 2, 64, 16, 4, 8, 63, (16,)),
-             ("phi3-mini-3.8b-reduced", 2, 4, 4, 64, 16, 4, 8, 63, (0,)))
+             ("phi3-mini-3.8b-reduced", 2, 4, 4, 64, 16, 4, 8, 63, (0,)),
+             (GRANITE, 8, 24, 8, 64, 16, 64, 512, 1023, (0,)),
+             (f"{GRANITE}-reduced", 2, 6, 2, 64, 16, 4, 8, 63, (0,)))
 # kernel against plain: f32 outputs within 2e-5 (the two sum the softmax in
 # other orders, with other exp); bf16 outputs within one bf16 ulp of the
 # larger magnitude plus that 2e-5 — both round f32 values that differ by up
@@ -1237,13 +1262,16 @@ def serve_run(S, cfg, params, reqs, *, backend="paged", record=False,
     return out
 
 
-def serving_phase(S):
+SERVE_LEGS = ("paged_recorded", "paged", "paged_profiled", "contig")
+
+
+def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS):
     """Phase 12: the paged ServeEngine at the full width of phi3-mini
     (all 32 layers, bf16 params and compute, f32 pages), B6 in every layer
     of every decode tick; then the contiguous backend on the same
-    requests."""
+    requests (phase 22 (d): ``arch`` granite, the paged legs only)."""
     import numpy as np
-    cfg = S.get_config(SERVE_ARCH)
+    cfg = S.get_config(arch)
     params = S.models.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     n_params = sum(t.numel() for t in S.tree_leaves(params))
@@ -1264,6 +1292,8 @@ def serving_phase(S):
                     ("paged", {}),
                     ("paged_profiled", {"profile_ticks": set(full)}),
                     ("contig", {"backend": "contig", "record": True})):
+        if leg not in legs:
+            continue
         r = serve_run(S, cfg, params, reqs, **kw)
         calls = r["stats"]["decode_calls"]
         if r["log"] != want_log:
@@ -1295,7 +1325,7 @@ def serving_phase(S):
     ticks = main["ticks"]
     prof = _profile_share(runs["paged_profiled"]["ticks"]["profiled"],
                           ticks)
-    out = {"arch": SERVE_ARCH, "params": n_params,
+    out = {"arch": arch, "params": n_params,
            "pool_bytes": spec.pool_bytes(cfg), "requests": len(reqs),
            "generated_tokens": n_tok, "wall_s": main["wall_s"],
            "tok_per_s": n_tok / main["wall_s"],
@@ -1310,16 +1340,17 @@ def serving_phase(S):
            "b6_launches": main["b6"], "profile": prof,
            "peak_bytes": main["peak"],
            "compile_log": [list(k) for k in main["compile_log"]]}
-    agree = [a == b for ra, rc in zip(runs["paged_recorded"]["recs"],
-                                      runs["contig"]["recs"])
-             for a, b in zip(ra.tokens, rc.tokens)]
     repeat = [ra.tokens == rb.tokens for ra, rb in
               zip(recs, runs["paged_recorded"]["recs"])]
-    out.update(contig_wall_s=runs["contig"]["wall_s"],
-               contig_tok_per_s=n_tok / runs["contig"]["wall_s"],
-               paged_contig_token_agreement=sum(agree) / len(agree),
-               paged_repeats_itself=all(repeat))
-    log(f"serving main path: {SERVE_ARCH} full width ({n_params / 1e9:.2f} B "
+    out.update(paged_repeats_itself=all(repeat))
+    if "contig" in runs:
+        agree = [a == b for ra, rc in zip(runs["paged_recorded"]["recs"],
+                                          runs["contig"]["recs"])
+                 for a, b in zip(ra.tokens, rc.tokens)]
+        out.update(contig_wall_s=runs["contig"]["wall_s"],
+                   contig_tok_per_s=n_tok / runs["contig"]["wall_s"],
+                   paged_contig_token_agreement=sum(agree) / len(agree))
+    log(f"serving main path: {arch} full width ({n_params / 1e9:.2f} B "
         f"params, bf16), {len(reqs)} requests, {n_tok} tokens in "
         f"{out['wall_s']:.2f} s: {out['tok_per_s']:.1f} tok/s, mean TTFT "
         f"{out['mean_ttft_s'] * 1e3:.1f} ms, mean TPOT "
@@ -1340,10 +1371,11 @@ def serving_phase(S):
     for k in prof["top_kernels"]:
         log(f"    {k['ms_per_tick']:7.3f} ms/tick {k['share']:6.1%}  "
             f"{k['name']}")
-    log(f"  contiguous backend (plain attention) on the same requests: "
-        f"{out['contig_tok_per_s']:.1f} tok/s; tokens agreeing with the "
-        f"paged run {out['paged_contig_token_agreement']:.1%}; paged run "
-        f"repeats itself: {out['paged_repeats_itself']}")
+    if "contig" in runs:
+        log(f"  contiguous backend (plain attention) on the same requests: "
+            f"{out['contig_tok_per_s']:.1f} tok/s; tokens agreeing with "
+            f"the paged run {out['paged_contig_token_agreement']:.1%}")
+    log(f"  paged run repeats itself: {out['paged_repeats_itself']}")
     path = {k: dict(v) for k, v in main["launches"].items()}
     del runs, params, main
     torch.cuda.empty_cache()
@@ -1450,14 +1482,18 @@ PF_CSRC = {"flash_attention": "src/repro_torch/csrc/flash_attention.cu",
            "wkv6_chunked": "src/repro_torch/csrc/wkv6.cu"}
 BF16_RATE = 989e12               # dense bf16 tensor-core rate (data sheet)
 # the labels of the model geometries, at which the kernels are timed
-PF_MODELS = ("zamba2-2.7b", "phi3-mini-3.8b", "gemma3-4b", "rwkv6-7b")
+PF_MODELS = ("zamba2-2.7b", "phi3-mini-3.8b", "gemma3-4b", "rwkv6-7b",
+             GRANITE)
 # B4: (label, B, H, KV, Sq, Sk, hd, causal, windows) — the model geometries
 # at the prefill main path's 2 x 2048 tokens (zamba2-2.7b's shared
 # attention, phi3-mini-3.8b, gemma3-4b's local and global layers), then
 # the shapes of the CPU tests: a ragged S with hd 64 and 80, the sweep of
 # the reference's tests, and non-causal (cross-attention) ones; then the
 # edges of the tensor-core form: hd 96 and 256 with GQA at a ragged S and a
-# window (100) that is no multiple of a key tile
+# window (100) that is no multiple of a key tile; then granite-moe-3b-a800m
+# (phase 22 (a): 24 / 8 heads of 64) at the prefill's 2 x 2048 and the
+# static decode's 4 x 512 chunked prefill, and its reduced 6 / 2 heads at a
+# ragged S
 FA_SHAPES = (("zamba2-2.7b", 2, 32, 32, 2048, 2048, 80, True, (0,)),
              ("phi3-mini-3.8b", 2, 32, 32, 2048, 2048, 96, True, (0,)),
              ("gemma3-4b", 2, 8, 4, 2048, 2048, 256, True, (1024, 0)),
@@ -1468,7 +1504,10 @@ FA_SHAPES = (("zamba2-2.7b", 2, 32, 32, 2048, 2048, 80, True, (0,)),
              ("noncausal", 1, 2, 2, 128, 128, 64, False, (0,)),
              ("cross", 2, 4, 2, 50, 77, 64, False, (0,)),
              ("hd96-gqa-ragged", 1, 8, 2, 200, 200, 96, True, (0, 100)),
-             ("hd256-gqa-ragged", 1, 8, 2, 200, 200, 256, True, (0, 100)))
+             ("hd256-gqa-ragged", 1, 8, 2, 200, 200, 256, True, (0, 100)),
+             (GRANITE, 2, 24, 8, 2048, 2048, 64, True, (0,)),
+             (f"{GRANITE} static", 4, 24, 8, 512, 512, 64, True, (0,)),
+             (f"{GRANITE}-reduced-ragged", 2, 6, 2, 45, 45, 64, True, (0,)))
 # B7: (label, Bt, H, S, P, N) — zamba2-2.7b's SSD at 2 x 2048 tokens (80
 # heads of 64, state 64, chunk 256) on contiguous tensors and on the views
 # ``mamba2_block`` passes (SSD_VIEWS), the reduced zamba2 of the CPU tests
@@ -1785,15 +1824,16 @@ def _prefill_profile(prefill, params, tokens, launches):
                              "share": us / busy} for n, us in top]}
 
 
-def prefill_phase(P):
+def prefill_phase(P, archs=PREFILL_ARCHS):
     """Phase 15: ``make_prefill_step`` at full width in bf16 on 2 x 2048
     random tokens: zamba2-2.7b (45 B7 and 9 B4 launches a forward) and
     rwkv6-7b (32 B8), no plain runs, finite last-position logits; ms per
-    prefill, tokens/s, a profile of one prefill and peak memory.  Returns
+    prefill, tokens/s, a profile of one prefill and peak memory (phase 22
+    (b): ``archs`` granite, 32 B4, with the MoE layer's split).  Returns
     (records, launches per kernel of one forward)."""
     import numpy as np
     out, launches = {}, {k: 0 for k in PF_REFERENCE}
-    for arch in PREFILL_ARCHS:
+    for arch in archs:
         cfg = P.get_config(arch)
         segs = P.layout(cfg)
         want = {"flash_attention": sum(s.count for s in segs
@@ -1869,6 +1909,8 @@ def prefill_phase(P):
         if got["launches"]["flash_attention"] and not prof["b4_share"] > 0:
             raise AssertionError(f"{arch} prefill launched B4 but the "
                                  "profile finds no time under its names")
+        if cfg.moe:
+            out[arch]["moe_split"] = _moe_split(P, prefill, params, tokens)
         del params, logits, prefill
         gc.collect()
         torch.cuda.empty_cache()
@@ -2001,7 +2043,7 @@ RESUME_ARGV = ["--arch", LM_ARCH, "--optimizer", "sgd", "--scheme", "hybrid",
                "--steps", "8"]
 
 
-def b1_store_check(K, rows, rate):
+def b1_store_check(K, rows, rate, arch=LM_ARCH):
     """B1 (plain: f32 store, no velocity) at the full-width LM's flat-store
     shape: one launch against the plain version (run a slice at a time)
     bit for bit, then timed beside ``add_``, the sliced plain version and
@@ -2034,13 +2076,13 @@ def b1_store_check(K, rows, rate):
     del w, g, wk
     gc.collect()
     torch.cuda.empty_cache()
-    rec = {"variant": "plain", "shape": f"{LM_ARCH} store",
+    rec = {"variant": "plain", "shape": f"{arch} store",
            "rows": rows, "elements": n,
            "replaces": f"{REFERENCE}:{B1['plain'][0]}", "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": "bytes", "library_ms": library_ms,
            "bytes": n * 12}
-    log(f"  dbl_apply_flat2d[plain] at the {LM_ARCH} store ({rows} x 128 "
+    log(f"  dbl_apply_flat2d[plain] at the {arch} store ({rows} x 128 "
         f"f32, {n} elements, past 2^31): bit-equal to plain; kernel "
         f"{ms:.2f} ms, add_ {library_ms:.2f} ms, plain (in slices of "
         f"{PLAIN_SLICE_ROWS} rows) {plain_ms:.2f} ms, bound {bound_ms:.2f} "
@@ -2118,15 +2160,18 @@ def _step_profile(L, engine, fspec, p2, phase, batch):
                              "share": us / 1e3 / busy} for n, us in top]}
 
 
-def lm_train_phase(L, rate):
+def lm_train_phase(L, rate, arch=LM_ARCH, argv=LM_ARGV, steps=LM_STEPS):
     """Phase 18: the LM training main path at full width.  B1 at the
     model's flat-store shape first (the store's geometry read from a
     model built and freed before), then ``launch.train.run`` on
     ``LM_ARGV``: one B1 launch a step and no B4 / B7 / B8, both sequence
     lengths, finite losses, the last below the first, params on the card;
     per sub-stage ms per step, tokens/s, time to its first step, and a
-    profiled step; peak memory.  Returns (record, B1's store record)."""
-    cfg = L.get_config(LM_ARCH)
+    profiled step; peak memory.  Phase 22 (e) runs it on granite
+    (``arch``, ``argv``, ``steps``): too few steps to ask the loss to
+    fall, the aux loss of the trained params finite and > 0 instead.
+    Returns (record, B1's store record)."""
+    cfg = L.get_config(arch)
     params = L.models.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     fspec = L.flat_spec(params)
@@ -2134,14 +2179,14 @@ def lm_train_phase(L, rate):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    b1 = b1_store_check(L.K, rows, rate)
+    b1 = b1_store_check(L.K, rows, rate, arch)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_lm_counts(L)
     t0 = time.perf_counter()
     with _CaptureRun(L.train) as cap:
-        hist = L.train.run(LM_ARGV)
+        hist = L.train.run(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -2150,22 +2195,33 @@ def lm_train_phase(L, rate):
     losses = [h["loss"] for h in hist]
     seqs = [h["seq"] for h in hist]
     b1_launches = got["dbl"]["dbl_apply_flat2d"]
-    if b1_launches != LM_STEPS or sum(got["dbl"].values()) != LM_STEPS \
+    if b1_launches != steps or sum(got["dbl"].values()) != steps \
             or got["dbl_plain"] or got["prefill"]:
         raise AssertionError(f"LM main path: launches {got}; expected one "
                              "dbl_apply_flat2d launch a step and no B4 / B7 "
                              "/ B8 call")
-    if len(losses) != LM_STEPS or tuple(sorted(set(seqs))) != LM_SEQS:
+    if len(losses) != steps or tuple(sorted(set(seqs))) != LM_SEQS:
         raise AssertionError(f"LM main path: {len(losses)} steps at "
                              f"sequence lengths {sorted(set(seqs))}")
     if not all(math.isfinite(x) for x in losses) or \
-            not losses[-1] < losses[0]:
+            not (cfg.moe or losses[-1] < losses[0]):
         raise AssertionError(f"LM main path losses: {losses}")
     if any(t.device.type != "cuda" for t in L.tree_leaves(res.params)) or \
             L.flat_spec(res.params).shape != fspec.shape:
         raise AssertionError("LM params left the card or changed geometry")
+    aux = None
+    if cfg.moe:
+        # the load-balance loss of the trained params on one sequence
+        with torch.no_grad():
+            tok = torch.randint(0, cfg.vocab_size, (2, LM_SEQS[-1]),
+                                generator=torch.Generator().manual_seed(5))
+            aux = float(L.models.forward(res.params, cfg, tok.cuda(),
+                                         return_aux=True)[1])
+        if not (math.isfinite(aux) and aux > 0):
+            raise AssertionError(f"{arch}: aux loss {aux} of the trained "
+                                 "params")
     phases = L.train.build_spec(
-        L.train.parser().parse_args(LM_ARGV)).to_phases()
+        L.train.parser().parse_args(argv)).to_phases()
     stalls = [s["stall_s"] for s in engine.stall_log]
     sub = []
     for p, ph, stall in zip(res.phases, phases, stalls):
@@ -2176,8 +2232,8 @@ def lm_train_phase(L, rate):
                     "ms_per_step": 1e3 * p["time"] / p["steps"],
                     "tokens_per_s": tokens * p["steps"] / p["time"],
                     "first_step_s": stall})
-    log(f"LM main path: {LM_ARCH} full width ({n_live / 1e9:.3f} B params, "
-        f"bf16, remat {cfg.remat}), {LM_STEPS} steps in {wall:.2f} s "
+    log(f"LM main path: {arch} full width ({n_live / 1e9:.3f} B params, "
+        f"bf16, remat {cfg.remat}), {steps} steps in {wall:.2f} s "
         f"(model build included); peak memory {peak / 2**30:.2f} GiB; "
         f"{b1_launches} dbl_apply_flat2d launches, no B4 / B7 / B8")
     for s in sub:
@@ -2185,13 +2241,14 @@ def lm_train_phase(L, rate):
             f"steps, {s['ms_per_step']:.1f} ms/step, {s['tokens_per_s']:.0f} "
             f"tokens/s ({s['tokens_per_step']:.0f} trained tokens a step), "
             f"first step after {s['first_step_s']:.2f} s")
-    log(f"  losses: {losses}")
+    log(f"  losses: {losses}" + ("" if aux is None else
+                                 f"; aux loss of the trained params {aux}"))
 
     # one profiled step per sub-stage on the run's final params
     res.opt_state = None
     p2 = fspec.ravel(res.params)
     res.params = None
-    args = L.train.parser().parse_args(LM_ARGV)
+    args = L.train.parser().parse_args(argv)
     plane = L.DataPlane(L.SyntheticTokens(
         vocab=min(cfg.vocab_size, 256), seed=args.seed,
         n_examples=max(4096, args.global_batch * 64)), seed=args.seed)
@@ -2213,10 +2270,10 @@ def lm_train_phase(L, rate):
     del p2
     gc.collect()
     torch.cuda.empty_cache()
-    return {"arch": LM_ARCH, "argv": LM_ARGV, "params": n_live,
+    return {"arch": arch, "argv": argv, "params": n_live,
             "store_rows": rows, "wall_s": wall, "peak_bytes": peak,
-            "launches": got["dbl"], "losses": losses, "sub_stages": sub,
-            "profiles": profiles}, b1
+            "launches": got["dbl"], "losses": losses, "aux": aux,
+            "sub_stages": sub, "profiles": profiles}, b1
 
 
 def _train_run(L, cfg, params, form, device):
@@ -2917,11 +2974,14 @@ DEC_SHORT_PROMPT, DEC_SHORT_GEN = 32, 32
 # transpose(1, 2) view: (label, rows, heads, kv heads, hd, max_seq, window)
 # at the static decode geometries of phi3-mini-3.8b, gemma3-4b (its local
 # layers' window over a 2048-position cache) and zamba2-2.7b's shared
-# attention (hd 80); positions 0, the middle and max_seq - 1, timed at the
-# last
+# attention (hd 80), then granite-moe-3b-a800m (phase 22 (a): n_rep 3, hd
+# 64) at its static decode's geometry and reduced; positions 0, the middle
+# and max_seq - 1, timed at the last
 B5_SHAPES = (("phi3-mini-3.8b static", 4, 32, 32, 96, 576, 0),
              ("gemma3-4b static", 4, 8, 4, 256, 2048, 1024),
-             ("zamba2-2.7b static", 4, 32, 32, 80, 64, 0))
+             ("zamba2-2.7b static", 4, 32, 32, 80, 64, 0),
+             (f"{GRANITE} static", 4, 24, 8, 64, 576, 0),
+             (f"{GRANITE}-reduced static", 2, 6, 2, 64, 28, 0))
 # B4 with a query offset at phi3-mini's attention (4 rows, 32 heads, hd
 # 96): queries at offset..offset+T-1 over the first offset + T keys
 B4_OFFSETS, B4_CHUNKS, B4_WINDOWS = (0, 1, 17, 512), (1, 5, 64), (0, 100)
@@ -3238,18 +3298,19 @@ def _decode_profile(D, cfg, params, prompts):
                              "share": us / busy} for n, us in top]}
 
 
-def decode_phase(D):
+def decode_phase(D, archs=(DEC_ARCH,) + DEC_SHORT_ARCHS):
     """Phase 21 (b): ``launch.serve.generate`` at full width in bf16
     (weights from a seeded generator on the card): phi3-mini-3.8b on
     4 x 512 + 64 — exactly 32 B4 launches (the chunked prefill) and 32 x
     63 B5, no plain attention — then zamba2-2.7b (9 B5 launches a step,
     hd 80) and rwkv6-7b (no kernel, no plain attention) on 4 x 32 + 32;
-    tokens in the vocabulary and finite logits.  Returns (records,
-    launches per kernel)."""
+    tokens in the vocabulary and finite logits (phase 22 (c): ``archs``
+    granite, on phi3's 4 x 512 + 64).  Returns (records, launches per
+    kernel)."""
     import numpy as np
     out, launches = {}, {"flash_decode": 0, "flash_attention": 0}
-    for arch in (DEC_ARCH,) + DEC_SHORT_ARCHS:
-        full = arch == DEC_ARCH
+    for arch in archs:
+        full = arch not in DEC_SHORT_ARCHS
         plen, gen = (DEC_PROMPT, DEC_GEN) if full else (DEC_SHORT_PROMPT,
                                                         DEC_SHORT_GEN)
         cfg = D.get_config(arch)
@@ -3410,6 +3471,451 @@ def decode_parity_phase(D):
                f"{sum(rec['paged_agree'])} of {len(rec['paged_agree'])} "
                "draws" if "stepped_gap" in rec else ""))
     return out
+
+
+# --------------------------- phase 22: the MoE family -------------------------
+# granite-moe-3b-a800m (40 experts, top-8, GQA 24 / 8 heads of 64) at full
+# width on every LM path: the prefill (2 x 2048, as phase 15), the static
+# decode (4 x 512 + 64, as phase 21), the paged serving engine (phase 12's
+# 16 requests) and LM training through the CLI (phase 18's argv, cut from
+# 40 steps to 8)
+GRANITE_TRAIN_STEPS = 8
+GRANITE_TRAIN_ARGV = ["--arch", GRANITE, "--full", "--optimizer", "sgd",
+                      "--scheme", "hybrid", "--seq", "128", "--global-batch",
+                      "16", "--lr", "5e-3", "--steps", str(GRANITE_TRAIN_STEPS)]
+GRANITE_SERVE_LEGS = ("paged_recorded", "paged", "paged_profiled")
+# card vs CPU: reduced granite that keeps n_rep 3 at hd 64 (6 / 2 heads),
+# 4 experts, top-2, f32
+GRANITE_REDUCED = dict(d_model=384, n_heads=6)
+# routing is discontinuous: where the two devices rank a token's experts
+# differently, the card's gates at the first rank that differs must lie
+# within this of the next rank's (a near-tie, rounding's reach: the two
+# devices' f32 probabilities differ by about 1e-7); the CPU legs then run
+# on the card's choices (``RouteSides``), as phase 5 runs on its ReLU sides
+ROUTE_TIE = 1e-5
+# the MoE layer's einsums by part, for the prefill's split
+MOE_EINSUMS = {"ngd,ngec->necd": "moe: dispatch / combine einsums",
+               "necd,ngec->ngd": "moe: dispatch / combine einsums",
+               "necd,edf->necf": "moe: expert einsums",
+               "necf,efd->necd": "moe: expert einsums"}
+
+
+def _moe_split(P, prefill, params, tokens, tries: int = 3):
+    """One prefill under ``torch.profiler`` (host and device activity) with
+    the MoE layer's parts marked by ``record_function`` ranges: the device
+    time under each — the router (its f32 product and softmax), the
+    routing (the choices, and the dispatch and combine tensors built from
+    them), the dispatch / combine einsums, the expert einsums, and the rest
+    of the layer (the SiLU gate, casts) — and the layer's share of the
+    prefill's device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    moe, tf = P.moe, P.transformer
+
+    def marked(label, fn):
+        def call(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return call
+
+    class Torch:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def einsum(eq, *ops):
+            if eq not in MOE_EINSUMS:
+                return torch.einsum(eq, *ops)
+            with record_function(MOE_EINSUMS[eq]):
+                return torch.einsum(eq, *ops)
+    saved = (moe.router_probs, moe.top_k_choices, moe.dispatch_tensors,
+             moe.torch, tf.moe_ffn)
+    moe.router_probs = marked("moe: router", saved[0])
+    moe.top_k_choices = marked("moe: routing", saved[1])
+    moe.dispatch_tensors = marked("moe: routing", saved[2])
+    moe.torch, tf.moe_ffn = Torch(), marked("moe: layer", saved[4])
+    cuda = torch.autograd.DeviceType.CUDA
+    try:
+        for _ in range(tries):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                prefill(params, tokens)
+                torch.cuda.synchronize()
+            events = prof.events()
+            # the ranges' device-side spans ("gpu_user_annotation", named
+            # as the ranges) are no kernels
+            busy = sum(ev.time_range.elapsed_us() for ev in events
+                       if ev.device_type == cuda and
+                       not ev.name.startswith("moe: "))
+            if busy:
+                break
+    finally:
+        (moe.router_probs, moe.top_k_choices, moe.dispatch_tensors,
+         moe.torch, tf.moe_ffn) = saved
+    parts = {}
+    for ev in events:
+        if ev.device_type != cuda and ev.name.startswith("moe: "):
+            dev = getattr(ev, "device_time_total", None)
+            if dev is None:
+                dev = ev.cuda_time_total
+            parts[ev.name] = parts.get(ev.name, 0.0) + dev
+    layer = parts.pop("moe: layer", 0.0)
+    parts["moe: rest of the layer"] = layer - sum(parts.values())
+    out = {"device_busy_ms": busy / 1e3, "moe_ms": layer / 1e3,
+           "moe_share": layer / busy if busy else 0.0,
+           "parts": {k[5:]: {"ms": us / 1e3,
+                             "share_of_moe": us / layer if layer else 0.0,
+                             "share_of_prefill": us / busy if busy else 0.0}
+                     for k, us in parts.items()}}
+    log(f"  the MoE layer in one profiled prefill: {out['moe_ms']:.2f} ms of "
+        f"{out['device_busy_ms']:.2f} ms device time "
+        f"({out['moe_share']:.1%}); " + ", ".join(
+            f"{k} {v['ms']:.2f} ms ({v['share_of_moe']:.1%})"
+            for k, v in out["parts"].items()))
+    if not 0 < layer <= busy:
+        raise AssertionError(f"the profiled prefill finds {layer} us of "
+                             f"device time under the MoE layer's range, of "
+                             f"{busy} us")
+    return out
+
+
+class RouteSides:
+    """The experts every router call of ``models.moe`` chose in one run
+    (``record``: each call's f32 probabilities and ranked top-k indices),
+    and a later run that takes the recorded choices (``replay``: the
+    recorded indices, their gates read from the run's own probabilities),
+    so that two runs differ by their rounding alone — phase 5's
+    ``ReluSides`` for the MoE router's discontinuity.  ``flips`` compares
+    two recorded runs."""
+
+    def __init__(self):
+        self.calls, self.replayed = [], 0
+
+    def record(self, moe, run):
+        real = moe.top_k_choices
+
+        def choices(probs, top_k):
+            vals, idx = real(probs, top_k)
+            self.calls.append((probs.detach().float().cpu(),
+                               idx.detach().cpu()))
+            return vals, idx
+        moe.top_k_choices = choices
+        try:
+            return run()
+        finally:
+            moe.top_k_choices = real
+
+    def replay(self, moe, run):
+        real, self.replayed = moe.top_k_choices, 0
+
+        def choices(probs, top_k):
+            if self.replayed == len(self.calls):
+                raise AssertionError("the replayed run routes more often "
+                                     "than the recorded run did")
+            idx = self.calls[self.replayed][1].to(probs.device)
+            if tuple(idx.shape) != tuple(probs.shape[:-1]) + (top_k,):
+                raise AssertionError(f"router call {self.replayed}: "
+                                     f"recorded {tuple(idx.shape)}, now "
+                                     f"{tuple(probs.shape)} top {top_k}")
+            self.replayed += 1
+            return probs.gather(-1, idx), idx
+        moe.top_k_choices = choices
+        try:
+            out = run()
+        finally:
+            moe.top_k_choices = real
+        if self.replayed != len(self.calls):
+            raise AssertionError(f"the replayed run routed {self.replayed} "
+                                 f"times, the recorded one "
+                                 f"{len(self.calls)}")
+        return out
+
+    def flips(self, other):
+        """This run's choices against ``other``'s, call by call up to the
+        first call where a token's ranked choices differ (later calls see
+        inputs that the flip moved): the calls compared, the tokens that
+        differ there, and the widest of their margins (this run's gate at
+        the first rank that differs less the next rank's)."""
+        out = {"calls": len(self.calls), "compared": 0, "first_flip": None,
+               "flipped_tokens": 0, "max_flip_margin": 0.0}
+        for i, ((p, a), (_, b)) in enumerate(zip(self.calls, other.calls)):
+            if a.shape != b.shape:
+                raise AssertionError(f"router call {i}: {tuple(a.shape)} "
+                                     f"against {tuple(b.shape)}")
+            out["compared"] = i + 1
+            diff = (a != b).any(-1).reshape(-1)
+            if not bool(diff.any()):
+                continue
+            pr = p.reshape(-1, p.shape[-1])[diff]
+            ar, br = a.reshape(-1, a.shape[-1])[diff], \
+                b.reshape(-1, b.shape[-1])[diff]
+            srt = torch.sort(pr, dim=-1, descending=True).values
+            rank = (ar != br).int().argmax(-1)
+            margin = srt.gather(-1, rank[:, None]) - \
+                srt.gather(-1, rank[:, None] + 1)
+            out.update(first_flip=i, flipped_tokens=int(diff.sum()),
+                       max_flip_margin=float(margin.max()))
+            break
+        return out
+
+
+def _token_major_dispatch(gate_vals, gate_idx, n_experts, capacity):
+    """A planted fault in ``moe.dispatch_tensors``: the choices queue for
+    capacity token by token (each token's k choices together) instead of
+    k-major, which changes the choices a full expert drops."""
+    *lead, g, k = gate_idx.shape
+    dev = gate_idx.device
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    flat = (gate_idx[..., None] == torch.arange(n_experts, device=dev)) \
+        .float().reshape(*lead, g * k, n_experts)
+    pos = torch.sum((torch.cumsum(flat, dim=-2) - flat) * flat, dim=-1)
+    within = pos < capacity
+    slot = torch.where(within, pos, torch.zeros_like(pos)).long()
+    cap = (slot[..., None] == torch.arange(capacity, device=dev)).float() \
+        * within[..., None]
+    both = flat[..., :, None] * cap[..., None, :]
+    disp = both.reshape(*lead, g, k, n_experts, capacity).sum(dim=-3)
+    comb = (both * gate_vals.reshape(*lead, g * k)[..., None, None]) \
+        .reshape(*lead, g, k, n_experts, capacity).sum(dim=-3)
+    return disp, comb
+
+
+def _dropped(moe, sides, capacity):
+    """Choices a recorded run's dispatch dropped, over all its calls."""
+    n = 0
+    for probs, idx in sides.calls:
+        disp, _ = moe.dispatch_tensors(probs.gather(-1, idx), idx,
+                                       probs.shape[-1], capacity)
+        n += idx.numel() - int(disp.sum())
+    return n
+
+
+def _cpu(fn):
+    """``fn()`` on one CPU thread (ROADMAP C5), as the CPU tests run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _routed_pair(M, card_run, cpu_run, label):
+    """The card run recorded, the CPU run free (recorded) and again on the
+    card's choices: (card result, CPU result on the card's choices, free
+    CPU result, the card's ``RouteSides``, the routes' comparison).  Where
+    the free CPU run ranks a token's experts otherwise, that must be a
+    near-tie of the card's gates.  ``card_run`` reads its launch counts
+    itself: the CPU legs count plain runs."""
+    card_sides, cpu_sides = RouteSides(), RouteSides()
+    card = card_sides.record(M.moe, card_run)
+    free = _cpu(lambda: cpu_sides.record(M.moe, cpu_run))
+    cpu = _cpu(lambda: card_sides.replay(M.moe, cpu_run))
+    flips = card_sides.flips(cpu_sides)
+    if flips["first_flip"] is not None and \
+            not flips["max_flip_margin"] <= ROUTE_TIE:
+        raise AssertionError(f"{label}: the card and the CPU route a token "
+                             f"otherwise beyond a near-tie: {flips}")
+    return card, cpu, free, card_sides, flips
+
+
+def moe_parity_phase(M):
+    """Phase 22 (f): reduced f32 granite (6 / 2 heads of 64, n_rep 3; 4
+    experts, top-2) on the card against the CPU port, each CPU leg on the
+    card's expert choices after the free CPU run's choices were compared
+    with them (``_routed_pair``): the prefill's last-position logits within
+    PREFILL_PARITY_BAND; ``generate`` tokens identical and logits within
+    DECODE_PARITY_BAND; the paged engine's tokens identical and logits
+    within SERVE_PARITY_BAND; 4 fused dual-batch steps within
+    TRAIN_PARITY_BAND.  The prefill's capacity (1.25 x 2 x 90 / 4 = 56
+    slots an expert) drops choices, and there a planted fault, token-major
+    capacity queues on the card, must land outside the prefill band."""
+    import numpy as np
+    cfg = M.reduced(M.get_config(GRANITE), **GRANITE_REDUCED)
+    p_cpu = M.models.init_params(cfg, torch.Generator().manual_seed(3),
+                                 device="cpu")
+    p_card = M.tree_map(lambda t: t.cuda(), p_cpu)
+    out = {"heads": (cfg.n_heads, cfg.n_kv_heads), "head_dim": cfg.head_dim,
+           "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k}
+
+    # the prefill, and the planted fault
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, PREFILL_PARITY_SEQ)))
+    prefill = M.make_prefill_step(cfg)
+
+    def card_prefill():
+        M.reset_counts()
+        logits = prefill(p_card, tok.cuda()).cpu()
+        return logits, M.counts()
+    (card, counts), cpu, free, sides, flips = _routed_pair(
+        M, card_prefill, lambda: prefill(p_cpu, tok),
+        f"prefill (reduced {GRANITE})")
+    b4 = counts["launches"]["flash_attention"]
+    moe_cfg = cfg.moe
+    capacity = max(moe_cfg.top_k, int(moe_cfg.capacity_factor * moe_cfg.top_k
+                                      * tok.numel() / moe_cfg.num_experts))
+    gap = float((card - cpu).abs().max())
+    rec = out["prefill"] = {
+        "logit_gap": gap, "free_logit_gap": float((card - free).abs().max()),
+        "logit_max": float(cpu.abs().max()), "capacity": capacity,
+        "dropped": _dropped(M.moe, sides, capacity), "routes": flips,
+        "b4_launches": b4}
+    log(f"MoE parity, prefill (reduced {GRANITE}, f32, 2 x "
+        f"{PREFILL_PARITY_SEQ}, capacity {capacity}, {rec['dropped']} "
+        f"choices dropped), card vs CPU on the card's choices: logit gap "
+        f"{gap:.3g} (band {PREFILL_PARITY_BAND:g}); free CPU run "
+        f"{rec['free_logit_gap']:.3g}, routes {flips}; {b4} B4 launches")
+    if not gap <= PREFILL_PARITY_BAND or b4 != cfg.n_layers or \
+            counts["plain"]:
+        raise AssertionError(f"prefill: the card and the CPU port disagree "
+                             f"({gap}) or B4 ran {b4} times")
+    if not rec["dropped"]:
+        raise AssertionError("the prefill's capacity drops nothing: the "
+                             "planted fault would not show")
+    faulty = RouteSides()
+    saved, M.moe.dispatch_tensors = M.moe.dispatch_tensors, \
+        _token_major_dispatch
+    try:
+        bad = faulty.record(M.moe, lambda: prefill(p_card, tok.cuda()).cpu())
+    finally:
+        M.moe.dispatch_tensors = saved
+    ref = _cpu(lambda: faulty.replay(M.moe, lambda: prefill(p_cpu, tok)))
+    fgap = float((bad - ref).abs().max())
+    out["planted_token_major"] = {"logit_gap": fgap,
+                                  "inside_band": fgap <= PREFILL_PARITY_BAND}
+    log(f"  planted fault (token-major capacity queues), card vs CPU on the "
+        f"card's choices: logit gap {fgap:.3g}: "
+        f"{'inside' if fgap <= PREFILL_PARITY_BAND else 'outside'} the band")
+    if fgap <= PREFILL_PARITY_BAND:
+        raise AssertionError("the planted token-major fault lands inside the "
+                             "prefill band")
+
+    # generate: dropless decode steps
+    plen, gen = DECODE_PARITY_PROMPT, DECODE_PARITY_GEN
+    prompts = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, plen)))
+    run = lambda p, t: M.serve.generate(cfg, p, t, gen=gen, max_seq=plen + gen,
+                                        return_logits=True)
+
+    def card_generate():
+        for mod in (M.FA, M.FD):
+            mod.reset_counts()
+        res = run(p_card, prompts.cuda())
+        return res, {"flash_attention": M.FA.launch_count(),
+                     "flash_decode": M.FD.launch_count("flash_decode"),
+                     "plain": M.FA.plain_count() + M.FD.plain_count()}
+    ((ct, cl), launches), (pt, pl), (ft, _), _, flips = _routed_pair(
+        M, card_generate, lambda: run(p_cpu, prompts),
+        f"generate (reduced {GRANITE})")
+    gap = float((cl.cpu() - pl).abs().max())
+    same = bool(torch.equal(ct.cpu(), pt))
+    out["generate"] = {"tokens_equal": same, "free_tokens_equal": bool(
+        torch.equal(ct.cpu(), ft)), "logit_gap": gap, "routes": flips,
+        "launches": launches}
+    log(f"MoE parity, generate (reduced {GRANITE}, {plen} + {gen}), card vs "
+        f"CPU on the card's choices: tokens equal {same}, logit gap "
+        f"{gap:.3g} (band {DECODE_PARITY_BAND:g}); free CPU tokens equal "
+        f"{out['generate']['free_tokens_equal']}, routes {flips}; launches "
+        f"{launches}")
+    want = {"flash_attention": cfg.n_layers,
+            "flash_decode": cfg.n_layers * (gen - 1), "plain": 0}
+    if not same or not gap <= DECODE_PARITY_BAND or launches != want:
+        raise AssertionError(f"generate: the card and the CPU port disagree, "
+                             f"or launches {launches} != {want}")
+
+    # the paged engine on the churn workload of phase 13
+    spec = M.PageSpec(page_len=16, pages_per_slot=4, n_slots=2)
+    reqs = M.synthetic_workload(1, 8, vocab=cfg.vocab_size,
+                                prompt_lens=(3, 20), gen_short=(3, 8),
+                                gen_long=(12, 20), p_long=0.3)
+    serve = lambda p, device: M.ServeEngine(
+        cfg, p, spec=spec, prefill_chunk=8, record_logits=True,
+        device=device)
+
+    def card_serve():
+        M.FD.reset_counts()
+        eng = serve(p_card, "cuda")
+        recs = eng.serve(reqs)
+        return recs, (M.FD.launch_count("flash_decode_paged"),
+                      M.FD.plain_count(), eng.stats["decode_calls"])
+    (rc, (b6, plain, calls)), rp, rf, _, flips = _routed_pair(
+        M, card_serve, lambda: serve(p_cpu, "cpu").serve(reqs),
+        f"paged engine (reduced {GRANITE})")
+    same = all(a.tokens == b.tokens for a, b in zip(rc, rp))
+    gap = max(float(np.abs(x - y).max()) for a, b in zip(rc, rp)
+              for x, y in zip(a.logits, b.logits))
+    out["serve"] = {"tokens_equal": same, "free_tokens_equal": all(
+        a.tokens == b.tokens for a, b in zip(rc, rf)), "logit_gap": gap,
+        "routes": flips, "b6_launches": b6, "decode_calls": calls}
+    log(f"MoE parity, paged engine (reduced {GRANITE}, churn workload), card "
+        f"vs CPU on the card's choices: tokens identical {same}, logit gap "
+        f"{gap:.3g} (band {SERVE_PARITY_BAND:g}); free CPU tokens identical "
+        f"{out['serve']['free_tokens_equal']}, routes {flips}; {b6} B6 "
+        f"launches ({cfg.n_layers} x {calls} decode ticks)")
+    if not same or not gap <= SERVE_PARITY_BAND or \
+            b6 != cfg.n_layers * calls or plain:
+        raise AssertionError("paged engine: the card and the CPU port "
+                             "disagree, or B6 did not run every tick")
+
+    # training: fused dual-batch SGD steps (B1 a step on the card)
+    steps = TRAIN_PARITY_ARGS["steps"]
+    (card, cc), (cpu, _), (free, _), _, flips = _routed_pair(
+        M, lambda: _train_run(M, cfg, p_cpu, "fused", "cuda"),
+        lambda: _train_run(M, cfg, p_cpu, "fused", "cpu"),
+        f"training (reduced {GRANITE})")
+    lc = [h["loss"] for h in card.history]
+    lp = [h["loss"] for h in cpu.history]
+    rec = {"loss_gap": max(abs(a - b) for a, b in zip(lc, lp)),
+           "param_gap": _leaf_gaps(M.tree_leaves(card.params),
+                                   M.tree_leaves(cpu.params)),
+           "free_loss_gap": max(abs(a - h["loss"]) for a, h in
+                                zip(lc, free.history)),
+           "losses": lc, "routes": flips,
+           "launches": cc["dbl"]["dbl_apply_flat2d"]}
+    out["train"] = rec
+    log(f"MoE parity, training (reduced {GRANITE}, {steps} fused dual-batch "
+        f"steps), card vs CPU on the card's choices: loss gap "
+        f"{rec['loss_gap']:.3g}, param gap {rec['param_gap']:.3g} (bands "
+        f"{TRAIN_PARITY_BAND['loss']:g} / {TRAIN_PARITY_BAND['params']:g}); "
+        f"free CPU loss gap {rec['free_loss_gap']:.3g}, routes {flips}; "
+        f"{rec['launches']} dbl_apply_flat2d launches")
+    if not (len(lc) == len(lp) == steps and
+            rec["loss_gap"] <= TRAIN_PARITY_BAND["loss"] and
+            rec["param_gap"] <= TRAIN_PARITY_BAND["params"] and
+            rec["launches"] == steps and not cc["dbl_plain"]):
+        raise AssertionError(f"training: the card and the CPU port disagree "
+                             f"beyond {TRAIN_PARITY_BAND}: {rec}")
+    return out
+
+
+def moe_phase(M, rate):
+    """Phase 22: granite-moe-3b-a800m at full width on every LM path (the
+    kernels at its geometry, (a), ran in phases 11, 14 and 21): (b) the
+    prefill with the MoE layer's split, (c) the static decode, (d) the
+    paged serving engine, (e) LM training through the CLI; then (f) card
+    vs CPU.  Returns (records, launches per kernel on the four paths, B1's
+    record at granite's store)."""
+    out, launches = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["prefill"], pf = prefill_phase(M, archs=(GRANITE,))
+    out["decode"], dl = decode_phase(M, archs=(GRANITE,))
+    launches["flash_attention"] = pf["flash_attention"] + \
+        dl["flash_attention"]
+    launches["flash_decode"] = dl["flash_decode"]
+    out["serving"], sl = serving_phase(M, GRANITE, legs=GRANITE_SERVE_LEGS)
+    launches["flash_decode_paged"] = sum(sl["flash_decode_paged"].values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lm_train"], b1 = lm_train_phase(M, rate, GRANITE,
+                                         GRANITE_TRAIN_ARGV,
+                                         GRANITE_TRAIN_STEPS)
+    launches["dbl_apply_flat2d"] = \
+        out["lm_train"]["launches"]["dbl_apply_flat2d"]
+    out["parity"] = moe_parity_phase(M)
+    launches["dbl_apply_flat2d"] += out["parity"]["train"]["launches"]
+    return out, launches, b1
 
 
 def main() -> int:
@@ -3962,6 +4468,33 @@ def main() -> int:
     for entry in (b4, b5):
         entry["max_abs_err"] = max(r["max_abs_err"]
                                    for r in entry["variants"])
+
+    # 22. the MoE family: granite-moe-3b-a800m at full width on every LM
+    # path (its kernel geometries ran in phases 11, 14 and 21), then card
+    # vs CPU
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf_mod
+    M = SimpleNamespace(**{**vars(S), **vars(P), **vars(D), **vars(L)},
+                        moe=moe_mod, transformer=tf_mod)
+    report["moe"], moe_launches, b1_granite = moe_phase(M, rate)
+    log(f"[{time.perf_counter() - t_start:.0f} s] MoE family done")
+    # granite's kernel records among the line's variants (phases 11, 14
+    # and 21)
+    report["moe"]["kernels"] = {
+        e["name"]: [r for r in e["variants"]
+                    if r.get("shape", "").startswith(GRANITE)]
+        for e in line if e["name"] in ("flash_attention", "flash_decode",
+                                       "flash_decode_paged")}
+    report["moe"]["launches"] = moe_launches
+    for entry in line:
+        n = moe_launches.get(entry["name"], 0)
+        entry["launches"] += n
+    line[0]["variants"][0]["launches"] += moe_launches["dbl_apply_flat2d"]
+    b1_granite["launches"] = \
+        report["moe"]["lm_train"]["launches"]["dbl_apply_flat2d"]
+    line[0]["variants"].append(b1_granite)
+    line[0]["max_abs_err"] = max(line[0]["max_abs_err"],
+                                 b1_granite["max_abs_err"])
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:

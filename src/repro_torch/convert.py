@@ -68,7 +68,8 @@ def lm_params_from_numpy(tree, cfg, device=None):
     and RWKV-6 segments alike, and the empty ``{}`` of each call of a
     weight-tied shared block, whose parameters sit under ``"shared"`` —
     so the mapping is leaf for leaf; this checks that the segments stack
-    ``layout(cfg)``."""
+    ``layout(cfg)``, and that an MoE block's leaves hold
+    ``cfg.moe.padded_experts`` experts with an f32 router."""
     from repro_torch.configs.base import SHARED_ATTN
     from repro_torch.core.tree import tree_leaves
     from repro_torch.models.transformer import layout
@@ -89,7 +90,26 @@ def lm_params_from_numpy(tree, cfg, device=None):
                 raise ValueError(f"a {seg.kind} segment of {seg.count} "
                                  f"layers holds a leaf of shape "
                                  f"{np.shape(leaf)}")
+        if "moe" in sp:
+            _check_moe(sp["moe"], cfg)
     return params_from_numpy(tree, device)
+
+
+def _check_moe(p, cfg):
+    """An MoE block's stacked leaves: the router ``(L, D, E')`` in f32,
+    the experts ``(L, E', ...)``, with E' = ``padded_experts``."""
+    if cfg.moe is None:
+        raise ValueError(f"{cfg.name} has no MoE config, but the tree holds "
+                         "MoE blocks")
+    ne = cfg.moe.padded_experts
+    router = np.asarray(p["router"])
+    if router.dtype != np.float32 or router.shape[-1] != ne:
+        raise ValueError(f"the router must be f32 over {ne} experts, got "
+                         f"{router.dtype} {router.shape}")
+    for k in ("wi", "wg", "wo"):
+        if np.shape(p[k])[1] != ne:
+            raise ValueError(f"moe/{k} holds {np.shape(p[k])[1]} experts, "
+                             f"{cfg.name} {ne}")
 
 
 _CACHE_KEYS = {"attn": {"k", "v"}, "shared_attn": {"k", "v"},

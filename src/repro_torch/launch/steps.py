@@ -32,7 +32,8 @@ def make_prefill_step(cfg: ModelConfig):
     engines do): an f32 config computes in f32."""
     if cfg.encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder prefill waits for ROADMAP A12")
+            f"{cfg.name}: the encoder-decoder prefill waits for ROADMAP "
+            "A12d")
 
     def prefill(params, tokens):
         strict_f32(tokens.device)

@@ -8,9 +8,9 @@
 
 ``batch`` dicts carry an optional per-example ``weight`` — the hook used
 by dual-batch learning's model-update factor.  The CNN is ported whole,
-and so are the decoder-only LMs' (dense, SSM and hybrid stacks) init,
-forward, loss and decode (``transformer``; MoE blocks raise until ROADMAP
-A12c/A19); the encoder-decoder models wait for A12d.  ``decode_step``
+and so are the decoder-only LMs' (dense, MoE, SSM and hybrid stacks)
+init, forward, loss and decode (``transformer``, ``moe``); the
+encoder-decoder models wait for ROADMAP A12d.  ``decode_step``
 updates the cache in place and returns it.
 """
 from __future__ import annotations

@@ -1,5 +1,7 @@
 """Decoder-only LM: the layer layout, parameter init, the forward and the
-weighted-example loss for attention, Mamba2, RWKV-6 and hybrid stacks.
+weighted-example loss for attention, Mamba2, RWKV-6 and hybrid stacks,
+with a dense SwiGLU or an MoE FFN (``models/moe.py``) in the attention
+blocks.
 
 The layer stack is a list of *segments* — maximal runs of identical
 block kinds — each holding stacked ``(count, ...)`` per-layer tensors,
@@ -51,6 +53,7 @@ from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.attention import (NEG_INF, attention_block,
                                          attn_project_qkv, chunked_attention,
                                          decode_attention, gqa_expand)
@@ -111,6 +114,24 @@ def _init_mlp(gen, cfg, dtype, lead=()):
     }
 
 
+def _init_moe(gen, cfg, dtype, lead=()):
+    """The MoE FFN's parameters: the router in f32 whatever ``dtype``,
+    ``padded_experts`` experts (router-masked padding included)."""
+    e, d = cfg.moe, cfg.d_model
+    ne, f = e.padded_experts, e.d_ff_expert
+    p = {
+        "router": _normal(gen, (*lead, d, ne), d ** -0.5, torch.float32),
+        "wi": _normal(gen, (*lead, ne, d, f), d ** -0.5, dtype),
+        "wg": _normal(gen, (*lead, ne, d, f), d ** -0.5, dtype),
+        "wo": _normal(gen, (*lead, ne, f, d), f ** -0.5, dtype),
+    }
+    if e.dense_residual:
+        mlp = _init_mlp(gen, cfg, dtype, lead)
+        p.update({"res_wi": mlp["wi"], "res_wg": mlp["wg"],
+                  "res_wo": mlp["wo"]})
+    return p
+
+
 def _init_block(gen, cfg, kind, dtype, lead=()):
     """One block's parameters, with ``lead`` stacking dims in front (a
     segment draws all its layers at once)."""
@@ -127,14 +148,14 @@ def _init_block(gen, cfg, kind, dtype, lead=()):
                 "ln2": zeros()}
     if kind != ATTN:
         raise ValueError(f"{cfg.name}: no parameters for a {kind} block")
+    p = {"ln1": zeros(),
+         "attn": _init_attn_layer(gen, cfg, dtype, lead),
+         "ln2": zeros()}
     if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet: they wait for "
-            "ROADMAP A12 (models/moe.py) and A19 (MoE serving)")
-    return {"ln1": zeros(),
-            "attn": _init_attn_layer(gen, cfg, dtype, lead),
-            "ln2": zeros(),
-            "mlp": _init_mlp(gen, cfg, dtype, lead)}
+        p["moe"] = _init_moe(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = _init_mlp(gen, cfg, dtype, lead)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None):
@@ -165,20 +186,28 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None):
 
 
 # --------------------------- forward ----------------------------------------
+def _ffn(p, hin, cfg, dropless: bool = False):
+    """The block's FFN on the normed ``hin``: (y, the layer's aux loss —
+    a tensor for MoE blocks, 0.0 for dense ones)."""
+    if cfg.moe:
+        return moe_ffn(p["moe"], hin, cfg.moe, dropless=dropless)
+    return swiglu(hin, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"]), 0.0
+
+
 def _attn_block_body(p, x, cfg, window, positions, drop_seed, drop_rate,
                      train):
+    """(the block's output, its aux loss)."""
     h = x + attention_block(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                             cfg, window=window, positions=positions,
                             train=train)
-    hin = rms_norm(h, p["ln2"], cfg.norm_eps)
-    y = swiglu(hin, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
-    return h + dropout(y, _layer_gen(x.device, drop_seed), drop_rate)
+    y, aux = _ffn(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg)
+    return h + dropout(y, _layer_gen(x.device, drop_seed), drop_rate), aux
 
 
 def _mamba_block_body(p, x, cfg, train):
     return x + m2.mamba2_block(p["mamba"], rms_norm(x, p["ln1"],
                                                     cfg.norm_eps), cfg,
-                               train=train)
+                               train=train), 0.0
 
 
 def _rwkv_block_body(p, x, cfg, train):
@@ -186,7 +215,7 @@ def _rwkv_block_body(p, x, cfg, train):
                           train=train)
     h = x + y
     y, _ = rk.channel_mix(p["rwkv"], rms_norm(h, p["ln2"], cfg.norm_eps), cfg)
-    return h + y
+    return h + y, 0.0
 
 
 def _layer_seed(drop_rng, li: int):
@@ -218,8 +247,8 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _remat(cfg, body, x):
-    """``body(x)`` under the config's remat policy (only where a backward
-    will run)."""
+    """``body(x)`` (a block's (output, aux loss)) under the config's remat
+    policy (only where a backward will run)."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return body(x)
     if cfg.remat == "block":
@@ -244,17 +273,14 @@ def forward(params, cfg: ModelConfig, tokens, *, drop_rng=None,
             return_hidden: bool = False, train: bool = False):
     """tokens: (B, S) int -> logits (B, S, V) in the compute dtype (B, 1, V
     with ``last_only``; the final-normed hidden states with
-    ``return_hidden``) [, the aux load-balance loss: 0 without MoE].
+    ``return_hidden``) [, the aux load-balance loss summed over the MoE
+    layers: 0.0 without MoE].
 
     embeddings: optional (B, S, D) — overrides the token embedding.
     drop_rng: a ``torch.Generator`` whose seed keys every attention
     block's dropout (at ``drop_rate``) on the MLP output, per layer.
     train: run the differentiable scans in place of B4 / B7 / B8 on the
     card (the training forward; see the module docstring)."""
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE forward waits for ROADMAP A12 "
-            "(models/moe.py)")
     cdt = dtype_of(cfg.compute_dtype)
     if embeddings is None:
         x = params["embed"][tokens].to(cdt)
@@ -270,10 +296,12 @@ def forward(params, cfg: ModelConfig, tokens, *, drop_rng=None,
                        drop_seed=_layer_seed(drop_rng, li),
                        drop_rate=drop_rate, train=train)
 
+    aux_total = 0.0
     li = 0
     for seg, sp in zip(layout(cfg), params["segments"]):
         if seg.kind == SHARED_ATTN:
-            x = _remat(cfg, attn(params["shared"], 0, li), x)
+            x, aux = _remat(cfg, attn(params["shared"], 0, li), x)
+            aux_total = aux_total + aux
             li += 1
             continue
         for i, p in enumerate(_layers(sp, seg.count)):
@@ -285,7 +313,8 @@ def forward(params, cfg: ModelConfig, tokens, *, drop_rng=None,
                 body = partial(_rwkv_block_body, p, cfg=cfg, train=train)
             else:
                 raise ValueError(seg.kind)
-            x = _remat(cfg, body, x)
+            x, aux = _remat(cfg, body, x)
+            aux_total = aux_total + aux
         li += seg.count
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -296,7 +325,7 @@ def forward(params, cfg: ModelConfig, tokens, *, drop_rng=None,
     else:
         head = params.get("lm_head", params["embed"])
         out = torch.einsum("bsd,vd->bsv", x, head)
-    return (out, 0.0) if return_aux else out
+    return (out, aux_total) if return_aux else out
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, drop_rng=None,
@@ -308,33 +337,29 @@ def loss_fn(params, cfg: ModelConfig, batch, *, drop_rng=None,
     ``core/spmd_dual_batch.py``), optional "embeddings": (B, S, D)}.
     Runs the training forward (``train=True``), and for a vocabulary of
     65536 or more the chunked CE, which never makes the (B, S, V) f32
-    logits.  Returns (loss, {"loss", "per_example"})."""
+    logits.  An MoE model adds ``router_aux_weight`` times its aux loss
+    per layer.  Returns (loss, {"loss", "per_example"})."""
     fw = dict(drop_rng=drop_rng, drop_rate=drop_rate,
               embeddings=batch.get("embeddings"), return_aux=True,
               train=True)
     if cfg.vocab_size >= 65536:
-        hidden, _ = forward(params, cfg, batch["tokens"], return_hidden=True,
-                            **fw)
+        hidden, aux = forward(params, cfg, batch["tokens"],
+                              return_hidden=True, **fw)
         head = params.get("lm_head", params["embed"])
         per_ex = chunked_cross_entropy(hidden, head, batch["labels"])
     else:
-        logits, _ = forward(params, cfg, batch["tokens"], **fw)
+        logits, aux = forward(params, cfg, batch["tokens"], **fw)
         per_ex = cross_entropy(logits, batch["labels"])        # (B,)
     w = batch.get("weight")
     if w is None:
         w = torch.ones_like(per_ex)
     loss = torch.sum(per_ex * w) / torch.clamp_min(torch.sum(w), 1e-9)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux / max(cfg.n_layers, 1)
     return loss, {"loss": loss, "per_example": per_ex}
 
 
 # --------------------------- decode -----------------------------------------
-def _refuse_moe(cfg):
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE decode waits for ROADMAP A12c "
-            "(models/moe.py)")
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None):
     """Per-segment cache tree for decode, on ``device`` (``None`` means
@@ -344,7 +369,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     ``(count, B, nh, P, N)`` f32 and ``conv`` ``(count, B, d_conv-1,
     d_in+2N)``, RWKV-6 ``wkv`` ``(count, B, H, hd, hd)`` f32 and
     ``shift_t`` / ``shift_c`` ``(count, B, 1, D)``; all zeros."""
-    _refuse_moe(cfg)
     device = resolve_device(device)
     dtype = dtype or dtype_of(cfg.compute_dtype)
     zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt,
@@ -441,8 +465,8 @@ def _decode_attn_layer(p, x, cfg, cache_k, cache_v, window, pos, rope,
         cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
     o = decode_attention_dyn(q, cache_k, cache_v, pos, window)
     h = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
-    hin = rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + swiglu(hin, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
+    y, _ = _ffn(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg, dropless=True)
+    return h + y
 
 
 def _pos_arg(pos, t: int, device):
@@ -483,7 +507,6 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
 
     Writes the chunk's keys, values and states into ``caches`` in place
     and returns (logits (B, T, V) in the compute dtype, ``caches``)."""
-    _refuse_moe(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     if embeddings is None:
         x = params["embed"][tokens].to(cdt)

@@ -35,7 +35,9 @@ the pool and positions past ``slot_tokens``; here they never reach the
 device — and copies its index tensors to the card once per tick, not once
 per layer.  The caches are updated in place (the reference donates them).
 Layers run as a Python loop over each segment's stacked tensors, indexed
-as views, so a decode tick on the card makes one B6 launch per layer.
+as views, so a decode tick on the card makes one B6 launch per layer.  An
+MoE model's FFN runs ``moe_ffn`` dropless on the tick's packed ``(m, T)``
+tokens, so a token's output does not depend on the rows beside it.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from repro_torch.core import flat
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.models.attention import NEG_INF, attn_project_qkv, gqa_expand
 from repro_torch.models.layers import dtype_of, rms_norm, rope_tables, swiglu
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.transformer import Segment, layout
 
 
@@ -196,10 +199,6 @@ def make_serve_step(cfg: ModelConfig, spec: PageSpec,
     segs = attention_segments(cfg)
     if backend not in ("paged", "contig"):
         raise ValueError(f"backend must be 'paged' or 'contig': {backend!r}")
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE serving waits for ROADMAP A12 (models/moe.py) "
-            "and A19 (MoE serving)")
     paged = backend == "paged"
     page_len, pp = spec.page_len, spec.pages_per_slot
     n_pages, slot_tokens = spec.n_pages, spec.slot_tokens
@@ -265,7 +264,6 @@ def make_serve_step(cfg: ModelConfig, spec: PageSpec,
             flash = flash_tick and uniform_w is not None
             for i in range(seg.count):
                 attn = {k: w[i] for k, w in sp["attn"].items()}
-                mlp = {k: w[i] for k, w in sp["mlp"].items()}
                 ck, cv = cache["k"][i], cache["v"][i]
                 xin = rms_norm(x, sp["ln1"][i], cfg.norm_eps)
                 q, k, v = attn_project_qkv(attn, xin, positions, cfg,
@@ -281,7 +279,13 @@ def make_serve_step(cfg: ModelConfig, spec: PageSpec,
                                         positions, seg.windows[i])
                 h = x + o.reshape(m, t, cfg.n_heads * hd) @ attn["wo"]
                 hin = rms_norm(h, sp["ln2"][i], cfg.norm_eps)
-                x = h + swiglu(hin, mlp["wi"], mlp["wg"], mlp["wo"])
+                if cfg.moe:
+                    y, _ = moe_ffn({k: w[i] for k, w in sp["moe"].items()},
+                                   hin, cfg.moe, dropless=True)
+                else:
+                    mlp = {k: w[i] for k, w in sp["mlp"].items()}
+                    y = swiglu(hin, mlp["wi"], mlp["wg"], mlp["wo"])
+                x = h + y
 
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         head = params.get("lm_head", params["embed"])

@@ -85,7 +85,9 @@ FA_CUDA_CASES = [(2, 4, 2, 45, 45, 80, True, 0), (2, 4, 2, 45, 45, 80, True, 16)
                  (1, 8, 2, 200, 200, 128, True, 0),
                  (1, 8, 2, 200, 200, 256, True, 100),
                  (2, 4, 2, 50, 77, 64, False, 0),
-                 (1, 4, 1, 130, 70, 256, False, 0)]
+                 (1, 4, 1, 130, 70, 256, False, 0),
+                 # granite-moe-3b-a800m's n_rep 3 at hd 64 (reduced heads)
+                 (2, 6, 2, 45, 45, 64, True, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -587,6 +589,94 @@ def test_static_generate_launches_the_kernels(cuda):
     fd.reset_counts()
     card = generate(cfg, tree_map(lambda t: t.cuda(), params),
                     prompts.cuda(), gen=5, max_seq=17)
+    assert (fa.launch_count(), fd.launch_count("flash_decode")) == \
+        (cfg.n_layers, cfg.n_layers * 4)
+    assert fa.plain_count() + fd.plain_count() == 0
+    cpu = generate(cfg, params, prompts, gen=5, max_seq=17)
+    assert torch.equal(card.cpu(), cpu)
+
+
+# granite-moe-3b-a800m's attention: n_rep 3 at hd 64, full (24 / 8 heads)
+# and reduced (6 / 2); B5 and B6 serve the 3 heads of a KV head from their
+# kRep = 4 form, a ragged group
+GRANITE_DECODE = [(24, 8), (6, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", GRANITE_DECODE)
+def test_flash_decode_at_granite_geometry(cuda, dtype, h, kv):
+    """B5 on the (B, S, KV, hd) layer cache at n_rep 3, hd 64, every
+    cluster size, positions 0, the middle and the last: within 2e-5 of its
+    plain version (bf16 one ulp more)."""
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(h)
+    b, hd, s = 4, 64, 200
+    q = torch.randn(b, h, 1, hd, generator=gen, device=cuda).to(dtype)
+    kc, vc = (torch.randn(b, s, kv, hd, generator=gen, device=cuda)
+              .to(dtype).transpose(1, 2) for _ in range(2))
+    fd.reset_counts()
+    for pos in (0, s // 2, s - 1):
+        want = fd._xla_decode(q, kc, vc, pos)
+        for split in fd.CLUSTER_SIZES:
+            _close_decode(fd.flash_decode(q, kc, vc, pos, split=split),
+                          want, dtype)
+    assert fd.launch_count("flash_decode") == 3 * len(fd.CLUSTER_SIZES)
+    assert fd.plain_count() == 0
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", GRANITE_DECODE)
+def test_paged_decode_at_granite_geometry(cuda, kv_dtype, h, kv):
+    """B6 at n_rep 3, hd 64, every cluster size, a scrambled page table
+    and a dead row, with and without a window: within 2e-5 of its plain
+    version."""
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(h + 1)
+    rows, hd, page_len, pp, n_pages = 4, 64, 16, 16, 80
+    q = torch.randn(rows, h, 1, hd, generator=gen, device=cuda)
+    kp, vp = (torch.randn(n_pages, page_len, kv, hd, generator=gen,
+                          device=cuda).to(kv_dtype) for _ in range(2))
+    table = torch.randperm(n_pages, generator=gen, device=cuda)[
+        :rows * pp].reshape(rows, pp).int()
+    table[1] = n_pages                                   # dead row
+    lengths = torch.tensor([255, 0, 40, 129], dtype=torch.int32, device=cuda)
+    fd.reset_counts()
+    for w in (0, 64):
+        want = fd.paged_decode_ref(q, kp, vp, table, lengths, window=w)
+        for split in fd.CLUSTER_SIZES:
+            got = fd.flash_decode_paged(q, kp, vp, table, lengths, window=w,
+                                        split=split)
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert fd.launch_count() == 2 * len(fd.CLUSTER_SIZES)
+    assert fd.plain_count() == 0
+
+
+def test_granite_paths_launch_the_kernels(cuda):
+    """Reduced f32 granite-moe-3b-a800m (6 / 2 heads of 64) on the card:
+    a prefill makes one B4 launch a layer; ``generate`` one B4 a layer and
+    one B5 a layer a decode step, no plain run, and the CPU port's greedy
+    tokens."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = reduced(get_config("granite-moe-3b-a800m"), d_model=384,
+                  n_heads=6)
+    params = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    card_params = tree_map(lambda t: t.cuda(), params)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(1))
+    fa.reset_counts()
+    fd.reset_counts()
+    logits = make_prefill_step(cfg)(card_params, prompts.cuda())
+    assert fa.launch_count() == cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+    fa.reset_counts()
+    card = generate(cfg, card_params, prompts.cuda(), gen=5, max_seq=17)
     assert (fa.launch_count(), fd.launch_count("flash_decode")) == \
         (cfg.n_layers, cfg.n_layers * 4)
     assert fa.plain_count() + fd.plain_count() == 0

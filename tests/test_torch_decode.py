@@ -380,9 +380,11 @@ def test_make_decode_step_refuses_what_waits():
         make_decode_step(cfg, InputShape("decode_32k", 32768, 1, "decode"))
     with pytest.raises(NotImplementedError, match="A12d"):
         make_decode_step(replace(cfg, encoder_layers=2))
+    # an MoE model's decode is ported (ROADMAP A12c, tests/
+    # test_torch_moe_paths.py): its cache is the attention k / v
     moe = replace(cfg, moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
-    with pytest.raises(NotImplementedError, match="A12c"):
-        models.init_cache(moe, 1, 4, device="cpu")
+    cache = models.init_cache(moe, 1, 4, device="cpu")
+    assert [set(c) for c in cache] == [{"k", "v"}]
 
 
 # ----------------------------- a device pos ----------------------------------

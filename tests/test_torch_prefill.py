@@ -214,12 +214,17 @@ def test_unported_paths_name_their_items():
     cfg = reduced(get_config("phi3-mini-3.8b"))
     tp = models.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    # the dense LM loss is ported (tests/test_torch_lm_train.py); an MoE
-    # model's still names its item
+    # the dense LM loss is ported (tests/test_torch_lm_train.py), and an
+    # MoE model's too (ROADMAP A12c, tests/test_torch_moe_paths.py): a
+    # dense tree given an MoE config has no MoE block to run
     moe = replace(cfg, moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
     tok = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(KeyError, match="moe"):
         models.loss_fn(tp, moe, {"tokens": tok, "labels": tok})
+    mp = models.init_params(moe, torch.Generator().manual_seed(0),
+                            device="cpu")
+    loss, _ = models.loss_fn(mp, moe, {"tokens": tok, "labels": tok})
+    assert bool(torch.isfinite(loss))
     enc = replace(cfg, encoder_layers=2)
     with pytest.raises(NotImplementedError, match="A12"):
         models.init_params(enc, torch.Generator(), device="cpu")
