@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --b5-times SRC    # B5's times alone, from SRC
+    python3 chip_smoke.py --spmd-only       # the build and phase 23 alone;
+                                            # its last line says "phases": [1, 23]
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -188,6 +190,26 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     after the free CPU run's choices differed at most at near-ties
     (``ROUTE_TIE``); a planted fault (token-major capacity queues) outside
     the prefill band.
+23. multi-GPU SPMD on one NCCL rank (the card host has one H100), mesh
+    ``(1, 1)`` named ``("data", "model")``: (a) B2's leafwise form
+    (``ops.dbl_merge(leafwise=True)``) on a full-width phi3-mini-3.8b
+    tree of DTensors (views of one seeded N(0, 1) f32 store): one launch
+    per leaf, bit-equal to the flat one-launch form and to the plain
+    version, timed (the sum over leaves) beside both and the bytes bound;
+    (b) the main path, ``SpmdBackend(TrainEngine(cfg, sgd, mesh=mesh,
+    fused_merge=True), plane)`` at full width and depth in f32 on the
+    example's plan and phase (``examples/dual_batch_spmd.py``: seq 64,
+    global batch 16, lr 0.01, 10 steps): one B2 launch per leaf per step
+    and nothing else, finite losses, the last below the first, params
+    DTensors on the card; ms a step, tokens/s, peak memory, a profiled
+    step (idle share, B2's share); (c) mesh against no mesh at full
+    width and ``SPMD_CUT_LAYERS`` layers, the fused form (no mesh: the
+    per-step loop) over 10 steps and the example's own weighted form
+    (``sgd_momentum(0.9)``) over 4: params bit for bit equal, ms a step
+    both ways; (d) reduced f32 phi3-mini, 4 fused steps on the card
+    against the CPU port on a 4-rank gloo ``(2, 2)`` mesh that the phase
+    spawns, within ``TRAIN_PARITY_BAND``, and a planted fault (per-rank
+    denominators in the weighted loss) outside it.
 
 The launch counts are set to 0 just before each path and read just after;
 the ``launches`` in the kernels line are those counts, summed over the
@@ -200,7 +222,10 @@ one forward of each model of phase 15, B4 adding phase 21's chunked
 prefill; B3 adds phase 20's search, its one-store and batched launches,
 the batched form's records among its variants; phase 22 adds granite's
 B4, B5, B6 and B1 launches on its four paths and its card-vs-CPU
-training steps, B1's granite-store record among its variants).  Launches
+training steps, B1's granite-store record among its variants; phase 23
+adds B2's leafwise launches of its mesh runs on the card, (b), (c) and
+(d), and B2's numbers in the line are its leafwise form at the phi3
+tree, the form this slice's main path runs).  Launches
 made to compare a kernel with its plain version are not counted.  B1's
 numbers in the line are its LM-store ones (phase 18), the shape this
 slice's main path gives it; the ResNet-store records stay among its
@@ -3918,10 +3943,480 @@ def moe_phase(M, rate):
     return out, launches, b1
 
 
+# ------------------------------ phase 23: SPMD -------------------------------
+SPMD_ARCH = "phi3-mini-3.8b"
+SPMD_STEPS = 10                 # the example's schedule, fused SGD
+SPMD_WEIGHTED_STEPS = 4         # the example's own form
+# the weighted form (sgd_momentum's functional update holds params,
+# gradients, velocity and the new params and velocity at once: 5 x 15.3
+# GB at 32 layers) and the no-mesh per-step fused run (params, both
+# group gradients and their three raveled copies at its B2 launch: 6 x
+# 15.3 GB) fit the card only at cut depth; full width, 16 of 32 layers
+SPMD_CUT_LAYERS = 16
+SPMD_CPU_RANKS, SPMD_CPU_MESH = 4, (2, 2)
+SPMD_PARITY_STEPS = 4
+SPMD_TIMEOUT_S = 300
+B2_NAME = "dbl_merge_flat2d"
+
+
+def _host_gib() -> float:
+    """This process's resident host memory, GiB."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def _spmd_counts(Z):
+    return {"b2": Z.K.launch_count(B2_NAME), "b1":
+            Z.K.launch_count("dbl_apply_flat2d"), "all": Z.K.launch_count(),
+            "plain": Z.K.plain_count()}
+
+
+def b2_leafwise_phase(Z, mesh, rate):
+    """Phase 23 (a): B2's leafwise form on a full-width phi3-mini tree of
+    DTensors (the leaves are views of one seeded N(0, 1) flat store, so
+    the flat form runs on the same numbers): one launch per leaf, the
+    live region bit-equal to the flat one-launch form and to the plain
+    version (a slice at a time); timed beside the flat form, the plain
+    version leaf by leaf and the bytes bound."""
+    # the store's geometry from a model built on the card and freed
+    params = Z.models.init_params(
+        replace_f32(Z.get_config(SPMD_ARCH)),
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    spec = Z.flat_spec(params)
+    del params
+    torch.cuda.empty_cache()
+    n, leaves = spec.n, len(spec.sizes)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    bufs = []
+    for _ in range(3):
+        b = torch.randn(spec.shape, generator=gen, device="cuda")
+        b.view(-1)[n:] = 0.0
+        bufs.append(b)
+    p2, gl2, gs2 = bufs
+    flat = p2.clone()
+    Z.K.reset_counts()
+    Z.K.dbl_merge_flat2d(flat, gl2, gs2, factor=FACTOR, lr=LR)
+    for r0 in range(0, spec.rows, PLAIN_SLICE_ROWS):
+        sl = slice(r0, r0 + PLAIN_SLICE_ROWS)
+        ref = Z.K.dbl_merge_plain(p2[sl].clone(), gl2[sl], gs2[sl],
+                                  factor=FACTOR, lr=LR)
+        if not torch.equal(ref, flat[sl]):
+            raise AssertionError(f"B2 flat form differs from its plain "
+                                 f"version at rows {r0}..")
+        del ref
+    trees = [spec.unravel(b) for b in bufs]
+    specs = Z.param_specs(trees[0], mesh)
+    trees = [Z.distribute_tree(t, specs, mesh) for t in trees]
+    Z.K.reset_counts()
+    Z.ops.dbl_merge(*trees, factor=FACTOR, lr=LR, leafwise=True)
+    torch.cuda.synchronize()
+    got = _spmd_counts(Z)
+    if got["b2"] != leaves or got["all"] != leaves or got["plain"]:
+        raise AssertionError(f"leafwise dbl_merge: {got}, expected one "
+                             f"{B2_NAME} launch per leaf ({leaves})")
+    if not all(isinstance(t, Z.DTensor) for t in Z.tree_leaves(trees[0])):
+        raise AssertionError("leafwise tree lost its DTensors")
+    if not torch.equal(p2.view(-1)[:n], flat.view(-1)[:n]):
+        gap = float((p2.view(-1)[:n] - flat.view(-1)[:n]).abs().max())
+        raise AssertionError(f"leafwise B2 differs from the flat form by "
+                             f"{gap}")
+    leafwise = lambda: Z.ops.dbl_merge(*trees, factor=FACTOR, lr=LR,
+                                       leafwise=True)
+    ms = cuda_ms(leafwise, per_group=3, groups=5, warmup=1)
+    flat_ms = cuda_ms(lambda: Z.K.dbl_merge_flat2d(flat, gl2, gs2,
+                                                   factor=FACTOR, lr=LR),
+                      per_group=3, groups=5, warmup=1)
+    del flat
+    torch.cuda.empty_cache()
+    leaf_sets = list(zip(*(Z.tree_leaves(spec.unravel(b)) for b in bufs)))
+
+    def plain_leafwise():
+        for w, a, b in leaf_sets:
+            Z.K.dbl_merge_plain(w.view(-1, 128), a.view(-1, 128),
+                                b.view(-1, 128), factor=FACTOR, lr=LR)
+    plain_ms = cuda_ms(plain_leafwise, per_group=1, groups=3, warmup=1)
+    nbytes = B2["plain"][1] * n
+    bound_ms = max(nbytes / rate, B2["plain"][2] * n / F32_RATE) * 1e3
+    rec = {"variant": "leafwise", "replaces":
+           f"{REFERENCE}:{KERNEL_INFO[B2_NAME][0]}", "shape": SPMD_ARCH,
+           "leaves": leaves, "elements": n, "max_abs_err": 0.0, "ms": ms,
+           "flat_ms": flat_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if nbytes / rate >= B2["plain"][2] * n
+           / F32_RATE else "operations", "library_ms": None,
+           "bytes": nbytes}
+    log(f"B2 leafwise on full-width {SPMD_ARCH} ({leaves} DTensor leaves, "
+        f"{n} elements): {leaves} launches, bit-equal to the flat form and "
+        f"the plain version; {ms:.2f} ms a tree (the sum over leaves), flat "
+        f"form {flat_ms:.2f} ms, plain leaf by leaf {plain_ms:.2f} ms, bound "
+        f"{bound_ms:.2f} ms ({bound_ms / ms:.0%} of the memory roofline)")
+    del trees, leaf_sets, bufs, p2, gl2, gs2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def replace_f32(cfg, **kw):
+    """``cfg`` with f32 params and compute (the fused B2 path's store)."""
+    from dataclasses import replace
+    return replace(cfg, param_dtype="float32", compute_dtype="float32", **kw)
+
+
+def _spmd_run(Z, cfg, mesh, params, *, form, steps, device="cuda"):
+    """The example's schedule on ``mesh`` (or without one on the card):
+    ``form`` "fused" (sgd, fused_merge=True; per-step loop without a
+    mesh) or "weighted" (the example's own: sgd_momentum(0.9), auto).
+    Returns (RunResult, counts, wall seconds, peak bytes)."""
+    kw = (dict(optimizer=Z.sgd_momentum(0.0), fused_merge=True)
+          if form == "fused" else dict(optimizer=Z.sgd_momentum(0.9)))
+    if mesh is None and form == "fused":
+        kw["scan_loop"] = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    Z.K.reset_counts()
+    t0 = time.perf_counter()
+
+    def progress(rec):
+        log(f"    step {rec['step']}: loss {rec['loss']}, "
+            f"{time.perf_counter() - t0:.1f} s, host {_host_gib():.1f} GiB, "
+            f"card {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    res = Z.ex.run_example(cfg, mesh, device=None if mesh else device,
+                           params=params, n_steps=steps, log_every=1,
+                           log_fn=progress, **kw)
+    torch.cuda.synchronize()
+    return res, _spmd_counts(Z), time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+
+
+def _run_record(Z, cfg, res, counts, wall, peak, steps):
+    losses = [h["loss"] for h in res.history]
+    p = res.phases[0]
+    tokens = Z.ex.example_phases(steps)[0].layout.effective_examples \
+        * Z.ex.SEQ
+    return {"losses": losses, "launches": counts, "wall_s": wall,
+            "peak_bytes": peak, "phase_s": p["time"],
+            "ms_per_step": 1e3 * p["time"] / steps,
+            "tokens_per_s": tokens * steps / p["time"]}
+
+
+def _host_leaves(Z, tree):
+    return [(t.full_tensor() if isinstance(t, Z.DTensor) else t)
+            .detach().cpu() for t in Z.tree_leaves(tree)]
+
+
+def _spmd_profile(Z, cfg, mesh, params):
+    """One fused mesh step of the example's phase under the profiler:
+    device busy and idle share, B2's share, top kernels; CUDA-event ms of
+    the step (median of 3)."""
+    phase = Z.ex.example_phases(1)[0]
+    engine = Z.TrainEngine(cfg, Z.sgd_momentum(0.0), mesh=mesh,
+                           fused_merge=True)
+    plane = Z.ex.example_plane(cfg)
+    plane.bind([phase])
+    batch = {k: torch.as_tensor(v).cuda() for k, v in plane(phase, 0).items()}
+    plane.close()
+    step, _ = engine.step_fn(phase)
+    state = [params, None]
+
+    def run():
+        state[0], _, _ = engine._mesh_step(step, phase, state[0], None,
+                                           batch, None)
+    run()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    step_ms = statistics.median(times)
+    # a window that dropped any of the step's B2 launches is traced again
+    kern, count, _ = traced_kernels(run, ("dbl_sweep",),
+                                    len(Z.tree_leaves(params)))
+    busy = sum(kern.values()) / 1e3
+    b2 = sum(us for k, us in kern.items() if "dbl_sweep" in k) / 1e3
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    return {"step_ms": step_ms, "step_ms_runs": times,
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / step_ms,
+            "b2_ms": b2, "b2_share": b2 / busy if busy else 0.0,
+            "b2_launches": sum(c for k, c in count.items()
+                               if "dbl_sweep" in k),
+            "kernel_launches": sum(count.values()),
+            "top_kernels": [{"name": k[:90], "ms": us / 1e3,
+                             "share": us / 1e3 / busy} for k, us in top]}
+
+
+def _gloo_rank(rank, world, init, work, fault):
+    """One CPU rank of phase 23 (d): the example's fused schedule on a
+    gloo mesh, ``fault`` planting per-rank denominators in the weighted
+    loss.  Rank 0 saves the losses and the full params."""
+    import datetime
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=SPMD_TIMEOUT_S))
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.examples import dual_batch_spmd as ex
+        from repro_torch.models import transformer
+        from repro_torch.optim import sgd_momentum
+        inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+        mesh = init_device_mesh("cpu", SPMD_CPU_MESH,
+                                mesh_dim_names=("data", "model"))
+        if fault:
+            transformer.loss_fn = _per_rank_denominators(transformer.loss_fn)
+        res = ex.run_example(inp["cfg"], mesh, params=inp["params"],
+                             optimizer=sgd_momentum(0.0), fused_merge=True,
+                             n_steps=SPMD_PARITY_STEPS, log_every=1)
+        full = [t.full_tensor() for t in tree_leaves(res.params)]
+        if rank == 0:
+            torch.save({"losses": [h["loss"] for h in res.history],
+                        "params": full},
+                       os.path.join(work, f"cpu_{int(fault)}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _per_rank_denominators(loss_fn):
+    """The planted fault: the weighted loss over the rank's own rows in
+    the denominator (``sum(w)`` of the local shard)."""
+    def faulty(params, cfg, batch, **kw):
+        _, aux = loss_fn(params, cfg, batch, **kw)
+        per_ex = aux["per_example"]
+        w = batch.get("weight")
+        if w is None:
+            w = torch.ones_like(per_ex)
+        loss = torch.sum(per_ex * w) / w.to_local().sum()
+        return loss, {"loss": loss, "per_example": per_ex}
+    return faulty
+
+
+def _cpu_mesh_runs(cfg, params):
+    """Phase 23 (d)'s CPU legs: the gloo ranks spawned twice (free, then
+    with the planted fault), each with a timeout."""
+    import tempfile
+    import torch.multiprocessing as mp
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"cfg": cfg, "params": params},
+                   os.path.join(work, "inputs.pt"))
+        for fault in (False, True):
+            init = "file://" + os.path.join(work, f"pg{int(fault)}")
+            ctx = mp.start_processes(
+                _gloo_rank, args=(SPMD_CPU_RANKS, init, work, fault),
+                nprocs=SPMD_CPU_RANKS, start_method="spawn", join=False)
+            deadline = time.time() + SPMD_TIMEOUT_S
+            try:
+                while not ctx.join(timeout=5):
+                    if time.time() > deadline:
+                        raise TimeoutError("gloo ranks of phase 23 (d) "
+                                           "outlived their timeout")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                    p.join()
+            out[fault] = torch.load(os.path.join(work, f"cpu_{int(fault)}.pt"),
+                                    weights_only=False)
+    return out
+
+
+def _spmd_names():
+    """What phase 23 uses of the port, imported once CUDA is known."""
+    from types import SimpleNamespace
+    from torch.distributed.tensor import DTensor
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.flat import flat_spec
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.engine import TrainEngine
+    from repro_torch.examples import dual_batch_spmd as ex
+    from repro_torch.kernels import dbl_merge as K
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import distribute_tree, param_specs
+    from repro_torch.optim import sgd_momentum
+    return SimpleNamespace(DTensor=DTensor, models=models,
+                           get_config=get_config, reduced=reduced,
+                           flat_spec=flat_spec, tree_leaves=tree_leaves,
+                           tree_map=tree_map, TrainEngine=TrainEngine, ex=ex,
+                           K=K, ops=ops, distribute_tree=distribute_tree,
+                           param_specs=param_specs, sgd_momentum=sgd_momentum)
+
+
+def spmd_phase(Z, rate):
+    """Phase 23: multi-GPU SPMD on one NCCL rank, mesh (1, 1) named
+    ("data", "model").  Returns (record, B2's leafwise record, the
+    leafwise launches of the runs on the card)."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "pg"), rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=SPMD_TIMEOUT_S))
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            rec = b2_leafwise_phase(Z, mesh, rate)
+            launches = 0
+            # (b) the main path: full width and depth, fused, 10 steps
+            log(f"  (b) full-width mesh run (host {_host_gib():.1f} GiB)")
+            cfg = replace_f32(Z.get_config(SPMD_ARCH))
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = Z.models.init_params(cfg, gen, device="cuda")
+            params = Z.distribute_tree(params, Z.param_specs(params, mesh),
+                                       mesh)
+            res, cnt, wall, peak = _spmd_run(Z, cfg, mesh, params,
+                                             form="fused", steps=SPMD_STEPS)
+            leaves = len(Z.tree_leaves(res.params))
+            main = _run_record(Z, cfg, res, cnt, wall, peak, SPMD_STEPS)
+            log(f"  (b) ran; profiling a step (host {_host_gib():.1f} GiB)")
+            losses = main["losses"]
+            if cnt["b2"] != leaves * SPMD_STEPS or cnt["all"] != cnt["b2"] \
+                    or cnt["plain"]:
+                raise AssertionError(f"SPMD main path launches {cnt}: "
+                                     f"expected {leaves} {B2_NAME} a step "
+                                     "and nothing else")
+            if not all(math.isfinite(x) for x in losses) or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(f"SPMD main path losses {losses}")
+            if not all(isinstance(t, Z.DTensor) and t.device.type == "cuda"
+                       for t in Z.tree_leaves(res.params)):
+                raise AssertionError("SPMD params are not DTensors on the "
+                                     "card")
+            launches += cnt["b2"]
+            main["profile"] = _spmd_profile(Z, cfg, mesh, res.params)
+            pr = main["profile"]
+            log(f"SPMD main path: {SPMD_ARCH} full width and depth (f32, "
+                f"{leaves} leaves) on mesh (1, 1), {SPMD_STEPS} fused steps "
+                f"in {wall:.2f} s: {main['ms_per_step']:.1f} ms/step, "
+                f"{main['tokens_per_s']:.0f} tokens/s, peak "
+                f"{peak / 2**30:.2f} GiB, {cnt['b2']} {B2_NAME} launches; "
+                f"losses {losses}")
+            log(f"  profiled step: {pr['step_ms']:.1f} ms, device busy "
+                f"{pr['device_busy_ms']:.1f} ms (idle "
+                f"{pr['device_idle_share']:.1%}), {pr['kernel_launches']} "
+                f"kernels; B2 {pr['b2_ms']:.2f} ms ({pr['b2_share']:.1%}, "
+                f"{pr['b2_launches']} launches)")
+            for k in pr["top_kernels"]:
+                log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
+            out["main_path"] = main
+            del res, params
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (b') the example's own form and (c) mesh against no mesh, at
+            # full width and SPMD_CUT_LAYERS layers
+            ccfg = replace_f32(Z.get_config(SPMD_ARCH),
+                               n_layers=SPMD_CUT_LAYERS)
+            out["mesh_vs_none"] = {}
+            for form, steps in (("fused", SPMD_STEPS),
+                                ("weighted", SPMD_WEIGHTED_STEPS)):
+                legs = {}
+                for leg in ("mesh", "none"):
+                    log(f"  (c) {form}, {leg} (host {_host_gib():.1f} GiB)")
+                    gen = torch.Generator(device="cuda").manual_seed(0)
+                    p0 = Z.models.init_params(ccfg, gen, device="cuda")
+                    if leg == "mesh":
+                        p0 = Z.distribute_tree(p0, Z.param_specs(p0, mesh),
+                                               mesh)
+                    res, cnt, wall, peak = _spmd_run(
+                        Z, ccfg, mesh if leg == "mesh" else None, p0,
+                        form=form, steps=steps)
+                    del p0
+                    r = _run_record(Z, ccfg, res, cnt, wall, peak, steps)
+                    want = leaves * steps if form == "fused" else 0
+                    if cnt["b2"] != (want if leg == "mesh" else
+                                     (steps if form == "fused" else 0)) or \
+                            cnt["all"] != cnt["b2"] or cnt["plain"]:
+                        raise AssertionError(f"{form} {leg} launches {cnt}")
+                    if leg == "mesh":
+                        launches += cnt["b2"]
+                    r["params"] = _host_leaves(Z, res.params)
+                    del res
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    legs[leg] = r
+                m, nm = legs["mesh"], legs["none"]
+                same = all(torch.equal(a, b) for a, b in
+                           zip(m.pop("params"), nm.pop("params")))
+                rec_c = {"mesh": m, "none": nm, "params_bit_equal": same,
+                         "losses_equal": m["losses"] == nm["losses"],
+                         "mesh_cost": m["ms_per_step"] / nm["ms_per_step"]}
+                out["mesh_vs_none"][form] = rec_c
+                log(f"SPMD {form} ({SPMD_CUT_LAYERS} of 32 layers, {steps} "
+                    f"steps): mesh {m['ms_per_step']:.1f} ms/step "
+                    f"({m['tokens_per_s']:.0f} tokens/s, peak "
+                    f"{m['peak_bytes'] / 2**30:.2f} GiB) vs no mesh "
+                    f"{nm['ms_per_step']:.1f} ms/step ("
+                    f"{nm['tokens_per_s']:.0f} tokens/s, peak "
+                    f"{nm['peak_bytes'] / 2**30:.2f} GiB); params bit-equal: "
+                    f"{same}; losses {m['losses']}")
+                if not same:
+                    raise AssertionError(f"SPMD {form}: the mesh run's "
+                                         "params differ from the no-mesh "
+                                         "run's")
+                if not all(math.isfinite(x) for x in m["losses"]):
+                    raise AssertionError(f"SPMD {form} losses {m['losses']}")
+
+            # (d) the card's one-rank run against a 4-rank gloo CPU mesh
+            log(f"  (d) card vs CPU mesh (host {_host_gib():.1f} GiB)")
+            rcfg = Z.reduced(Z.get_config(SPMD_ARCH))
+            p0 = Z.models.init_params(rcfg, torch.Generator().manual_seed(0),
+                                      device="cpu")
+            card, cnt, _, _ = _spmd_run(
+                Z, rcfg, mesh, Z.tree_map(lambda t: t.cuda(), p0),
+                form="fused", steps=SPMD_PARITY_STEPS)
+            if cnt["b2"] != leaves * SPMD_PARITY_STEPS or \
+                    cnt["all"] != cnt["b2"] or cnt["plain"]:
+                raise AssertionError(f"SPMD parity card run launches {cnt}")
+            launches += cnt["b2"]
+            cpu = _cpu_mesh_runs(rcfg, p0)
+            lc = [h["loss"] for h in card.history]
+            pc = _host_leaves(Z, card.params)
+            par = {}
+            for fault, r in cpu.items():
+                par["fault" if fault else "free"] = {
+                    "loss_gap": max(abs(a - b) for a, b in
+                                    zip(lc, r["losses"])),
+                    "param_gap": max(float((a - b).abs().max())
+                                     for a, b in zip(pc, r["params"]))}
+            inside = {k: v["loss_gap"] <= TRAIN_PARITY_BAND["loss"] and
+                      v["param_gap"] <= TRAIN_PARITY_BAND["params"]
+                      for k, v in par.items()}
+            out["parity"] = {**par, "inside": inside, "losses": lc}
+            log(f"SPMD parity (reduced f32 {SPMD_ARCH}, {SPMD_PARITY_STEPS} "
+                f"fused steps): card mesh (1, 1) vs CPU gloo mesh "
+                f"{SPMD_CPU_MESH}: loss gap {par['free']['loss_gap']:.3g}, "
+                f"param gap {par['free']['param_gap']:.3g}; planted per-rank "
+                f"denominators: loss gap {par['fault']['loss_gap']:.3g}, "
+                f"param gap {par['fault']['param_gap']:.3g} (bands "
+                f"{TRAIN_PARITY_BAND['loss']:g} / "
+                f"{TRAIN_PARITY_BAND['params']:g})")
+            if not inside["free"]:
+                raise AssertionError(f"card and CPU mesh disagree: {par}")
+            if inside["fault"]:
+                raise AssertionError(f"the planted fault lands inside the "
+                                     f"band: {par}")
+        finally:
+            dist.destroy_process_group()
+    rec["launches"] = launches
+    return out, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--spmd-only", action="store_true",
+                    help="only build the kernels and run phase 23 (SPMD)")
     ap.add_argument("--b5-times", metavar="SRC", default=None,
                     help="only time B5 (flash_decode) from the port under "
                     "SRC (a directory holding repro_torch, e.g. a parent "
@@ -3995,6 +4490,15 @@ def main() -> int:
         f"source(s) in parallel): {build_s:.2f} s")
     report.update(device=name, nvidia_smi=smi, build_s=build_s)
     rate = mem_rate(name)
+    if args.spmd_only:
+        report["spmd"], b2_leafwise = spmd_phase(_spmd_names(), rate)
+        print(nvidia_smi_line(), flush=True)
+        print(json.dumps({"b2_leafwise": b2_leafwise}), flush=True)
+        # the last line names what ran: it never stands for a whole pass
+        print(json.dumps({"ok": True, "phases": [1, 23], "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 2. kernels at the full ResNet-18 flat-store shape
     cfg = get_config("cifar-resnet18")
@@ -4495,6 +4999,21 @@ def main() -> int:
     line[0]["variants"].append(b1_granite)
     line[0]["max_abs_err"] = max(line[0]["max_abs_err"],
                                  b1_granite["max_abs_err"])
+
+    # 23. multi-GPU SPMD on one NCCL rank: B2's leafwise form, the mesh
+    # main path at full width, mesh against no mesh, card against a
+    # 4-rank gloo CPU mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["spmd"], b2_leafwise = spmd_phase(_spmd_names(), rate)
+    log(f"[{time.perf_counter() - t_start:.0f} s] SPMD done")
+    # B2's line: the leafwise form, the one this slice's main path runs;
+    # the flat-store records stay among its variants
+    b2 = next(entry for entry in line if entry["name"] == "dbl_merge_flat2d")
+    b2["variants"].append(b2_leafwise)
+    b2["launches"] += b2_leafwise["launches"]
+    b2.update({k: b2_leafwise[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")})
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:

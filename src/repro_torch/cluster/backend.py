@@ -35,7 +35,7 @@ from repro_torch.cluster.topology import ClusterEvent, workers_from_plan
 from repro_torch.cluster.trace import simulate_traced
 from repro_torch.core.flat import FlatParams
 from repro_torch.core.time_model import LinearTimeModel
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.device import resolve_device, strict_f32
 
 
@@ -278,7 +278,8 @@ class SpmdBackend:
     at a time; the engine's step cache persists across phases.  A
     ``DataPlane`` passed as ``batch_fn`` is bound to the full schedule up
     front.  Checkpoints and resume as ``PsSimBackend``'s, holding
-    ``params`` and ``opt_state``.
+    ``params`` and ``opt_state``; an engine with a mesh returns DTensor
+    trees, and its checkpoints hold the full tree (``_save_whole``).
     """
     name = "spmd"
 
@@ -331,7 +332,24 @@ class SpmdBackend:
             gstep += phase.n_steps
             samples += phase.n_steps * phase.batch_size * phase.input_size
             if ckpt_dir:
-                save_checkpoint(ckpt_dir, i + 1,
-                                {"params": params, "opt_state": opt_state})
+                _save_whole(ckpt_dir, i + 1,
+                            {"params": params, "opt_state": opt_state})
         return RunResult(self.name, _as_tree(params), opt_state, t_total,
                          history, phase_recs, resumed)
+
+
+def _save_whole(ckpt_dir: str, step: int, tree) -> None:
+    """A phase-boundary checkpoint of the full tree.  A mesh run's
+    DTensor leaves are brought whole on every rank (``full_tensor``, a
+    collective each rank joins) and rank 0 writes the file, the same
+    bytes a run without a mesh writes for the same values."""
+    leaves, treedef = tree_flatten(tree)
+    if not any(hasattr(l, "full_tensor") for l in leaves):
+        save_checkpoint(ckpt_dir, step, tree)
+        return
+    import torch.distributed as dist
+    whole = tree_unflatten(treedef, [
+        l.full_tensor() if hasattr(l, "full_tensor") else l for l in leaves])
+    if dist.get_rank() == 0:
+        save_checkpoint(ckpt_dir, step, whole)
+    dist.barrier()

@@ -18,13 +18,15 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.dual_batch import DualBatchPlan
-from repro_torch.optim import Optimizer
+
+if TYPE_CHECKING:        # repro_torch.optim imports this package
+    from repro_torch.optim import Optimizer
 
 
 @functools.lru_cache(maxsize=256)

@@ -22,7 +22,17 @@ a list of ``Phase``s:
 
 PyTorch runs eagerly, so there is nothing to compile ahead:
 ``overlap_compile`` is accepted and inert until the CUDA-graph slice
-(ROADMAP A15), and a ``mesh`` raises until the multi-GPU slice.
+(ROADMAP A15).
+
+A ``mesh`` (a ``DeviceMesh`` named ``("data", "model")``, or with a
+leading ``"pod"``) runs the schedule SPMD, as the reference's: params
+and optimizer state are placed as DTensors by ``launch.sharding``'s
+``param_specs`` on first use, each step's batch by ``batch_specs``, and
+the forward and backward run on them under DTensor's sharding
+propagation (``models.shard_ctx.replicated_ops``).  A mesh keeps the
+per-step loop (no flat store: ``to_flat`` leaves the tree), and fused
+phases merge with B2 once per leaf on its local shard
+(``leafwise=True``).  The run returns DTensor trees.
 
 Numerics: building an engine for CUDA turns TF32 off process-wide
 (``repro_torch.device.strict_f32``), because cuDNN runs f32 convolutions
@@ -81,9 +91,11 @@ class TrainEngine:
       so dual-batch phases take the fused kernel path (the optimizer's own
       update is bypassed there; its state passes through untouched unless
       ``server_momentum`` folds it into the kernel).
-    scan_loop: "auto"/True (fused phases run chunk-wise on the flat store
-      with ``dbl_apply_flat2d``) or False (step-at-a-time loop; fused
-      phases use ``dbl_merge_flat2d``).
+    mesh: a ``DeviceMesh`` for SPMD runs (see the module docstring), or
+      None.
+    scan_loop: "auto"/True (fused phases off-mesh run chunk-wise on the
+      flat store with ``dbl_apply_flat2d``) or False (step-at-a-time
+      loop; fused phases use ``dbl_merge_flat2d``).
     scan_chunk: steps per chunk (bounds staged batch memory; the loss is
       read back once per chunk).
     server_momentum: fold PS-server momentum into the fused kernel pass
@@ -96,8 +108,9 @@ class TrainEngine:
     precision: ``"f32"`` or ``"bf16"`` (bf16 flat store + f32 master,
       both written by the kernel's one launch); fenced like
       ``server_momentum``.
-    device: where the engine runs; ``None`` means ``"cuda"`` (raises when
-      CUDA is absent).  Params and opt_state must already live there.
+    device: where the engine runs; ``None`` means the mesh's device type
+      with a mesh, else ``"cuda"`` (raises when CUDA is absent).  Params
+      and opt_state must already live there.
     """
 
     def __init__(self, cfg, optimizer: Optimizer, *,
@@ -107,9 +120,6 @@ class TrainEngine:
                  server_momentum: float = 0.0,
                  overlap_compile: bool = True,
                  precision: str = "f32", device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh runs wait for the multi-GPU slice (ROADMAP A11)")
         self.cfg = cfg
         self.optimizer = optimizer
         self.fused_merge = fused_merge
@@ -125,17 +135,21 @@ class TrainEngine:
                              "(expected 'f32' or 'bf16')")
         self.precision = precision
         if self.server_momentum > 0 and (scan_loop is False
-                                         or fused_merge is False):
+                                         or fused_merge is False
+                                         or mesh is not None):
             # the velocity lives in the scan path's kernel sweep; the
             # per-step loop would silently train plain SGD instead
             raise ValueError(
                 "server_momentum requires the fused scan path "
                 "(scan_loop enabled, fused_merge on, no mesh)")
         if precision != "f32" and (scan_loop is False
-                                   or fused_merge is False):
+                                   or fused_merge is False
+                                   or mesh is not None):
             raise ValueError(
                 "precision='bf16' requires the fused scan path "
                 "(scan_loop enabled, fused_merge on, no mesh)")
+        if device is None and mesh is not None:
+            device = mesh.device_type
         self.device = resolve_device(device)
         strict_f32(self.device)
         self._cache: dict = {}
@@ -162,8 +176,9 @@ class TrainEngine:
 
     def _use_scan(self, kind: str) -> bool:
         """Run the phase chunk-wise on the flat store?  Only the fused
-        path; the unfused fallback keeps the per-step loop."""
-        if kind != "fused":
+        path off a mesh; the unfused fallback and mesh runs keep the
+        per-step loop."""
+        if kind != "fused" or self.mesh is not None:
             return False
         return self.fused_merge is not False and self.scan_loop is not False
 
@@ -189,7 +204,8 @@ class TrainEngine:
         elif key.kind == "fused":
             fn = make_fused_dbl_step(self.cfg, key.layout,
                                      drop_rate=key.drop_rate,
-                                     fused=self.fused_merge is not False)
+                                     fused=self.fused_merge is not False,
+                                     leafwise=self.mesh is not None)
         else:
             fn = make_weighted_step(self.cfg, self.optimizer,
                                     layout=key.layout,
@@ -238,6 +254,44 @@ class TrainEngine:
                                  f"engine runs on {self.device}")
 
     # ------------------------------------------------------------------
+    def _place(self, params, opt_state):
+        """Params and optimizer state as DTensors placed by
+        ``param_specs``.  A DTensor tree stays as it is: fused phases
+        update its leaves in place (B2 per leaf), as a ``FlatParams``
+        store is updated.  Plain params are copied into their shards, so
+        the caller's tree is never written; plain optimizer state is not
+        (the update never writes it in place)."""
+        from repro_torch.launch.sharding import (distribute_tree,
+                                                 param_specs)
+
+        def place(tree, copy):
+            if all(hasattr(l, "placements") for l in tree_leaves(tree)):
+                return tree
+            return distribute_tree(tree, param_specs(tree, self.mesh),
+                                   self.mesh, copy=copy)
+        return place(params, True), place(opt_state, False)
+
+    def _mesh_step(self, step, phase: Phase, params, opt_state, batch,
+                   drop_rng):
+        """One step on the mesh: the batch (with a weighted phase's
+        layout weights attached, as the reference's engine attaches them)
+        placed by ``batch_specs``, the step under DTensor propagation,
+        the loss brought whole for the record."""
+        from repro_torch.launch.sharding import batch_specs, distribute_tree
+        from repro_torch.models.shard_ctx import replicated_ops
+        if phase.layout is not None and "weight" not in batch \
+                and self._kind_for(phase) == "weighted":
+            batch = dict(batch, weight=phase.layout.weights().to(
+                self.device))
+        batch = distribute_tree(batch, batch_specs(batch, self.mesh),
+                                self.mesh)
+        with replicated_ops():
+            params, opt_state, metrics = step(params, opt_state, batch,
+                                              phase.lr, drop_rng)
+        return params, opt_state, {
+            k: v.full_tensor() if hasattr(v, "full_tensor") else v
+            for k, v in metrics.items()}
+
     def _chunk_feed(self, phase: Phase, batch_fn, start: int):
         """(c, batches) chunks for the flat-store path: the DataPlane's
         double-buffered feed when available, else inline stacking."""
@@ -301,11 +355,13 @@ class TrainEngine:
         global step counter (and so the dropout stream and ``batch_fn``
         indices); ``start_samples``/``wall_offset``/``phase_offset`` keep
         the logged counters cumulative under phase-at-a-time dispatch.
-        A tree's params are never written: the flat store is a copy.
+        A tree's params are never written: the flat store is a copy (on a
+        mesh, the placed shards are).
         ``params`` may instead be a ``FlatParams`` from ``to_flat``: its
         buffers are then the flat store itself, updated in place, and the
         run returns it (consecutive runs share one store, as consecutive
-        fused phases of one run do).
+        fused phases of one run do).  On a mesh a DTensor tree is likewise
+        the engine's own, updated in place by fused phases.
         Returns (params, opt_state, history).
         """
         given = params if isinstance(params, FlatParams) else None
@@ -385,6 +441,8 @@ class TrainEngine:
             t_enter = time.perf_counter()
             step, cached = self.step_fn(phase)
             drop = self._drop_rate_for(phase)
+            if self.mesh is not None:
+                params, opt_state = self._place(params, opt_state)
             for j in range(phase.n_steps):
                 batch = _to_device(batch_fn(phase, gstep), self.device)
                 if j == 0:
@@ -392,8 +450,12 @@ class TrainEngine:
                                        time.perf_counter() - t_enter, cached)
                 drop_rng = (_drop_gen(self.device, seed, gstep)
                             if drop > 0 else None)
-                params, opt_state, metrics = step(params, opt_state, batch,
-                                                  phase.lr, drop_rng)
+                if self.mesh is None:
+                    params, opt_state, metrics = step(
+                        params, opt_state, batch, phase.lr, drop_rng)
+                else:
+                    params, opt_state, metrics = self._mesh_step(
+                        step, phase, params, opt_state, batch, drop_rng)
                 gstep += 1
                 samples_seen += phase.batch_size * phase.input_size
                 if gstep == start_step + 1 or gstep % log_every == 0:

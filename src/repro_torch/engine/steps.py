@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import models
+from repro_torch.core.dtensor import is_dtensor, place_like
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 
 _GROUP_KEYS = ("tokens", "labels", "images", "embeddings")
@@ -42,14 +43,55 @@ def _weighted_loss(params, cfg, batch, rng, drop_rate):
                           drop_rate=drop_rate)
 
 
+def _batch_mesh(xs, batch):
+    """(leaves, batch) for a mesh batch that is whole over a data axis of
+    more than one rank (a group whose rows that axis does not divide):
+    both moved onto the sub-mesh of the other axes, each leaf first
+    gathered over the dropped ones.  Every rank of a dropped axis then
+    does the same work, as on a mesh without it; left on the whole mesh,
+    DTensor shards the group's activations over the idle axis unevenly
+    and then cannot flatten them.  Both moves are differentiable: the
+    gradient comes back to each leaf's shard.  Otherwise as they are."""
+    from torch.distributed.tensor import DTensor, Replicate
+    ref = next((batch[k] for k in batch if k in _GROUP_KEYS), None)
+    if not is_dtensor(ref):
+        return xs, batch
+    mesh = ref.device_mesh
+    names = mesh.mesh_dim_names
+    drop = [i for i, a in enumerate(names)
+            if a in ("pod", "data") and mesh.size(i) > 1
+            and not ref.placements[i].is_shard()]
+    if not drop:
+        return xs, batch
+    keep = [i for i in range(len(names)) if i not in drop]
+    sub = mesh[tuple(names[i] for i in keep)]
+
+    def move(t):
+        pl = [Replicate() if i in drop else p
+              for i, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(mesh, pl)
+        return DTensor.from_local(t.to_local(), sub, [pl[i] for i in keep],
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    return ([move(x) for x in xs],
+            {k: move(v) if is_dtensor(v) else v for k, v in batch.items()})
+
+
 def _value_and_grad(params, cfg, batch, rng, drop_rate):
-    """(loss, grads tree) of the weighted loss w.r.t. every leaf."""
+    """(loss, grads tree) of the weighted loss w.r.t. every leaf; a
+    DTensor leaf's gradient comes on the leaf's own placements, and the
+    loss is a plain scalar on every rank."""
     leaves, treedef = tree_flatten(params)
     xs = [l.detach().requires_grad_() for l in leaves]
-    loss, _ = _weighted_loss(tree_unflatten(treedef, xs), cfg, batch, rng,
+    used, batch = _batch_mesh(xs, batch)
+    loss, _ = _weighted_loss(tree_unflatten(treedef, used), cfg, batch, rng,
                              drop_rate)
     grads = torch.autograd.grad(loss, xs)
-    return loss.detach(), tree_unflatten(treedef, list(grads))
+    # a plain scalar: a moved group's loss lives on the sub-mesh
+    loss = loss.detach().full_tensor() if is_dtensor(loss) else loss.detach()
+    return loss, tree_unflatten(
+        treedef, [place_like(g, x) for g, x in zip(grads, xs)])
 
 
 def make_weighted_step(cfg, optimizer, *, layout=None, drop_rate: float = 0.0):
@@ -87,21 +129,42 @@ def _groups(layout):
         _small_valid_index(layout), float(layout.factor_small)
 
 
+def _mesh_group(batch, keys, idx):
+    """Rows ``idx`` of a mesh batch, placed as ``batch_specs`` places a
+    batch of that many rows: sharded over the data axes as far as they
+    divide it, else whole on every rank.  The rows are gathered first
+    (a batch's shards are each rank's rows, and ``idx`` names global
+    ones); DTensor would shard an indivisible dim unevenly, and the
+    model's views cannot flatten an uneven shard.  Every row of the
+    group and no other goes into the loss and the MoE dispatch, as off
+    the mesh."""
+    from repro_torch.launch.sharding import batch_specs, distribute_tree
+    ref = batch[keys[0]]
+    rows = {k: batch[k].full_tensor().index_select(0, idx.to(ref.device))
+            for k in keys}
+    return distribute_tree(rows, batch_specs(rows, ref.device_mesh),
+                           ref.device_mesh)
+
+
 def _group_batches(batch, nl_rows, small_idx):
     """(large-group batch, small-group batch): rows [0, nl_rows) and the
-    small group's valid rows."""
+    small group's valid rows (on a mesh, ``_mesh_group``)."""
     keys = [k for k in batch if k in _GROUP_KEYS]
+    if is_dtensor(batch[keys[0]]):
+        return (_mesh_group(batch, keys, torch.arange(nl_rows)),
+                _mesh_group(batch, keys, small_idx))
     idx = small_idx.to(batch[keys[0]].device)
     return ({k: batch[k][:nl_rows] for k in keys},
             {k: batch[k].index_select(0, idx) for k in keys})
 
 
 def make_fused_dbl_step(cfg, layout, *, drop_rate: float = 0.0,
-                        fused: bool = True):
+                        fused: bool = True, leafwise: bool = False):
     """SGD dual-batch step with the fused ``dbl_merge_flat2d`` update on
     the hot path (paper §3.4).  ``opt_state`` passes through untouched —
     the server update IS the optimizer.  ``fused=False`` selects the plain
-    per-leaf reference update."""
+    per-leaf reference update; ``leafwise=True`` (mesh-sharded params)
+    runs B2 once per leaf on its local shard, in place."""
     from repro_torch.kernels.dbl_merge import dbl_merge_tree
     from repro_torch.kernels.ref import dbl_merge_ref
 
@@ -115,7 +178,7 @@ def make_fused_dbl_step(cfg, layout, *, drop_rate: float = 0.0,
         with torch.no_grad():
             if fused:
                 params = dbl_merge_tree(params, g_large, g_small, factor=f,
-                                        lr=lr_f)
+                                        lr=lr_f, leafwise=leafwise)
             else:
                 params = tree_map(
                     lambda p, gl, gs: dbl_merge_ref(p, gl, gs, factor=f,

@@ -419,11 +419,57 @@ def dbl_apply_worker_batched(pC, gC, velC, wid, lrC, facC, momC, *,
 
 
 # -- front ends -------------------------------------------------------------
-def dbl_merge_tree(params, g_large, g_small, *, factor: float, lr: float):
+def dbl_merge_leaf(p, gl, gs, *, factor: float, lr: float):
+    """B2 on one leaf, in place: ONE ``dbl_merge_flat2d`` launch over the
+    leaf (a DTensor's local shard; ``g_L`` / ``g_S`` first placed as the
+    leaf is, so the elementwise update on shards is exact).  A contiguous
+    f32 shard whose size is a multiple of ``LANE`` runs as its own
+    ``(rows, LANE)`` view; any other goes through a zero-padded copy in
+    the store layout (``padded_rows``, the reference's ``dbl_merge_flat``)
+    and is copied back.  Returns ``p``."""
+    from repro_torch.core.dtensor import local, place_like
+    from repro_torch.core.flat import padded_rows
+    w = local(p)
+    a = local(place_like(gl, p)).contiguous()
+    b = local(place_like(gs, p)).contiguous()
+    n = w.numel()
+    if w.is_contiguous() and n % LANE == 0 and n:
+        dbl_merge_flat2d(w.view(-1, LANE), a.view(-1, LANE),
+                         b.view(-1, LANE), factor=factor, lr=lr)
+        return p
+    rows = padded_rows(n)
+
+    def pad(t):
+        buf = torch.zeros(rows * LANE, dtype=t.dtype, device=t.device)
+        buf[:n].copy_(t.reshape(-1))
+        return buf.view(rows, LANE)
+
+    w2 = pad(w)
+    dbl_merge_flat2d(w2, pad(a), pad(b), factor=factor, lr=lr)
+    w.copy_(w2.view(-1)[:n].view(w.shape))
+    return p
+
+
+def dbl_merge_tree(params, g_large, g_small, *, factor: float, lr: float,
+                   leafwise: bool = False):
     """Fused merge over parameter trees — ONE launch for the whole tree
     via the flat-store codec, not one per leaf.  Returns a new tree of
-    views into the updated buffer."""
+    views into the updated buffer.
+
+    ``leafwise=True`` runs B2 once per leaf instead, in place on each
+    leaf (``dbl_merge_leaf``): the form for a DTensor tree, whose leaves'
+    local shards cannot be raveled into one global store."""
+    from repro_torch.core.dtensor import is_dtensor
     from repro_torch.core.flat import flat_spec
+    from repro_torch.core.tree import tree_leaves
+    if leafwise:
+        for p, gl, gs in zip(tree_leaves(params), tree_leaves(g_large),
+                             tree_leaves(g_small)):
+            dbl_merge_leaf(p, gl, gs, factor=factor, lr=lr)
+        return params
+    if any(is_dtensor(p) for p in tree_leaves(params)):
+        raise ValueError("a DTensor tree cannot ravel into one store: pass "
+                         "leafwise=True")
     spec = flat_spec(params)
     p2 = spec.ravel(params)
     dbl_merge_flat2d(p2, spec.ravel(g_large), spec.ravel(g_small),

@@ -56,14 +56,18 @@ def wkv6(r, k, v, w, u, *, chunk: int = 128, backend: str = "auto"):
 
 def dbl_merge(params, g_large, g_small, *, factor: float, lr: float,
               backend: str = "auto", leafwise: bool | None = None):
-    """Fused dual-batch server update over parameter trees: one launch
-    over the flat store (``dbl_merge_tree``).  The reference's per-leaf
-    form for mesh-sharded trees (``leafwise=True``) waits for the
-    multi-GPU slice."""
-    if leafwise:
-        raise NotImplementedError(
-            "leafwise dbl_merge serves mesh-sharded trees, which wait for "
-            "ROADMAP A11 (multi-GPU SPMD)")
+    """Fused dual-batch server update over parameter trees.
+
+    Trees of plain tensors take the flat-store single-launch path
+    (``dbl_merge_tree``); DTensor trees take one B2 launch per leaf on its
+    local shard, in place (``leafwise=True``; ``None`` picks it for any
+    DTensor tree).  The reference picks it for a sharded tree only; a
+    replicated or one-rank DTensor tree cannot ravel into one store
+    either, and B2 gives the same bits leaf by leaf."""
+    from repro_torch.core.dtensor import is_dtensor
     from repro_torch.core.tree import tree_leaves
+    if leafwise is None:
+        leafwise = any(is_dtensor(p) for p in tree_leaves(params))
     _fd.resolve_impl(backend, tree_leaves(params)[0].device)
-    return dbl_merge_tree(params, g_large, g_small, factor=factor, lr=lr)
+    return dbl_merge_tree(params, g_large, g_small, factor=factor, lr=lr,
+                          leafwise=leafwise)

@@ -28,11 +28,15 @@ decode math (``serve.paged``).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
+from repro_torch.core.dtensor import is_dtensor
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.models.layers import apply_rope
+from repro_torch.models.shard_ctx import constrain, on_shards
 
 NEG_INF = -1e30
 
@@ -80,6 +84,14 @@ def chunked_attention(q, k, v, *, window: int = 0, causal: bool = True,
     Returns (B, Sq, H, hd) in q's dtype.  Off the CPU this is B4, unless
     ``train`` asks for the differentiable scan (see the module
     docstring)."""
+    if is_dtensor(q):
+        # on a mesh, each rank attends over its own batch rows and heads:
+        # the reference's "bh.." constraints on q, k and v (its
+        # attention.py:70-73) as the local shards' placements
+        return on_shards(partial(chunked_attention, window=window,
+                                 causal=causal, block_k=block_k,
+                                 q_offset=q_offset, train=train),
+                         (q, k, v))
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     window = int(window)
@@ -154,9 +166,9 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
     b, _, h, hd = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
     n_rep = h // kvh
-    k = gqa_expand(k_cache, n_rep).float()
-    v = gqa_expand(v_cache, n_rep).float()
-    qf = q.float() * hd ** -0.5
+    k = constrain(gqa_expand(k_cache, n_rep).float(), "b.h.")
+    v = constrain(gqa_expand(v_cache, n_rep).float(), "b.h.")
+    qf = constrain(q.float() * hd ** -0.5, "b.h.")
     scores = torch.einsum("bqhd,bshd->bhqs", qf, k)       # (B,H,1,S)
     idx = torch.arange(s, device=q.device)
     valid = idx <= pos

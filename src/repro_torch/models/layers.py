@@ -7,6 +7,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.shard_ctx import whole
+
 
 def normal_init(gen: torch.Generator, shape, scale: float,
                 dtype: torch.dtype, device) -> torch.Tensor:
@@ -83,7 +85,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
     hd = x.shape[-1]
     cos_full, sin_signed = (tables if tables is not None
                             else rope_tables(positions, hd, theta))
-    xf = x.float()
+    # on a mesh hd is gathered whole first: a shard of it cannot rotate
+    # its halves alone, and DTensor, left to move the shard, may put it
+    # on a batch dim the mesh axis does not divide (a no-op on plain
+    # tensors)
+    xf = whole(x, -1).float()
     rot = torch.roll(xf, hd // 2, dims=-1)                         # [x2, x1]
     return (xf * cos_full + rot * sin_signed).to(x.dtype)
 
@@ -96,7 +102,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits: (B, S, V); labels: (B, S) int; label_mask: (B, S) {0, 1}.
     Returns (B,) f32 per-example losses (the reference's op order: logsumexp
     minus the gold logit, masked sums over the count)."""
-    logits = logits.float()
+    # on a mesh the vocab dim is gathered whole (and pending sums
+    # reduced) first: DTensor's vocab-parallel gather fails on these
+    # logits (a no-op on plain tensors)
+    logits = whole(logits.float(), -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold                                    # (B, S)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import mamba_scan as _ssd
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.shard_ctx import constrain
 
 
 def ssd_chunked(x, dt, A_log, B, C, D_skip, *, chunk: int, h0=None):
@@ -145,7 +146,8 @@ def mamba2_block(p, x, cfg, *, train: bool = False):
     conv_out, _ = causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
     conv_out = F.silu(conv_out)
     xs, Bv, Cv = torch.split(conv_out, [d_in, n, n], dim=-1)
-    xh = xs.reshape(bt, s, nh, s_cfg.head_dim)
+    xh = constrain(xs.reshape(bt, s, nh, s_cfg.head_dim), "b.h.")
+    dt = constrain(dt, "b.h")
     if x.device.type == "cuda" and not train:
         # views in, a view out: B7 reads the strides of the conv output's
         # columns and writes y in (Bt, S, H, P) memory

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers import swiglu
+from repro_torch.models.shard_ctx import constrain_first, on_whole, whole
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -39,7 +40,10 @@ def router_probs(x, w_router, real_experts: int | None = None):
 def top_k_choices(probs, top_k: int):
     """(gate values, expert indices), each (..., G, top_k): every token's
     top_k experts, highest gate first, equal gates lower index first."""
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    # on a mesh the experts dim is made whole first: each token's ranking
+    # needs all its gates (a no-op on plain tensors)
+    vals, idx = torch.sort(whole(probs, -1), dim=-1, descending=True,
+                           stable=True)
     return vals[..., :top_k], idx[..., :top_k]
 
 
@@ -117,18 +121,27 @@ def moe_ffn(p, x, moe_cfg, *, group_size: int | None = None,
     aux = load_balance_loss(probs[..., :e].reshape(tokens, e),
                             gate_idx[..., 0].reshape(tokens), e)
 
-    disp, comb = dispatch_tensors(gate_vals, gate_idx, probs.shape[-1],
-                                  capacity)
-    # the reference's constrain_first calls (expert-parallel sharding)
-    # come with the mesh, ROADMAP A11
+    # the capacity queues run along every token of a group: on a mesh
+    # they are built whole on every rank (DTensor's cumsum does not
+    # gather a sharded scan dim, and some releases cannot flatten one)
+    disp, comb = on_whole(dispatch_tensors, (gate_vals, gate_idx,
+                                             probs.shape[-1], capacity), 2)
     # dispatch / combine in the compute dtype, as the reference's
     disp = disp.to(x.dtype)
     comb = comb.to(x.dtype)
     xe = torch.einsum("ngd,ngec->necd", xg, disp)                 # (N, E', C, D)
+    # expert-parallel under a mesh: experts on the model axis when they
+    # divide it, else the ff dim (granite's 40 experts)
+    xe = constrain_first(xe, ["bh..", "b..."])
     h = torch.nn.functional.silu(torch.einsum("necd,edf->necf", xe, p["wg"])) \
         * torch.einsum("necd,edf->necf", xe, p["wi"])
+    h = constrain_first(h, ["bh..", "b..m"])
     ye = torch.einsum("necf,efd->necd", h, p["wo"])               # (N, E', C, D)
-    y = torch.einsum("necd,ngec->ngd", ye, comb)
+    ye = constrain_first(ye, ["bh..", "b..."])
+    # on a mesh the experts dim is gathered whole (and pending sums
+    # reduced) for the combine: some DTensor releases cannot flatten a
+    # sharded expert dim into its contraction (a no-op on plain tensors)
+    y = torch.einsum("necd,ngec->ngd", whole(ye, 1), comb)
     y = y.reshape(b, s, d).to(x.dtype)
     if "res_wi" in p:
         y = y + swiglu(x, p["res_wi"], p["res_wg"], p["res_wo"])

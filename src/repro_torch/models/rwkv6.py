@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import wkv6 as _wkv
 from repro_torch.kernels.ref import wkv6_ref
+from repro_torch.models.shard_ctx import constrain
 
 
 def token_shift(x, shift_state=None):
@@ -93,7 +94,8 @@ def time_mix(p, x, cfg, *, shift_state=None, wkv_state=None,
     g = F.silu(_mix(x, xx, p["mu_g"]) @ p["w_g"])
     w = _ddecay(p, _mix(x, xx, p["mu_w"]))                     # (B,S,D)
 
-    r, k, v, w = (t.reshape(b, s, h, hd) for t in (r, k, v, w))
+    r, k, v, w = (constrain(t.reshape(b, s, h, hd), "b.h.")
+                  for t in (r, k, v, w))
     if decode:
         y, wkv_state = wkv6_step(wkv_state, r[:, 0], k[:, 0], v[:, 0],
                                  w[:, 0], p["u"])

@@ -54,6 +54,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.shard_ctx import lookup
 from repro_torch.models.attention import (NEG_INF, attention_block,
                                          attn_project_qkv, chunked_attention,
                                          decode_attention, gqa_expand)
@@ -283,7 +284,7 @@ def forward(params, cfg: ModelConfig, tokens, *, drop_rng=None,
     card (the training forward; see the module docstring)."""
     cdt = dtype_of(cfg.compute_dtype)
     if embeddings is None:
-        x = params["embed"][tokens].to(cdt)
+        x = lookup(params["embed"], tokens).to(cdt)
     else:
         x = embeddings.to(cdt)
     b, s = x.shape[:2]

@@ -623,9 +623,18 @@ def test_ops_dbl_merge_matches_pallas():
     got = ops.dbl_merge(conv(p), conv(gl), conv(gs), factor=0.81, lr=0.05)
     _close(got["a"], want["a"], 1e-6)
     _close(got["b"][0], want["b"][0], 1e-6)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ops.dbl_merge(conv(p), conv(gl), conv(gs), factor=0.81, lr=0.05,
-                      leafwise=True)
+    # the per-leaf form (mesh-sharded trees, ROADMAP A11): one B2 run per
+    # leaf, these leaves through the padded store layout.  It updates its
+    # params in place, so it gets copies: ``conv`` shares the numpy
+    # buffers, which the reference's (asynchronous) run may still read
+    want = jops.dbl_merge(*(jax.tree_util.tree_map(
+        jnp.asarray, t) for t in (p, gl, gs)), factor=0.81, lr=0.05,
+        interpret=True, leafwise=True)
+    mine = {"a": p["a"].copy(), "b": [p["b"][0].copy()]}
+    got = ops.dbl_merge(conv(mine), conv(gl), conv(gs), factor=0.81,
+                        lr=0.05, leafwise=True)
+    _close(got["a"], want["a"], 1e-6)
+    _close(got["b"][0], want["b"][0], 1e-6)
 
 
 @pytest.mark.parametrize("backend,ok", [("auto", True), ("plain", True),

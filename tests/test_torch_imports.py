@@ -37,6 +37,9 @@ def test_port_imports_with_jax_blocked():
         "        'repro_torch.examples.quickstart',\n"
         "        'repro_torch.examples.serve_decode',\n"
         "        'repro_torch.launch.serve', 'repro_torch.launch.steps',\n"
+        "        'repro_torch.launch.mesh', 'repro_torch.launch.sharding',\n"
+        "        'repro_torch.models.shard_ctx',\n"
+        "        'repro_torch.examples.dual_batch_spmd',\n"
         "        'repro_torch.tune.autotune'} <= set(names)\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -89,7 +92,7 @@ def _entry_points():
     from repro_torch.core.flat import flat_spec
     from repro_torch.models import resnet, transformer
     from repro_torch.core.tree import tree_leaves
-    from repro_torch.examples import quickstart, serve_decode
+    from repro_torch.examples import dual_batch_spmd, quickstart, serve_decode
     from repro_torch.launch import serve, train
     from repro_torch.serve import ServeEngine
     from repro_torch import tune
@@ -129,6 +132,9 @@ def _entry_points():
             + ([] if d is None else ["--device", d])),
         "examples.serve_decode": lambda d: serve_decode.main(
             [] if d is None else ["--device", d]),
+        "examples.dual_batch_spmd": lambda d: dual_batch_spmd.main(
+            ["--ranks", "2", "--steps", "1"]
+            + ([] if d is None else ["--device", d])),
     }
 
 
