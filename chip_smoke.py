@@ -210,6 +210,32 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     against the CPU port on a 4-rank gloo ``(2, 2)`` mesh that the phase
     spawns, within ``TRAIN_PARITY_BAND``, and a planted fault (per-rank
     denominators in the weighted loss) outside it.
+24. the encoder-decoder family, ``seamless-m4t-large-v2`` (24 encoder and
+    24 decoder layers, 16 / 16 heads of 64, vocab 256,206; its kernel
+    geometries ride in phases 14 and 21: B4 non-causal over 4096 keys at
+    4096, 512 and one query, B5 at n_rep 1, hd 64, the one-query row also
+    timed against B5 on the same keys and beside the k / v copies B4's
+    route makes) at full width in bf16 (weights from a seeded generator on
+    the card, frames N(0, 1)): (a) ``make_prefill_step(cfg)(params,
+    tokens, frames)`` on 2 x (4096 frames + 512 tokens): exactly 72 B4
+    launches (24 encoder, 24 causal decoder, 24 cross-attention) and
+    nothing else, finite (2, vocab) logits; ms a prefill, frames + tokens
+    a second, a profile and peak memory; (b) the serving example's static
+    decode: 4 x 4096 frames encoded once (24 B4), then
+    ``make_decode_step`` one-token steps at an int32 position on the card
+    advanced in place, a 32-token prompt stepped and 96 greedy tokens
+    (max_seq 128): exactly 24 B5 and 24 B4 (the cross-attention at one
+    query) a step over 127 steps and nothing else; ms a step (CUDA events
+    around each call), tokens/s, peak memory and one profiled step (idle
+    share, B4 and B5 shares, the copy kernels); (c) 4 steps of
+    ``launch.steps.make_train_step(cfg, sgd_momentum(0.9))`` on 2 x (4096
+    frames + 256 tokens): no B4 / B5 launch (the training forward runs the
+    scans), finite losses, params changed; ms a step and peak memory; (d)
+    reduced f32 seamless (2 + 2 layers, 4 / 4 heads of 64, 64 frames) on
+    the card against the CPU port: prefill logits within
+    ``PREFILL_PARITY_BAND`` and a planted causal encoder outside it, the
+    encode + stepped decode with identical greedy tokens and logits within
+    ``DECODE_PARITY_BAND``, one train step within ``TRAIN_PARITY_BAND``.
 
 The launch counts are set to 0 just before each path and read just after;
 the ``launches`` in the kernels line are those counts, summed over the
@@ -225,8 +251,9 @@ B4, B5, B6 and B1 launches on its four paths and its card-vs-CPU
 training steps, B1's granite-store record among its variants; phase 23
 adds B2's leafwise launches of its mesh runs on the card, (b), (c) and
 (d), and B2's numbers in the line are its leafwise form at the phi3
-tree, the form this slice's main path runs).  Launches
-made to compare a kernel with its plain version are not counted.  B1's
+tree, the form this slice's main path runs; phase 24 adds seamless's B4
+and B5 launches of its full-width prefill (a) and static decode (b), the
+encode included).  Launches made to compare a kernel with its plain version are not counted.  B1's
 numbers in the line are its LM-store ones (phase 18), the shape this
 slice's main path gives it; the ResNet-store records stay among its
 variants.
@@ -868,6 +895,7 @@ FD_INFO = {"flash_decode": 99, "flash_decode_paged": 192}
 # table gets its own pages (a permutation of the pool); row 1 is dead
 # (every entry the sentinel id n_pages, length 0).
 GRANITE = "granite-moe-3b-a800m"
+SEAMLESS = "seamless-m4t-large-v2"
 FD_SHAPES = (("phi3-mini-3.8b", 8, 32, 32, 96, 16, 64, 512, 1023, (0, 64)),
              ("gemma3-4b", 8, 8, 4, 256, 16, 128, 1024, 2047, (1024,)),
              ("gemma3-4b-reduced", 2, 4, 2, 64, 16, 4, 8, 63, (16,)),
@@ -1508,7 +1536,7 @@ PF_CSRC = {"flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 BF16_RATE = 989e12               # dense bf16 tensor-core rate (data sheet)
 # the labels of the model geometries, at which the kernels are timed
 PF_MODELS = ("zamba2-2.7b", "phi3-mini-3.8b", "gemma3-4b", "rwkv6-7b",
-             GRANITE)
+             GRANITE, SEAMLESS)
 # B4: (label, B, H, KV, Sq, Sk, hd, causal, windows) — the model geometries
 # at the prefill main path's 2 x 2048 tokens (zamba2-2.7b's shared
 # attention, phi3-mini-3.8b, gemma3-4b's local and global layers), then
@@ -1518,7 +1546,13 @@ PF_MODELS = ("zamba2-2.7b", "phi3-mini-3.8b", "gemma3-4b", "rwkv6-7b",
 # window (100) that is no multiple of a key tile; then granite-moe-3b-a800m
 # (phase 22 (a): 24 / 8 heads of 64) at the prefill's 2 x 2048 and the
 # static decode's 4 x 512 chunked prefill, and its reduced 6 / 2 heads at a
-# ragged S
+# ragged S; then seamless-m4t-large-v2 (phase 24: 16 / 16 heads of 64,
+# non-causal): its encoder at 2 x 4096 frames, its cross-attention in the
+# prefill (2 x 512 queries over 4096 keys) and in a decode step (4 rows of
+# one query over 4096 keys, SEAMLESS_CROSS_DECODE, also timed against B5 on
+# the same keys), and the reduced model's one-query cross-attention (each
+# timed: their labels start with a model's name)
+SEAMLESS_CROSS_DECODE = f"{SEAMLESS} cross decode"
 FA_SHAPES = (("zamba2-2.7b", 2, 32, 32, 2048, 2048, 80, True, (0,)),
              ("phi3-mini-3.8b", 2, 32, 32, 2048, 2048, 96, True, (0,)),
              ("gemma3-4b", 2, 8, 4, 2048, 2048, 256, True, (1024, 0)),
@@ -1532,7 +1566,13 @@ FA_SHAPES = (("zamba2-2.7b", 2, 32, 32, 2048, 2048, 80, True, (0,)),
              ("hd256-gqa-ragged", 1, 8, 2, 200, 200, 256, True, (0, 100)),
              (GRANITE, 2, 24, 8, 2048, 2048, 64, True, (0,)),
              (f"{GRANITE} static", 4, 24, 8, 512, 512, 64, True, (0,)),
-             (f"{GRANITE}-reduced-ragged", 2, 6, 2, 45, 45, 64, True, (0,)))
+             (f"{GRANITE}-reduced-ragged", 2, 6, 2, 45, 45, 64, True, (0,)),
+             (f"{SEAMLESS} encoder", 2, 16, 16, 4096, 4096, 64, False, (0,)),
+             (f"{SEAMLESS} cross prefill", 2, 16, 16, 512, 4096, 64, False,
+              (0,)),
+             (SEAMLESS_CROSS_DECODE, 4, 16, 16, 1, 4096, 64, False, (0,)),
+             (f"{SEAMLESS} reduced cross decode", 2, 4, 4, 1, 64, 64, False,
+              (0,)))
 # B7: (label, Bt, H, S, P, N) — zamba2-2.7b's SSD at 2 x 2048 tokens (80
 # heads of 64, state 64, chunk 256) on contiguous tensors and on the views
 # ``mamba2_block`` passes (SSD_VIEWS), the reduced zamba2 of the CPU tests
@@ -1795,9 +1835,13 @@ def pf_kernel_phase(P, rate):
                             q, k, v, attn_mask=mask, enable_gqa=True)
                     else:
                         lib = lambda: F.scaled_dot_product_attention(
-                            q, k, v, is_causal=True, enable_gqa=True)
+                            q, k, v, is_causal=kw["causal"], enable_gqa=True)
                     rec["library_ms"] = cuda_ms(lib)
                     rec["vs_library"] = rec["ms"] / rec["library_ms"]
+                    if label == SEAMLESS_CROSS_DECODE:
+                        rec.update(_cross_decode_times(
+                            P.FD, args, want, lambda: kern_fns[kernel](
+                                *args, **kw), lib))
                 by = bound_by if bound_by == "bytes" else (
                     "bf16 tensor-core" if op_rate == BF16_RATE
                     else "f32") + " operations"
@@ -1817,6 +1861,39 @@ def pf_kernel_phase(P, rate):
             f"version (worst {max(r['err_over_tol'] for r in recs):.3g} x "
             "the tolerance)")
     return out
+
+
+def _cross_decode_times(FD, args, want, kern, lib):
+    """A decode step's cross-attention (one query over the encoder's keys)
+    three ways, in device time (``device_ms``): B4 on the ``(B, KV, Sk,
+    hd)`` copies ``chunked_attention`` makes, SDPA on the same, and B5 at
+    pos = Sk - 1 with no window on the ``(B, Sk, KV, hd)`` projections as
+    they lie (their ``transpose(1, 2)`` views), which computes the same
+    function; B5 held to B4's plain version (PF_F32_TOL, bf16 one ulp
+    more), and the time of the k / v copies B4's route makes."""
+    q, k, v = args
+    kl, vl = (t.transpose(1, 2).contiguous() for t in (k, v))  # as projected
+    kt, vt = kl.transpose(1, 2), vl.transpose(1, 2)
+    pos = k.shape[2] - 1
+    b5 = lambda: FD.flash_decode(q, kt, vt, pos)
+    err, ratio = _pf_err("flash_attention", b5(), want)
+    if not ratio <= 1.0:
+        raise AssertionError(f"flash_decode on the cross-attention's keys "
+                             f"differs from B4's plain version by {err} "
+                             f"({ratio:.3g} x the tolerance)")
+    copies = lambda: (kl.transpose(1, 2).contiguous(),
+                      vl.transpose(1, 2).contiguous())
+    rec = {"device_ms": device_ms(kern), "library_device_ms": device_ms(lib),
+           "b5_ms": cuda_ms(b5), "b5_device_ms": device_ms(b5),
+           "b5_max_abs_err": err, "kv_copy_ms": cuda_ms(copies),
+           "kv_copy_device_ms": device_ms(copies)}
+    log(f"      one query over {k.shape[2]} keys ({q.dtype}): device time B4 "
+        f"{rec['device_ms'] * 1e3:.1f} us, SDPA "
+        f"{rec['library_device_ms'] * 1e3:.1f} us, B5 on the projections "
+        f"as they lie {rec['b5_device_ms'] * 1e3:.1f} us (err {err:.3g}); "
+        f"the k / v copies B4's route makes "
+        f"{rec['kv_copy_device_ms'] * 1e3:.1f} us")
+    return rec
 
 
 # the kernel names of B4, B7 and B8 in a profile
@@ -3000,13 +3077,16 @@ DEC_SHORT_PROMPT, DEC_SHORT_GEN = 32, 32
 # at the static decode geometries of phi3-mini-3.8b, gemma3-4b (its local
 # layers' window over a 2048-position cache) and zamba2-2.7b's shared
 # attention (hd 80), then granite-moe-3b-a800m (phase 22 (a): n_rep 3, hd
-# 64) at its static decode's geometry and reduced; positions 0, the middle
-# and max_seq - 1, timed at the last
+# 64) at its static decode's geometry and reduced, then the decoder of
+# seamless-m4t-large-v2 (phase 24: n_rep 1, hd 64) at its static decode's
+# (4 rows, a cache of 128); positions 0, the middle and max_seq - 1, timed
+# at the last
 B5_SHAPES = (("phi3-mini-3.8b static", 4, 32, 32, 96, 576, 0),
              ("gemma3-4b static", 4, 8, 4, 256, 2048, 1024),
              ("zamba2-2.7b static", 4, 32, 32, 80, 64, 0),
              (f"{GRANITE} static", 4, 24, 8, 64, 576, 0),
-             (f"{GRANITE}-reduced static", 2, 6, 2, 64, 28, 0))
+             (f"{GRANITE}-reduced static", 2, 6, 2, 64, 28, 0),
+             (f"{SEAMLESS} static", 4, 16, 16, 64, 128, 0))
 # B4 with a query offset at phi3-mini's attention (4 rows, 32 heads, hd
 # 96): queries at offset..offset+T-1 over the first offset + T keys
 B4_OFFSETS, B4_CHUNKS, B4_WINDOWS = (0, 1, 17, 512), (1, 5, 64), (0, 100)
@@ -4411,6 +4491,411 @@ def spmd_phase(Z, rate):
     return out, rec
 
 
+# --------------------- phase 24: the encoder-decoder family -------------------
+# seamless-m4t-large-v2 at full width and depth in bf16 (24 encoder and 24
+# decoder layers, 16 / 16 heads of 64, d_ff 8192, vocab 256,206; weights
+# from a seeded generator on the card, frames N(0, 1) from another): (a)
+# the prefill on 2 x 4096 frames and 2 x 512 decoder tokens; (b) the
+# serving example's static decode: 4 x 4096 frames encoded once into the
+# cache, then one-token steps at a position on the card, a 32-token prompt
+# stepped and 96 greedy tokens (max_seq 128, 127 steps); (c) 4 training
+# steps (make_train_step, SGD momentum 0.9) on one batch of 2 x (4096
+# frames, 256 tokens)
+SEAMLESS_PREFILL_ROWS, SEAMLESS_PREFILL_TOKENS = 2, 512
+SEAMLESS_DEC_ROWS, SEAMLESS_DEC_PROMPT, SEAMLESS_DEC_GEN = 4, 32, 96
+SEAMLESS_TRAIN_ROWS, SEAMLESS_TRAIN_TOKENS, SEAMLESS_TRAIN_STEPS = 2, 256, 4
+SEAMLESS_TRAIN_LR = 1e-3
+# (d) card vs CPU on the reduced f32 model (2 + 2 layers, 4 / 4 heads of
+# 64, encoder_seq 64) in the prefill, parity and training bands of phases
+# 16, 21 and 19: 2 x 20 decoder tokens, the decode's 20-token prompt
+# stepped and 8 greedy tokens, one train step at lr 0.05
+SEAMLESS_PARITY_TOKENS, SEAMLESS_PARITY_GEN = 20, 8
+SEAMLESS_PARITY_LR = 0.05
+
+
+def _seamless_inputs(cfg, rows, s_dec, seed, device="cuda"):
+    """Seeded N(0, 1) frames (rows, encoder_seq, D) in f32 and random
+    decoder tokens (rows, s_dec) on ``device``."""
+    import numpy as np
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frames = torch.randn(rows, cfg.encoder_seq, cfg.d_model, generator=gen,
+                         device=device)
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (rows, s_dec))).to(device)
+    return frames, tok
+
+
+def _encdec_generate(E, cfg, params, frames, prompts, gen):
+    """The serving example's form: the frames encoded once into a fresh
+    cache (``encdec.encode``), then ``make_decode_step`` one-token steps at
+    an int32 position on the prompts' device advanced in place: the prompt
+    stepped, then ``gen`` greedy tokens (max_seq = prompt + gen).  A CUDA
+    event is recorded before and after each step on the card.  Returns
+    (tokens (B, P + gen), the generated tokens' logits, the encode's
+    launch counts, [(start, end) events], the cache, the step, pos)."""
+    dev = prompts.device
+    b, p = prompts.shape
+    cache = E.models.init_cache(cfg, b, p + gen, device=dev)
+    _reset_dec_counts(E)
+    with torch.no_grad():
+        cache["enc_out"] = E.encdec.encode(params, cfg, frames)
+    enc_counts = _dec_counts(E)
+    decode = E.make_decode_step(cfg)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    tok, out, seen, marks = prompts[:, :1], [prompts], [], []
+    for t in range(p + gen - 1):
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record()
+        logits, cache = decode(params, cache, tok, pos)
+        if dev.type == "cuda":
+            z.record()
+            marks.append((a, z))
+        pos.add_(1)
+        if t + 1 < p:
+            tok = prompts[:, t + 1:t + 2]
+        else:
+            tok = logits.argmax(-1).to(prompts.dtype)[:, None]
+            out.append(tok)
+            seen.append(logits)
+    return (torch.cat(out, dim=1), torch.stack(seen, dim=1), enc_counts,
+            marks, cache, decode, pos)
+
+
+def _encdec_step_profile(E, cfg, params, cache, decode, tok):
+    """One one-token decode step (the last position of the cache, a 0-d
+    int32 tensor on the card) under torch.profiler: device busy ms, idle
+    share, the shares of B5 (self-attention) and B4 (cross-attention at
+    one query), the copy kernels' time (the cross-attention's k / v in
+    B4's layout among them) and the top kernels."""
+    pos = torch.tensor(cache["k"].shape[2] - 1, dtype=torch.int32,
+                       device="cuda")
+    kern, count, wall = traced_kernels(
+        lambda: decode(params, cache, tok, pos),
+        ("decode_kernel", "attention_wgmma_kernel"), 2 * cfg.n_layers)
+    busy = sum(kern.values())
+    part = lambda key: sum(us for n, us in kern.items() if key in n)
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (wall * 1e6),
+            "kernel_launches": sum(count.values()),
+            "b5_ms": part("decode_kernel") / 1e3,
+            "b5_share": part("decode_kernel") / busy,
+            "b4_ms": part("attention_wgmma_kernel") / 1e3,
+            "b4_share": part("attention_wgmma_kernel") / busy,
+            "copy_launches": sum(c for n, c in count.items() if "copy" in n),
+            "copy_ms": part("copy") / 1e3, "copy_share": part("copy") / busy,
+            "top_kernels": [{"name": n[:90], "ms": us / 1e3,
+                             "share": us / busy} for n, us in top]}
+
+
+def _no_kernel(counts):
+    return {k: 0 for k in counts}
+
+
+def encdec_prefill(E, cfg, params):
+    """Phase 24 (a): ``make_prefill_step(cfg)(params, tokens, frames)``:
+    exactly 72 B4 launches (24 encoder, 24 causal decoder, 24 cross) and
+    nothing else, finite (rows, vocab) logits; ms a prefill (median of
+    PREFILL_TIMED), frame + token throughput, a profile and peak memory."""
+    rows, s_dec = SEAMLESS_PREFILL_ROWS, SEAMLESS_PREFILL_TOKENS
+    frames, tokens = _seamless_inputs(cfg, rows, s_dec, 21)
+    prefill = E.make_prefill_step(cfg)
+    prefill(params, tokens, frames)                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_dec_counts(E)
+    logits = prefill(params, tokens, frames)
+    torch.cuda.synchronize()
+    got = _dec_counts(E)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(_no_kernel(got), flash_attention=cfg.encoder_layers
+                + 2 * cfg.n_layers)
+    if got != want:
+        raise AssertionError(f"{SEAMLESS} prefill: launches {got}, expected "
+                             f"{want}")
+    if tuple(logits.shape) != (rows, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{SEAMLESS} prefill: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    times = []
+    for _ in range(PREFILL_TIMED):
+        t0 = time.perf_counter()
+        prefill(params, tokens, frames)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * statistics.median(times)
+    prof = _prefill_profile(lambda p, t: prefill(p, t, frames), params,
+                            tokens, {"flash_attention": want[
+                                "flash_attention"]})
+    n_in = rows * (cfg.encoder_seq + s_dec)
+    rec = {"rows": rows, "frames": cfg.encoder_seq, "tokens": s_dec,
+           "ms_per_prefill": ms,
+           "ms_per_prefill_runs": [1e3 * t for t in times],
+           "inputs_per_s": n_in / (ms / 1e3), "launches": got,
+           "peak_bytes": peak, "profile": prof}
+    log(f"encoder-decoder prefill: {SEAMLESS} full width, {rows} x "
+        f"({cfg.encoder_seq} frames + {s_dec} tokens): {ms:.1f} ms a "
+        f"prefill (runs {[round(1e3 * t, 1) for t in times]}), "
+        f"{rec['inputs_per_s']:.0f} frames + tokens/s; launches {got}; peak "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"  profiled prefill: {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms']:.1f} ms (idle "
+        f"{prof['device_idle_share']:.1%}); B4 {prof['b4_share']:.1%} of "
+        f"device time; copy kernels {prof['copy_launches']} launches, "
+        f"{prof['copy_ms']:.2f} ms ({prof['copy_share']:.1%})")
+    for k in prof["top_kernels"]:
+        log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
+    if not prof["b4_share"] > 0:
+        raise AssertionError("the profiled prefill finds no time under B4's "
+                             "names")
+    return rec, got
+
+
+def encdec_decode(E, cfg, params):
+    """Phase 24 (b): the serving example's static decode at full width:
+    the encode (exactly 24 B4), then 127 one-token steps (24 B5 and 24 B4
+    each, nothing else), tokens in the vocabulary, finite logits; ms a
+    step (CUDA events around each call), tokens/s, peak memory and one
+    profiled step."""
+    rows, plen, gen = SEAMLESS_DEC_ROWS, SEAMLESS_DEC_PROMPT, SEAMLESS_DEC_GEN
+    frames, prompts = _seamless_inputs(cfg, rows, plen, 23)
+    _encdec_generate(E, cfg, params, frames, prompts[:, :2], 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks, logits, enc, marks, cache, decode, _ = _encdec_generate(
+        E, cfg, params, frames, prompts, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _dec_counts(E)
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = plen + gen - 1
+    want_enc = dict(_no_kernel(enc), flash_attention=cfg.encoder_layers)
+    want = dict(_no_kernel(got),
+                flash_attention=cfg.encoder_layers + cfg.n_layers * n_steps,
+                flash_decode=cfg.n_layers * n_steps)
+    if enc != want_enc or got != want or len(marks) != n_steps:
+        raise AssertionError(f"{SEAMLESS} static decode: encode launches "
+                             f"{enc}, in all {got} over {len(marks)} steps; "
+                             f"expected {want_enc} and {want}")
+    _check_tokens(SEAMLESS, toks, logits, cfg, rows, plen + gen)
+    if not torch.equal(toks[:, :plen], prompts):
+        raise AssertionError(f"{SEAMLESS}: the decode changed the prompts")
+    steps = [a.elapsed_time(marks[i + 1][0] if i + 1 < len(marks) else z)
+             for i, (a, z) in enumerate(marks)]
+    greedy = steps[plen:]
+    med = statistics.median(greedy)
+    prof = _encdec_step_profile(E, cfg, params, cache, decode,
+                                toks[:, -1:])
+    rec = {"rows": rows, "frames": cfg.encoder_seq, "prompt": plen,
+           "generated": gen, "max_seq": plen + gen, "steps": n_steps,
+           "wall_s": wall, "tokens_per_s": rows * gen / wall,
+           "ms_per_step": med, "ms_per_step_min": min(greedy),
+           "ms_per_step_max": max(greedy),
+           "stepped_prompt_ms": sum(steps[:plen]),
+           "decode_tokens_per_s": rows / (med / 1e3),
+           "launches": got, "encode_launches": enc, "peak_bytes": peak,
+           "profile": prof}
+    log(f"encoder-decoder static decode: {SEAMLESS} full width, {rows} x "
+        f"{cfg.encoder_seq} frames encoded, {plen} prompt tokens stepped + "
+        f"{gen} generated: {wall:.2f} s, {rec['tokens_per_s']:.1f} generated "
+        f"tokens/s; {med:.2f} ms a decode step (min {min(greedy):.2f}, max "
+        f"{max(greedy):.2f}; {rec['decode_tokens_per_s']:.0f} tokens/s at "
+        f"batch {rows}); launches {got} ({n_steps} steps); peak "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"  profiled decode step: {prof['wall_ms']:.2f} ms, device busy "
+        f"{prof['device_busy_ms']:.2f} ms (idle "
+        f"{prof['device_idle_share']:.1%}), {prof['kernel_launches']} "
+        f"kernels; B5 {prof['b5_ms']:.3f} ms ({prof['b5_share']:.1%}), B4 "
+        f"(cross, one query) {prof['b4_ms']:.3f} ms ({prof['b4_share']:.1%}),"
+        f" copy kernels {prof['copy_launches']} launches, "
+        f"{prof['copy_ms']:.3f} ms ({prof['copy_share']:.1%})")
+    for k in prof["top_kernels"]:
+        log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
+    if not (prof["b5_share"] > 0 and prof["b4_share"] > 0):
+        raise AssertionError("the profiled decode step finds no time under "
+                             "B4's or B5's name")
+    return rec, got
+
+
+def _train_batch(cfg, rows, s_dec, seed, device):
+    frames, tok = _seamless_inputs(cfg, rows, s_dec + 1, seed, device)
+    return {"tokens": tok[:, :-1], "labels": tok[:, 1:], "frames": frames}
+
+
+def encdec_train(E, cfg, params):
+    """Phase 24 (c): ``make_train_step(cfg, sgd_momentum(0.9))`` on one
+    batch, SEAMLESS_TRAIN_STEPS steps: no B4 / B5 launch and no plain
+    attention (the training forward runs the scans), finite losses, the
+    params changed; ms a step and peak memory."""
+    rows, s_dec = SEAMLESS_TRAIN_ROWS, SEAMLESS_TRAIN_TOKENS
+    batch = _train_batch(cfg, rows, s_dec, 25, "cuda")
+    opt = E.sgd_momentum(0.9)
+    step = E.make_train_step(cfg, opt)
+    state, p = opt.init(params), params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_dec_counts(E)
+    times, losses = [], []
+    for _ in range(SEAMLESS_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        p, state, loss = step(p, state, batch, SEAMLESS_TRAIN_LR)
+        losses.append(float(loss))                        # syncs
+        times.append(time.perf_counter() - t0)
+    got = _dec_counts(E)
+    peak = torch.cuda.max_memory_allocated()
+    moved = max(float((a.float() - b.float()).abs().max()) for a, b in
+                zip(E.tree_leaves(p), E.tree_leaves(params)))
+    if got != _no_kernel(got) or not all(map(math.isfinite, losses)) or \
+            not moved > 0:
+        raise AssertionError(f"{SEAMLESS} training: launches {got}, losses "
+                             f"{losses}, largest param move {moved}")
+    ms = 1e3 * statistics.median(times[1:])
+    rec = {"rows": rows, "frames": cfg.encoder_seq, "tokens": s_dec,
+           "steps": SEAMLESS_TRAIN_STEPS, "lr": SEAMLESS_TRAIN_LR,
+           "ms_per_step": ms, "step_ms": [1e3 * t for t in times],
+           "losses": losses, "param_move": moved, "peak_bytes": peak,
+           "launches": got}
+    log(f"encoder-decoder training: {SEAMLESS} full width (block remat), "
+        f"{rows} x ({cfg.encoder_seq} frames + {s_dec} tokens), "
+        f"{SEAMLESS_TRAIN_STEPS} SGD-momentum steps: {ms:.0f} ms a step "
+        f"after the first (steps {[round(1e3 * t) for t in times]} ms), "
+        f"losses {[round(x, 4) for x in losses]}; no B4 / B5 launch; peak "
+        f"{peak / 2**30:.2f} GiB")
+    del p, state
+    return rec
+
+
+def encdec_parity(E):
+    """Phase 24 (d): reduced f32 seamless on the card against the CPU port
+    on the same params and inputs: prefill logits within
+    PREFILL_PARITY_BAND (and the planted causal encoder outside it), the
+    example's encode + stepped decode with identical greedy tokens and
+    logits within DECODE_PARITY_BAND, one train step within
+    TRAIN_PARITY_BAND."""
+    cfg = E.reduced(E.get_config(SEAMLESS))
+    p_cpu = E.models.init_params(cfg, torch.Generator().manual_seed(3),
+                                 device="cpu")
+    p_card = E.tree_map(lambda t: t.cuda(), p_cpu)
+    frames, tok = _seamless_inputs(cfg, 2, SEAMLESS_PARITY_TOKENS, 5, "cpu")
+    on_card = lambda t: t.cuda()
+    threads = torch.get_num_threads()
+
+    def cpu(fn):
+        torch.set_num_threads(1)
+        try:
+            return fn()
+        finally:
+            torch.set_num_threads(threads)
+    prefill = E.make_prefill_step(cfg)
+    torch.backends.cuda.matmul.allow_tf32 = True       # the step turns it
+    _reset_dec_counts(E)                               # off itself
+    card = prefill(p_card, on_card(tok), on_card(frames)).cpu()
+    got = _dec_counts(E)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the prefill step left TF32 on")
+    want = cpu(lambda: prefill(p_cpu, tok, frames))
+    real = E.encdec.chunked_attention
+    E.encdec.chunked_attention = lambda q, k, v, **kw: real(
+        q, k, v, **{**kw, "causal": True})
+    try:
+        fault = prefill(p_card, on_card(tok), on_card(frames)).cpu()
+    finally:
+        E.encdec.chunked_attention = real
+    out = {"prefill": {"logit_gap": float((card - want).abs().max()),
+                       "fault_gap": float((fault - want).abs().max()),
+                       "logit_max": float(want.abs().max()),
+                       "launches": got}}
+    r = out["prefill"]
+    log(f"encoder-decoder parity, {SEAMLESS} reduced (f32, 2 + 2 layers, "
+        f"{cfg.encoder_seq} frames, {SEAMLESS_PARITY_TOKENS} tokens), card "
+        f"vs CPU: prefill logit gap {r['logit_gap']:.3g} (band "
+        f"{PREFILL_PARITY_BAND:g}, logits up to {r['logit_max']:.2f}); the "
+        f"planted causal encoder {r['fault_gap']:.3g}; launches {got}")
+    if not r["logit_gap"] <= PREFILL_PARITY_BAND or \
+            r["fault_gap"] <= PREFILL_PARITY_BAND or got["plain_attention"] \
+            or got["flash_attention"] != cfg.encoder_layers + 2 * cfg.n_layers:
+        raise AssertionError(f"{SEAMLESS} reduced prefill, card vs CPU: {r}")
+
+    gen = SEAMLESS_PARITY_GEN
+    c_t, c_l, _, _, _, _, _ = _encdec_generate(
+        E, cfg, p_card, on_card(frames), on_card(tok), gen)
+    got = _dec_counts(E)
+    x_t, x_l, _, _, _, _, _ = cpu(lambda: _encdec_generate(
+        E, cfg, p_cpu, frames, tok, gen))
+    n_steps = SEAMLESS_PARITY_TOKENS + gen - 1
+    r = out["decode"] = {"logit_gap": float((c_l.cpu() - x_l).abs().max()),
+                         "tokens_equal": bool(torch.equal(c_t.cpu(), x_t)),
+                         "launches": got}
+    log(f"  encode + stepped decode ({SEAMLESS_PARITY_TOKENS} + {gen}): "
+        f"tokens equal {r['tokens_equal']}, logit gap {r['logit_gap']:.3g} "
+        f"(band {DECODE_PARITY_BAND:g}); launches {got}")
+    if not r["tokens_equal"] or not r["logit_gap"] <= DECODE_PARITY_BAND \
+            or got["plain_attention"] or \
+            got["flash_decode"] != cfg.n_layers * n_steps:
+        raise AssertionError(f"{SEAMLESS} reduced decode, card vs CPU: {r}")
+
+    opt = E.sgd_momentum(0.9)
+    step = E.make_train_step(cfg, opt)
+    batch = _train_batch(cfg, 2, SEAMLESS_PARITY_TOKENS, 7, "cpu")
+    _reset_dec_counts(E)
+    cp, _, closs = step(p_card, opt.init(p_card),
+                        {k: on_card(v) for k, v in batch.items()},
+                        SEAMLESS_PARITY_LR)
+    got = _dec_counts(E)
+    xp, _, xloss = cpu(lambda: step(p_cpu, opt.init(p_cpu), batch,
+                                    SEAMLESS_PARITY_LR))
+    r = out["train"] = {
+        "loss_gap": abs(float(closs) - float(xloss)),
+        "param_gap": _leaf_gaps(E.tree_leaves(cp), E.tree_leaves(xp)),
+        "loss": float(xloss), "launches": got}
+    log(f"  one train step (SGD momentum 0.9, lr {SEAMLESS_PARITY_LR:g}): "
+        f"loss gap {r['loss_gap']:.3g}, param gap {r['param_gap']:.3g} "
+        f"(bands {TRAIN_PARITY_BAND['loss']:g} / "
+        f"{TRAIN_PARITY_BAND['params']:g}); launches {got}")
+    if not r["loss_gap"] <= TRAIN_PARITY_BAND["loss"] or \
+            not r["param_gap"] <= TRAIN_PARITY_BAND["params"] or \
+            got != _no_kernel(got):
+        raise AssertionError(f"{SEAMLESS} reduced train step, card vs CPU: "
+                             f"{r}")
+    return out
+
+
+def encdec_phase(E):
+    """Phase 24: seamless-m4t-large-v2 at full width and depth in bf16 on
+    the prefill (a), the static decode (b) and training (c) paths (its
+    kernel geometries ran in phases 14 and 21), then the reduced model
+    card vs CPU (d).  Returns (records, B4 and B5 launches of (a) and
+    (b))."""
+    cfg = E.get_config(SEAMLESS)
+    t0 = time.perf_counter()
+    params = E.models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params": sum(t.numel() for t in E.tree_leaves(params)),
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in E.tree_leaves(params))}
+    log(f"encoder-decoder: {SEAMLESS} {out['params'] / 1e9:.3f} B params "
+        f"({out['weight_bytes'] / 1e9:.2f} GB bf16), drawn in "
+        f"{out['init_s']:.2f} s")
+    out["prefill"], pf = encdec_prefill(E, cfg, params)
+    out["decode"], dl = encdec_decode(E, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = encdec_train(E, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parity"] = encdec_parity(E)
+    launches = {k: pf[k] + dl[k] for k in ("flash_attention",
+                                           "flash_decode")}
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4847,7 +5332,8 @@ def main() -> int:
         return {"launches": {k: mod.launch_count(k)
                              for k, mod in pf_mods.items()},
                 "plain": sum(mod.plain_count() for mod in pf_mods.values())}
-    P = SimpleNamespace(FA=FA, SSD=SSD, WKV=WKV, ops=ops_mod, models=models,
+    P = SimpleNamespace(FA=FA, SSD=SSD, WKV=WKV, FD=FD, ops=ops_mod,
+                        models=models,
                         get_config=get_config, reduced=reduced, layout=layout,
                         tree_leaves=tree_leaves, tree_map=tree_map,
                         make_prefill_step=make_prefill_step,
@@ -5014,6 +5500,28 @@ def main() -> int:
     b2["launches"] += b2_leafwise["launches"]
     b2.update({k: b2_leafwise[k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")})
+
+    # 24. the encoder-decoder family: seamless-m4t-large-v2 at full width
+    # on the prefill, static decode and training paths (its kernel
+    # geometries ran in phases 14 and 21), then card vs CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.launch.steps import make_decode_step, make_train_step
+    from repro_torch.models import encdec as encdec_mod
+    E = SimpleNamespace(**vars(D), encdec=encdec_mod,
+                        make_prefill_step=make_prefill_step,
+                        make_decode_step=make_decode_step,
+                        make_train_step=make_train_step,
+                        sgd_momentum=sgd_momentum)
+    report["encdec"], encdec_launches = encdec_phase(E)
+    log(f"[{time.perf_counter() - t_start:.0f} s] encoder-decoder done")
+    report["encdec"]["kernels"] = {
+        e["name"]: [r for r in e["variants"]
+                    if r.get("shape", "").startswith(SEAMLESS)]
+        for e in line if e["name"] in ("flash_attention", "flash_decode")}
+    report["encdec"]["launches"] = encdec_launches
+    for entry in line:
+        entry["launches"] += encdec_launches.get(entry["name"], 0)
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:

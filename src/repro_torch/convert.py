@@ -95,6 +95,44 @@ def lm_params_from_numpy(tree, cfg, device=None):
     return params_from_numpy(tree, device)
 
 
+_ENCDEC_LAYERS = {"enc": {"ln1", "attn", "ln2", "mlp"},
+                  "dec": {"ln1", "attn", "lnx", "xattn", "ln2", "mlp"}}
+
+
+def encdec_params_from_numpy(tree, cfg, device=None):
+    """The JAX package's encoder-decoder parameters (``init_params`` of
+    ``repro.models.encdec``, as a numpy tree) -> the port's tree on
+    ``device`` (``None`` means the card).  The two trees share key paths
+    (``embed``, ``enc``, ``dec``, ``enc_norm``, ``final_norm``,
+    ``lm_head``), so the mapping is leaf for leaf; this checks that the
+    stacked ``enc`` / ``dec`` leaves hold ``cfg.encoder_layers`` /
+    ``cfg.n_layers`` layers of ``cfg``'s widths."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+            "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
+    mlp = {"wi": (d, cfg.d_ff), "wg": (d, cfg.d_ff), "wo": (cfg.d_ff, d)}
+    want = {"ln1": {"": (d,)}, "ln2": {"": (d,)}, "lnx": {"": (d,)},
+            "attn": attn, "xattn": attn, "mlp": mlp}
+    if set(tree) != {"embed", "enc", "dec", "enc_norm", "final_norm",
+                     "lm_head"}:
+        raise ValueError(f"not an encoder-decoder tree: keys {sorted(tree)}")
+    for key, count in (("enc", cfg.encoder_layers), ("dec", cfg.n_layers)):
+        if set(tree[key]) != _ENCDEC_LAYERS[key]:
+            raise ValueError(f"{key} holds {sorted(tree[key])}, the "
+                             f"reference's {sorted(_ENCDEC_LAYERS[key])}")
+        for name in sorted(_ENCDEC_LAYERS[key]):
+            spec, sub = want[name], tree[key][name]
+            sub = sub if isinstance(sub, dict) else {"": sub}
+            if set(sub) != set(spec) or any(
+                    np.shape(sub[k]) != (count, *shape)
+                    for k, shape in spec.items()):
+                raise ValueError(
+                    f"{key}/{name} of {cfg.name}: "
+                    f"{ {k: np.shape(a) for k, a in sub.items()} }, "
+                    f"expected {count} layers of {spec}")
+    return params_from_numpy(tree, device)
+
+
 def _check_moe(p, cfg):
     """An MoE block's stacked leaves: the router ``(L, D, E')`` in f32,
     the experts ``(L, E', ...)``, with E' = ``padded_experts``."""

@@ -1,10 +1,11 @@
 """Serving example on the port: batched generation across architecture
 families — KV-cache decode (dense/GQA + sliding window), recurrent-state
-decode (Mamba2, RWKV6) — and the continuous-batching engine (paged KV
-cache + slot scheduler) on an attention arch, with draft-free
-speculative decode and COW prefix sharing (the greedy parts of the
-reference's ``examples/serve_decode.py``).  Its sampled decode waits for
-ROADMAP A18 (threefry streams) and its encoder-decoder decode for A12d.
+decode (Mamba2, RWKV6), encoder-decoder decode over stubbed audio frame
+embeddings — and the continuous-batching engine (paged KV cache + slot
+scheduler) on an attention arch, with draft-free speculative decode and
+COW prefix sharing (the greedy parts of the reference's
+``examples/serve_decode.py``).  Its sampled decode waits for ROADMAP A18
+(threefry streams).
 
   python -m repro_torch.examples.serve_decode                # on the card
   python -m repro_torch.examples.serve_decode --device cpu   # on the CPU
@@ -18,6 +19,8 @@ from repro_torch import models
 from repro_torch.configs import get_config, reduced
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import generate
+from repro_torch.launch.steps import make_decode_step
+from repro_torch.models import encdec
 from repro_torch.serve import (PageSpec, ServeEngine, repetitive_workload,
                                shared_prefix_workload, synthetic_workload)
 
@@ -96,6 +99,32 @@ def main(argv=None):
           f"({shr.stats['prefill_skipped_tokens']}/"
           f"{shr.stats['prompt_tokens']} tokens, {shr.stats['cow_copies']} "
           "COW copies)")
+
+    # enc-dec: the encoder output of stubbed frame embeddings, computed
+    # once into the cache, then greedy one-token steps with the decoder's
+    # self-attention cache and cross-attention over it, the position an
+    # int32 tensor on the device advanced in place
+    cfg = reduced(get_config("seamless-m4t-large-v2"))
+    params = _init(cfg, dev)
+    frames = torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    cache = models.init_cache(cfg, 2, 24, device=dev)
+    with torch.inference_mode():
+        cache["enc_out"] = encdec.encode(params, cfg, frames)
+    decode = make_decode_step(cfg)
+    tok = torch.zeros((2, 1), dtype=torch.long, device=dev)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    t0 = time.time()
+    steps = []
+    for _ in range(24):
+        logits, cache = decode(params, cache, tok, pos)
+        pos.add_(1)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        steps.append(tok)
+    out["seamless-m4t-large-v2"] = torch.cat(steps, dim=1).cpu()
+    print(f"{'seamless (enc-dec)':<22} {2 * 24 / (time.time() - t0):6.1f} "
+          f"tok/s  first tokens "
+          f"{out['seamless-m4t-large-v2'][0, :8].tolist()}")
     return out
 
 

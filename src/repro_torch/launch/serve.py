@@ -67,9 +67,11 @@ def generate(cfg, params, prompts, *, gen: int, max_seq: int, greedy=True,
     (B, gen, V) logits each generated token was the argmax of).
 
     Attention archs prefill in ONE chunked decode call (at the host
-    position 0); recurrent archs — or ``stepped_prefill=True`` — step
-    token by token.  Every one-token step, the stepped prefill's too,
-    takes its position from one int32 tensor on the prompts' device,
+    position 0); recurrent archs and the encoder-decoder — or
+    ``stepped_prefill=True`` — step token by token (the encoder-decoder
+    over the zero ``enc_out`` of a fresh cache, as the reference's).
+    Every one-token step, the stepped prefill's too, takes its position
+    from one int32 tensor on the prompts' device,
     advanced in place after the step, as the reference passes a traced
     ``jnp.int32(t)``: B5 reads it there, so each step launches its
     kernels with the same arguments.  Greedy only: ``greedy=False`` (the
@@ -193,6 +195,8 @@ def run(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if cfg.encoder_layers:
+        raise SystemExit("use examples/serve_encdec.py for enc-dec archs")
     if args.engine == "static" and args.temperature > 0:
         raise NotImplementedError(
             "--temperature > 0 needs the reference's threefry streams: "

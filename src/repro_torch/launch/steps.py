@@ -26,20 +26,25 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, tokens) -> last-position logits (B, V), under
-    ``torch.inference_mode()`` (the kernels on its path have no
+    """(params, tokens) -> last-position logits (B, V); for an
+    encoder-decoder (params, tokens, frames), the frames (B, S_enc, D).
+    Under ``torch.inference_mode()`` (the kernels on its path have no
     backward).  On the card it turns TF32 off first (process-wide, as the
     engines do): an f32 config computes in f32."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder prefill waits for ROADMAP "
-            "A12d")
-
-    def prefill(params, tokens):
+    def last_logits(params, tokens, *frames):
         strict_f32(tokens.device)
         with torch.inference_mode():
-            logits = models.forward(params, cfg, tokens, last_only=True)
+            logits = models.forward(params, cfg, tokens, *frames,
+                                    last_only=True)
         return logits[:, 0]
+
+    if cfg.encoder_layers:
+        def prefill(params, tokens, frames):
+            return last_logits(params, tokens, frames)
+        return prefill
+
+    def prefill(params, tokens):
+        return last_logits(params, tokens)
     return prefill
 
 
@@ -54,7 +59,9 @@ def make_decode_step(cfg: ModelConfig, shape=None):
     on the device with no copy to the host: then the caller keeps ``0 <=
     pos < max_seq`` (``models.decode_step``).  The cache is updated in
     place and returned.  On the card it turns TF32 off first
-    (process-wide, as the prefill step does).
+    (process-wide, as the prefill step does).  An encoder-decoder's step
+    runs with window 0 and reads the encoder output from
+    ``cache["enc_out"]``.
 
     ``shape`` (an input shape whose window overrides the config's) needs
     ``launch/specs.py``'s ``effective_window`` and
@@ -63,12 +70,11 @@ def make_decode_step(cfg: ModelConfig, shape=None):
         raise NotImplementedError(
             "make_decode_step(shape=...) needs launch/specs.py "
             "(effective_window, with_window_override): ROADMAP A12e")
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder decode waits for ROADMAP A12d")
+    kw = {"window": 0} if cfg.encoder_layers else {}
 
     def decode(params, cache, tokens, pos):
         strict_f32(tokens.device)
-        logits, cache = models.decode_step(params, cfg, cache, tokens, pos)
+        logits, cache = models.decode_step(params, cfg, cache, tokens, pos,
+                                           **kw)
         return logits[:, -1], cache
     return decode

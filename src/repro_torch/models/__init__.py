@@ -7,30 +7,28 @@
     decode_step(params, cfg, cache, tok, pos)   -> (logits, cache)
 
 ``batch`` dicts carry an optional per-example ``weight`` — the hook used
-by dual-batch learning's model-update factor.  The CNN is ported whole,
-and so are the decoder-only LMs' (dense, MoE, SSM and hybrid stacks)
-init, forward, loss and decode (``transformer``, ``moe``); the
-encoder-decoder models wait for ROADMAP A12d.  ``decode_step``
-updates the cache in place and returns it.
+by dual-batch learning's model-update factor.  The CNN (``resnet``), the
+decoder-only LMs' dense, MoE, SSM and hybrid stacks (``transformer``,
+``moe``) and the encoder-decoder (``encdec``, whose ``forward`` also
+takes the frames and whose ``decode_step`` takes a ``window``) are
+ported; another arch type (the reference's ``vlm``) waits for ROADMAP
+A12e.  ``decode_step`` updates the cache in place and returns it.
 """
 from __future__ import annotations
 
-from repro_torch.models import resnet, transformer
-
-
-def _is_lm(cfg) -> bool:
-    return cfg.arch_type in ("dense", "moe", "ssm", "hybrid") \
-        and not cfg.encoder_layers
+from repro_torch.models import encdec, resnet, transformer
 
 
 def _mod(cfg):
     if cfg.arch_type == "cnn":
         return resnet
-    if _is_lm(cfg):
+    if cfg.encoder_layers:
+        return encdec
+    if cfg.arch_type in ("dense", "moe", "ssm", "hybrid"):
         return transformer
     raise NotImplementedError(
         f"{cfg.name} ({cfg.arch_type}) is not ported yet: it waits for "
-        "ROADMAP A12d (encoder-decoder)")
+        "ROADMAP A12e (the remaining configs)")
 
 
 def init_params(cfg, gen, device=None):

@@ -193,14 +193,18 @@ def attention_block(p, x, cfg, *, window: int = 0, positions=None,
     return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
 
-def cross_attention_block(p, x, enc_kv, cfg):
+def cross_attention_block(p, x, enc_kv, cfg, *, train: bool = False):
     """Cross-attention for enc-dec: queries from x, keys and values
-    projected here from the encoder activations enc_kv (B, Senc, D)."""
+    projected here from the encoder activations enc_kv (B, Senc, D), no
+    RoPE and no mask (``chunked_attention(causal=False)``: B4's
+    non-causal form on the card, at any number of queries, one in a
+    decode step); ``train`` selects the differentiable scan on the card,
+    as ``attention_block``'s does."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(b, s, h, hd)
     senc = enc_kv.shape[1]
     k = (enc_kv @ p["wk"]).reshape(b, senc, kvh, hd)
     v = (enc_kv @ p["wv"]).reshape(b, senc, kvh, hd)
-    o = chunked_attention(q, k, v, causal=False)
+    o = chunked_attention(q, k, v, causal=False, train=train)
     return o.reshape(b, s, h * hd) @ p["wo"]

@@ -458,16 +458,36 @@ def _decode_attn_layer(p, x, cfg, cache_k, cache_v, window, pos, rope,
     b, t = x.shape[:2]
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn_project_qkv(p["attn"], xin, None, cfg, rope=rope)
+    _cache_write(cache_k, cache_v, k, v, pos, slot)
+    o = decode_attention_dyn(q, cache_k, cache_v, pos, window)
+    h = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
+    y, _ = _ffn(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg, dropless=True)
+    return h + y
+
+
+def _cache_slot(pos, t: int, max_seq: int):
+    """The cache write's index for a tensor ``pos`` (int64, on its
+    device, clamped to the cache as the reference's
+    ``dynamic_update_slice`` clamps its start); None for a host int, which
+    must fit the chunk in the cache."""
+    if isinstance(pos, torch.Tensor):
+        return pos.clamp(0, max_seq - 1).long().reshape(1)
+    if pos + t > max_seq:
+        raise ValueError(f"a chunk of {t} at position {pos} does not fit "
+                         f"a cache of {max_seq} positions")
+    return None
+
+
+def _cache_write(cache_k, cache_v, k, v, pos, slot):
+    """Write a chunk's keys and values into ``(B, S, KV, hd)`` caches at
+    ``pos`` (at ``slot`` for a tensor ``pos``), in place."""
     if slot is None:
+        t = k.shape[1]
         cache_k[:, pos:pos + t] = k.to(cache_k.dtype)
         cache_v[:, pos:pos + t] = v.to(cache_v.dtype)
     else:
         cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
         cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
-    o = decode_attention_dyn(q, cache_k, cache_v, pos, window)
-    h = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
-    y, _ = _ffn(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg, dropless=True)
-    return h + y
 
 
 def _pos_arg(pos, t: int, device):
@@ -520,11 +540,7 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     if any(seg.kind in (ATTN, SHARED_ATTN) for seg in segs):
         max_seq = next(c["k"].shape[2] for seg, c in zip(segs, caches)
                        if seg.kind in (ATTN, SHARED_ATTN))
-        if isinstance(pos, torch.Tensor):
-            slot = pos.clamp(0, max_seq - 1).long().reshape(1)
-        elif pos + t > max_seq:
-            raise ValueError(f"a chunk of {t} at position {pos} does not fit "
-                             f"a cache of {max_seq} positions")
+        slot = _cache_slot(pos, t, max_seq)
         # one set of RoPE tables for every layer (the reference builds
         # the same values in each)
         positions = (pos + torch.arange(t, device=x.device)).expand(b, t)

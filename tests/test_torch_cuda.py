@@ -682,3 +682,76 @@ def test_granite_paths_launch_the_kernels(cuda):
     assert fa.plain_count() + fd.plain_count() == 0
     cpu = generate(cfg, params, prompts, gen=5, max_seq=17)
     assert torch.equal(card.cpu(), cpu)
+
+
+# seamless-m4t-large-v2's cross-attention in a decode step: one query over
+# the encoder's keys, non-causal, 16 / 16 heads of 64 (full) and the
+# reduced model's 4 / 4
+CROSS_DECODE = [(4, 16, 16, 4096), (2, 4, 4, 64), (3, 4, 2, 77)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sk", CROSS_DECODE)
+def test_flash_attention_one_query_noncausal(cuda, dtype, b, h, kv, sk):
+    """B4 at Sq = 1, non-causal (the TMA box of 64 query rows over a
+    one-row query head in bf16): within 2e-5 of its plain version (bf16
+    one ulp more); B5 at pos = Sk - 1 with no window computes the same
+    function on the same keys."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(sk)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(dtype)
+    q, k, v = rn(b, h, 1, 64), rn(b, kv, sk, 64), rn(b, kv, sk, 64)
+    fa.reset_counts()
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    _close_decode(got, want, dtype)
+    _close_decode(fd.flash_decode(q, k, v, sk - 1), want, dtype)
+    assert fa.launch_count() == 1 and fa.plain_count() == 0
+
+
+def test_encdec_paths_launch_the_kernels(cuda):
+    """Reduced f32 seamless on the card: the prefill launches B4 in each
+    encoder layer, each decoder layer and each cross-attention; a decode
+    step one B5 and one B4 (the cross-attention at one query) a layer; no
+    plain run; the CPU port's logits within 1e-4 and its greedy tokens."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import encdec
+    cfg = reduced(get_config("seamless-m4t-large-v2"))
+    params = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    card = tree_map(lambda t: t.cuda(), params)
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen)
+    frames = torch.randn(2, cfg.encoder_seq, cfg.d_model, generator=gen)
+    fa.reset_counts()
+    fd.reset_counts()
+    got = make_prefill_step(cfg)(card, tok.cuda(), frames.cuda())
+    assert fa.launch_count() == cfg.encoder_layers + 2 * cfg.n_layers
+    want = make_prefill_step(cfg)(params, tok, frames)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    outs = []
+    for p, dev in ((card, cuda), (params, torch.device("cpu"))):
+        cache = models.init_cache(cfg, 2, 9, device=dev)
+        with torch.inference_mode():
+            cache["enc_out"] = encdec.encode(p, cfg, frames.to(dev))
+        step, t, seen = make_decode_step(cfg), tok[:, :1].to(dev), []
+        fa.reset_counts()
+        fd.reset_counts()
+        for s in range(8):
+            logits, cache = step(p, cache, t, torch.tensor(
+                s, dtype=torch.int32, device=dev))
+            t = logits.argmax(-1)[:, None]
+            seen.append(logits.cpu())
+        if dev.type == "cuda":
+            assert (fd.launch_count("flash_decode"), fa.launch_count()) == \
+                (8 * cfg.n_layers, 8 * cfg.n_layers)
+            assert fa.plain_count() + fd.plain_count() == 0
+        outs.append(torch.stack(seen))
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4
+    assert torch.equal(outs[0].argmax(-1), outs[1].argmax(-1))

@@ -378,8 +378,18 @@ def test_make_decode_step_refuses_what_waits():
     cfg = reduced(get_config("phi3-mini-3.8b"))
     with pytest.raises(NotImplementedError, match="A12e"):
         make_decode_step(cfg, InputShape("decode_32k", 32768, 1, "decode"))
-    with pytest.raises(NotImplementedError, match="A12d"):
-        make_decode_step(replace(cfg, encoder_layers=2))
+    # an encoder-decoder's decode is ported (ROADMAP A12d, tests/
+    # test_torch_encdec.py): phi3's widths with 2 encoder layers step over
+    # the self-attention cache and the encoder output
+    enc = replace(cfg, encoder_layers=2, encoder_seq=8)
+    ep = models.init_params(enc, torch.Generator().manual_seed(0),
+                            device="cpu")
+    logits, cache = make_decode_step(enc)(
+        ep, models.init_cache(enc, 1, 4, device="cpu"),
+        torch.zeros(1, 1, dtype=torch.long), 0)
+    assert logits.shape == (1, enc.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert set(cache) == {"k", "v", "enc_out"}
     # an MoE model's decode is ported (ROADMAP A12c, tests/
     # test_torch_moe_paths.py): its cache is the attention k / v
     moe = replace(cfg, moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))

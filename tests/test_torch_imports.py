@@ -90,7 +90,7 @@ def _entry_points():
     from repro_torch import convert, models
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.flat import flat_spec
-    from repro_torch.models import resnet, transformer
+    from repro_torch.models import encdec, resnet, transformer
     from repro_torch.core.tree import tree_leaves
     from repro_torch.examples import dual_batch_spmd, quickstart, serve_decode
     from repro_torch.launch import serve, train
@@ -99,6 +99,8 @@ def _entry_points():
     cfg = get_config("cifar-resnet18")
     lm = reduced(get_config("phi3-mini-3.8b"), layers=1, d_model=64,
                  vocab=32)
+    encdec_cfg = reduced(get_config("seamless-m4t-large-v2"), layers=1,
+                         d_model=64, vocab=32)
     gen = torch.Generator().manual_seed(0)
     arr = np.zeros((2, 3), np.float32)
     spec = flat_spec({"w": torch.zeros(3, 5)})
@@ -127,6 +129,10 @@ def _entry_points():
             ["--steps", "1"] + ([] if d is None else ["--device", d])),
         "models.init_cache": lambda d: tree_leaves(models.init_cache(
             lm, 2, 8, device=d)),
+        "encdec.init_params": lambda d: tree_leaves(encdec.init_params(
+            encdec_cfg, gen, device=d)),
+        "encdec.init_cache": lambda d: tree_leaves(encdec.init_cache(
+            encdec_cfg, 2, 8, device=d)),
         "launch.serve.run static": lambda d: serve.run(
             ["--batch", "1", "--prompt-len", "4", "--gen", "2"]
             + ([] if d is None else ["--device", d])),

@@ -225,11 +225,15 @@ def test_unported_paths_name_their_items():
                             device="cpu")
     loss, _ = models.loss_fn(mp, moe, {"tokens": tok, "labels": tok})
     assert bool(torch.isfinite(loss))
-    enc = replace(cfg, encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        models.init_params(enc, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_prefill_step(enc)
+    # and an encoder-decoder's (ROADMAP A12d, tests/test_torch_encdec.py):
+    # phi3's widths with 2 encoder layers prefill from tokens and frames
+    enc = replace(cfg, encoder_layers=2, encoder_seq=8)
+    ep = models.init_params(enc, torch.Generator().manual_seed(0),
+                            device="cpu")
+    assert {"enc", "dec", "enc_norm"} <= set(ep)
+    logits = make_prefill_step(enc)(ep, tok, torch.zeros(1, 8, enc.d_model))
+    assert logits.shape == (1, enc.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_wkv6_scan_from_a_state_matches_reference():
