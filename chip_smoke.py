@@ -236,6 +236,35 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     ``PREFILL_PARITY_BAND`` and a planted causal encoder outside it, the
     encode + stepped decode with identical greedy tokens and logits within
     ``DECODE_PARITY_BAND``, one train step within ``TRAIN_PARITY_BAND``.
+25. the remaining configs and the input shapes (``configs/shapes.py``,
+    ``launch/specs.py``): (a) ``abstract_params`` of the ten LM configs at
+    full depth and ``input_specs`` of every (config, shape) pair on the
+    meta device, the card's allocated bytes unchanged; then llama3-405b,
+    deepseek-67b, arctic-480b and chameleon-34b (hd 128 at n_rep 16, 8, 7
+    and 8; their kernel geometries ride in phases 11, 14 and 21) at full
+    width in bf16 on seeded weights drawn on the card, ``BIG_LAYERS`` deep
+    (2, 2, 1, 2) so that the params and decode_32k's cache fit the card:
+    (b) ``make_prefill_step(cfg)`` at prefill_32k's 32,768 tokens (batch
+    cut to 1): one B4 launch a layer and nothing else, finite logits; ms a
+    prefill, tokens/s, peak memory, a profile (arctic: the MoE layer's
+    split); and B4 at that geometry (1 x 32,768, causal, bf16) against its
+    plain version, run 1,024 queries of one KV head's query heads at a
+    time (``PF_F32_TOL`` plus one bf16 ulp), timed beside its bound and
+    SDPA; (c) ``make_decode_step(cfg, SHAPES["decode_32k"])`` over
+    ``init_cache(cfg, 128, 32768)`` filled with N(0, 1) bf16 draws: 8
+    one-token steps from a device pos of 32,759, one B5 launch a layer a
+    step and nothing else; ms a step, and B5 on that cache against its
+    plain version (a row at a time), timed beside its bytes bound and SDPA;
+    (d) the same at long_500k (1 x 524,288, the window override: every
+    layer a window of 8,192), and a planted check: every key and value
+    before the window rewritten, the step's logits bit-equal; without the
+    shape they differ; (e) the reduced f32 four (n_rep kept at hd 128,
+    ``BIG_REDUCED``) on the card against the CPU port: prefill within
+    ``PREFILL_PARITY_BAND``, ``generate`` tokens identical and logits
+    within ``DECODE_PARITY_BAND``, a long_500k-named shape of 64 positions
+    at window 16 through ``make_decode_step(cfg, shape)`` within
+    ``DECODE_PARITY_BAND`` (arctic's CPU legs on the card's expert
+    choices).
 
 The launch counts are set to 0 just before each path and read just after;
 the ``launches`` in the kernels line are those counts, summed over the
@@ -253,7 +282,9 @@ adds B2's leafwise launches of its mesh runs on the card, (b), (c) and
 (d), and B2's numbers in the line are its leafwise form at the phi3
 tree, the form this slice's main path runs; phase 24 adds seamless's B4
 and B5 launches of its full-width prefill (a) and static decode (b), the
-encode included).  Launches made to compare a kernel with its plain version are not counted.  B1's
+encode included; phase 25 adds the B4 launches of its four prefills (b)
+and the B5 launches of its decode_32k and long_500k steps (c, d), B4's
+rows at 32,768 tokens and B5's at those caches among their variants).  Launches made to compare a kernel with its plain version are not counted.  B1's
 numbers in the line are its LM-store ones (phase 18), the shape this
 slice's main path gives it; the ResNet-store records stay among its
 variants.
@@ -891,7 +922,10 @@ FD_INFO = {"flash_decode": 99, "flash_decode_paged": 192}
 # (label, rows, heads, kv heads, hd, page_len, pages per slot, pages, longest
 # length, windows): phi3-mini and gemma3-4b at full geometry, and the
 # reduced shapes of tests/test_torch_serve.py; then granite-moe-3b-a800m
-# (phase 22 (a): n_rep 3, hd 64, full and reduced heads).  Each row of a
+# (phase 22 (a): n_rep 3, hd 64, full and reduced heads); then the heads
+# of llama3-405b, deepseek-67b and arctic-480b (phase 25: hd 128 at n_rep
+# 16, 8 and 7 — B5 / B6 serve 8 query heads a block: two groups a KV
+# head, one, and one of 7 in 8), at 1023 keys.  Each row of a
 # table gets its own pages (a permutation of the pool); row 1 is dead
 # (every entry the sentinel id n_pages, length 0).
 GRANITE = "granite-moe-3b-a800m"
@@ -901,7 +935,10 @@ FD_SHAPES = (("phi3-mini-3.8b", 8, 32, 32, 96, 16, 64, 512, 1023, (0, 64)),
              ("gemma3-4b-reduced", 2, 4, 2, 64, 16, 4, 8, 63, (16,)),
              ("phi3-mini-3.8b-reduced", 2, 4, 4, 64, 16, 4, 8, 63, (0,)),
              (GRANITE, 8, 24, 8, 64, 16, 64, 512, 1023, (0,)),
-             (f"{GRANITE}-reduced", 2, 6, 2, 64, 16, 4, 8, 63, (0,)))
+             (f"{GRANITE}-reduced", 2, 6, 2, 64, 16, 4, 8, 63, (0,)),
+             ("llama3-405b", 8, 128, 8, 128, 16, 64, 512, 1023, (0,)),
+             ("deepseek-67b", 8, 64, 8, 128, 16, 64, 512, 1023, (0,)),
+             ("arctic-480b", 8, 56, 8, 128, 16, 64, 512, 1023, (0, 64)))
 # kernel against plain: f32 outputs within 2e-5 (the two sum the softmax in
 # other orders, with other exp); bf16 outputs within one bf16 ulp of the
 # larger magnitude plus that 2e-5 — both round f32 values that differ by up
@@ -1536,7 +1573,7 @@ PF_CSRC = {"flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 BF16_RATE = 989e12               # dense bf16 tensor-core rate (data sheet)
 # the labels of the model geometries, at which the kernels are timed
 PF_MODELS = ("zamba2-2.7b", "phi3-mini-3.8b", "gemma3-4b", "rwkv6-7b",
-             GRANITE, SEAMLESS)
+             GRANITE, SEAMLESS, "llama3-405b", "deepseek-67b", "arctic-480b")
 # B4: (label, B, H, KV, Sq, Sk, hd, causal, windows) — the model geometries
 # at the prefill main path's 2 x 2048 tokens (zamba2-2.7b's shared
 # attention, phi3-mini-3.8b, gemma3-4b's local and global layers), then
@@ -1550,8 +1587,11 @@ PF_MODELS = ("zamba2-2.7b", "phi3-mini-3.8b", "gemma3-4b", "rwkv6-7b",
 # non-causal): its encoder at 2 x 4096 frames, its cross-attention in the
 # prefill (2 x 512 queries over 4096 keys) and in a decode step (4 rows of
 # one query over 4096 keys, SEAMLESS_CROSS_DECODE, also timed against B5 on
-# the same keys), and the reduced model's one-query cross-attention (each
-# timed: their labels start with a model's name)
+# the same keys), and the reduced model's one-query cross-attention; then
+# the heads of llama3-405b, deepseek-67b and arctic-480b (phase 25: hd 128
+# at n_rep 16, 8 and 7) causal over 4096 tokens, a row (phase 25 (b)
+# holds B4 at prefill_32k's 32,768 tokens, ``_b4_big_row``) (each timed:
+# their labels start with a model's name)
 SEAMLESS_CROSS_DECODE = f"{SEAMLESS} cross decode"
 FA_SHAPES = (("zamba2-2.7b", 2, 32, 32, 2048, 2048, 80, True, (0,)),
              ("phi3-mini-3.8b", 2, 32, 32, 2048, 2048, 96, True, (0,)),
@@ -1572,7 +1612,10 @@ FA_SHAPES = (("zamba2-2.7b", 2, 32, 32, 2048, 2048, 80, True, (0,)),
               (0,)),
              (SEAMLESS_CROSS_DECODE, 4, 16, 16, 1, 4096, 64, False, (0,)),
              (f"{SEAMLESS} reduced cross decode", 2, 4, 4, 1, 64, 64, False,
-              (0,)))
+              (0,)),
+             ("llama3-405b", 1, 128, 8, 4096, 4096, 128, True, (0,)),
+             ("deepseek-67b", 1, 64, 8, 4096, 4096, 128, True, (0,)),
+             ("arctic-480b", 1, 56, 8, 4096, 4096, 128, True, (0,)))
 # B7: (label, Bt, H, S, P, N) — zamba2-2.7b's SSD at 2 x 2048 tokens (80
 # heads of 64, state 64, chunk 256) on contiguous tensors and on the views
 # ``mamba2_block`` passes (SSD_VIEWS), the reduced zamba2 of the CPU tests
@@ -3079,14 +3122,19 @@ DEC_SHORT_PROMPT, DEC_SHORT_GEN = 32, 32
 # attention (hd 80), then granite-moe-3b-a800m (phase 22 (a): n_rep 3, hd
 # 64) at its static decode's geometry and reduced, then the decoder of
 # seamless-m4t-large-v2 (phase 24: n_rep 1, hd 64) at its static decode's
-# (4 rows, a cache of 128); positions 0, the middle and max_seq - 1, timed
-# at the last
+# (4 rows, a cache of 128), then the heads of llama3-405b, deepseek-67b
+# and arctic-480b (phase 25: hd 128 at n_rep 16, 8 and 7) on a cache of
+# 576; positions 0, the middle and max_seq - 1, timed at the last (phase 25
+# adds B5 at decode_32k's and long_500k's own caches, ``_b5_big_row``)
 B5_SHAPES = (("phi3-mini-3.8b static", 4, 32, 32, 96, 576, 0),
              ("gemma3-4b static", 4, 8, 4, 256, 2048, 1024),
              ("zamba2-2.7b static", 4, 32, 32, 80, 64, 0),
              (f"{GRANITE} static", 4, 24, 8, 64, 576, 0),
              (f"{GRANITE}-reduced static", 2, 6, 2, 64, 28, 0),
-             (f"{SEAMLESS} static", 4, 16, 16, 64, 128, 0))
+             (f"{SEAMLESS} static", 4, 16, 16, 64, 128, 0),
+             ("llama3-405b static", 4, 128, 8, 128, 576, 0),
+             ("deepseek-67b static", 4, 64, 8, 128, 576, 0),
+             ("arctic-480b static", 4, 56, 8, 128, 576, 0))
 # B4 with a query offset at phi3-mini's attention (4 rows, 32 heads, hd
 # 96): queries at offset..offset+T-1 over the first offset + T keys
 B4_OFFSETS, B4_CHUNKS, B4_WINDOWS = (0, 1, 17, 512), (1, 5, 64), (0, 100)
@@ -4896,6 +4944,544 @@ def encdec_phase(E):
     return out, launches
 
 
+# ------------------- phase 25: the remaining configs and shapes ---------------
+# llama3-405b (128 / 8 heads of 128, n_rep 16), deepseek-67b and
+# chameleon-34b (64 / 8, n_rep 8) and arctic-480b (56 / 8, n_rep 7; 128
+# experts, top-2, dense residual) at full width in bf16 on seeded random
+# weights drawn on the card, the depth cut so that the params and
+# decode_32k's cache fit one 80 GB card, run through the reference's input
+# shapes (configs/shapes.py) with prefill_32k's batch cut from 32 to 1
+BIG_LAYERS = {"llama3-405b": 2, "deepseek-67b": 2, "arctic-480b": 1,
+              "chameleon-34b": 2}
+BIG_PREFILL_BATCH = 1
+BIG_STEPS = 8            # one-token steps at decode_32k and at long_500k
+# the B4 and B5 rows at the paths' geometries: one a distinct (n_rep, hd)
+# (the chameleon cut shares deepseek's); B4's plain version at 32,768
+# tokens runs BIG_B4_BLOCK queries of one KV head's query heads a call
+BIG_ROWS = ("llama3-405b", "deepseek-67b", "arctic-480b")
+BIG_B4_BLOCK = 1024
+# card vs CPU: reduced f32 models that keep each n_rep at hd 128 (reduced()
+# alone gives 4 / 1 heads), 2 layers, arctic 4 experts, top-2, the dense
+# residual; then a long_500k-named shape of 64 positions at window 16
+BIG_REDUCED = {"llama3-405b": dict(n_heads=16, d_model=2048),
+               "deepseek-67b": dict(n_heads=8, d_model=1024),
+               "arctic-480b": dict(n_heads=7, d_model=896),
+               "chameleon-34b": dict(n_heads=8, d_model=1024)}
+BIG_LONG = dict(name="long_500k", seq_len=64, global_batch=2, kind="decode")
+BIG_LONG_WINDOW, BIG_LONG_PROMPT = 16, 40
+
+
+def _fill_kv(cache, gen):
+    """Every attention K / V leaf of a decode cache filled in place with
+    N(0, 1) values drawn on the card (in its bf16)."""
+    for c in cache:
+        for key in ("k", "v"):
+            if key in c:
+                c[key].normal_(generator=gen)
+
+
+def big_abstract(G):
+    """Phase 25 (a): ``launch.specs.abstract_params`` of the ten LM
+    configs at full depth and ``input_specs`` of every (config, shape)
+    pair: meta trees only, the card's allocated bytes unchanged."""
+    before = torch.cuda.memory_allocated()
+    out = {}
+    for arch in G.ARCH_IDS:
+        cfg = G.get_config(arch)
+        tree = G.specs.abstract_params(cfg)
+        leaves = G.tree_leaves(tree)
+        n = sum(t.numel() for t in leaves)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        spec_bytes = {}
+        for name, shape in G.SHAPES.items():
+            spec = G.specs.input_specs(cfg, shape)
+            ls = G.tree_leaves(spec)
+            if not all(t.is_meta for t in ls):
+                raise AssertionError(f"{arch} {name}: input_specs holds a "
+                                     "tensor that is not on the meta device")
+            spec_bytes[name] = sum(t.numel() * t.element_size() for t in ls)
+        if not all(t.is_meta for t in leaves):
+            raise AssertionError(f"{arch}: abstract_params holds a tensor "
+                                 "that is not on the meta device")
+        out[arch] = {"params": n, "analytic_params": cfg.param_count(),
+                     "bytes": nbytes,
+                     "window_long_500k": G.specs.effective_window(
+                         cfg, G.SHAPES["long_500k"]),
+                     "input_bytes": spec_bytes}
+        log(f"  {arch}: abstract_params {n:,} params, {nbytes / 1e9:.1f} "
+            f"GB in its dtypes; decode_32k inputs "
+            f"{spec_bytes['decode_32k'] / 1e9:.1f} GB, long_500k "
+            f"{spec_bytes['long_500k'] / 1e9:.1f} GB (window "
+            f"{out[arch]['window_long_500k']})")
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        raise AssertionError(f"the abstract trees allocated {after - before} "
+                             "bytes on the card")
+    return out
+
+
+def _big_want(b4=0, b5=0):
+    """The counts (``_dec_counts``) a phase-25 run must read: ``b4`` B4
+    and ``b5`` B5 launches and nothing else."""
+    return {"flash_decode": b5, "flash_decode_paged": 0,
+            "flash_attention": b4, "mamba_ssd_scan": 0, "wkv6_chunked": 0,
+            "plain_attention": 0}
+
+
+def big_prefill(G, arch, cfg, params):
+    """Phase 25 (b): ``make_prefill_step(cfg)`` at prefill_32k's sequence
+    (batch cut to 1, tokens of its input spec's shape and dtype drawn on
+    the card): one B4 launch a layer and nothing else, finite (1, vocab)
+    logits; ms a prefill (median of 3), tokens/s, peak memory, a profile
+    (arctic: the MoE layer's split)."""
+    shape = G.replace(G.SHAPES["prefill_32k"],
+                      global_batch=BIG_PREFILL_BATCH)
+    spec = G.specs.input_specs(cfg, shape)["tokens"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, tuple(spec.shape),
+                           dtype=spec.dtype, device="cuda", generator=gen)
+    prefill = G.make_prefill_step(cfg)
+    prefill(params, tokens)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_dec_counts(G)
+    logits = prefill(params, tokens)
+    torch.cuda.synchronize()
+    got = _dec_counts(G)
+    peak = torch.cuda.max_memory_allocated()
+    want = _big_want(b4=cfg.n_layers)
+    if got != want:
+        raise AssertionError(f"{arch} prefill: launches {got}, expected "
+                             f"{want}")
+    if tuple(logits.shape) != (BIG_PREFILL_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} prefill: logits {tuple(logits.shape)}"
+                             f", finite {bool(torch.isfinite(logits).all())}")
+    times = []
+    for _ in range(PREFILL_TIMED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        prefill(params, tokens)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = statistics.median(times)
+    n_tok = tokens.numel()
+    prof = _prefill_profile(prefill, params, tokens,
+                            {"flash_attention": cfg.n_layers})
+    rec = {"tokens": n_tok, "ms_per_prefill": ms, "ms_runs": times,
+           "tokens_per_s": n_tok / (ms / 1e3), "peak_bytes": peak,
+           "launches": got, "profile": {k: prof[k] for k in (
+               "wall_ms", "device_busy_ms", "device_idle_share", "b4_share",
+               "copy_ms", "copy_share", "top_kernels")}}
+    log(f"  prefill ({BIG_PREFILL_BATCH} x {spec.shape[1]} tokens): "
+        f"{ms:.1f} ms (runs {[round(t, 1) for t in times]}), "
+        f"{rec['tokens_per_s']:.0f} tokens/s, peak {peak / 2**30:.2f} GiB; "
+        f"{got['flash_attention']} B4 launches; profiled: device busy "
+        f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} (idle "
+        f"{prof['device_idle_share']:.1%}), B4 {prof['b4_share']:.1%}, "
+        f"copies {prof['copy_share']:.1%}")
+    for k in prof["top_kernels"][:6]:
+        log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
+    if not prof["b4_share"] > 0:
+        raise AssertionError(f"{arch} prefill launched B4 but the profile "
+                             "finds no time under its names")
+    if cfg.moe:
+        rec["moe_split"] = _moe_split(G, prefill, params, tokens)
+    return rec, got
+
+
+def _b4_big_row(G, arch, cfg, s, rate):
+    """B4 at a prefill's geometry (causal, 1 x ``s`` tokens, the config's
+    heads) on seeded N(0, 1) bf16 q, k, v: against its plain version
+    (PF_F32_TOL plus one bf16 ulp) run one KV head's n_rep query heads and
+    BIG_B4_BLOCK queries at a time over the keys they see (the last block
+    all ``s``), where the whole would need the full score matrix; timed
+    (events) beside the bound, the plain version's loop and one SDPA call
+    (causal, ``enable_gqa``, fused backends only)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: B4's plain version would not be "
+                             "the f32 oracle")
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_rep = h // kvh
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    mk = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = mk(1, h, s, hd), mk(1, kvh, s, hd), mk(1, kvh, s, hd)
+    kern = lambda: G.FA.flash_attention(q, k, v, causal=True)
+    got = kern()
+
+    def plain(check):
+        err = ratio = 0.0
+        for g in range(kvh):
+            hs = slice(g * n_rep, (g + 1) * n_rep)
+            for i0 in range(0, s, BIG_B4_BLOCK):
+                i1 = min(s, i0 + BIG_B4_BLOCK)
+                want = G.FA.flash_attention_plain(
+                    q[:, hs, i0:i1], k[:, g:g + 1, :i1], v[:, g:g + 1, :i1],
+                    causal=True, q_offset=i0)
+                if check:
+                    e, r = _pf_err("flash_attention", got[:, hs, i0:i1],
+                                   want)
+                    err, ratio = max(err, e), max(ratio, r)
+        return err, ratio
+    err, ratio = plain(check=True)
+    torch.cuda.synchronize()
+    if not ratio <= 1.0 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention {arch} 1 x {s}: kernel differs "
+                             f"from its plain version by {err} ({ratio:.3g} "
+                             "x the tolerance)")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    plain(check=False)
+    b.record()
+    b.synchronize()
+    bound_ms, by, flops, nbytes, _ = _pf_bound("flash_attention", (q, k, v),
+                                               rate)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), per_group=2, groups=3,
+            warmup=1)
+    rec = {"shape": f"{arch} prefill_32k", "dtype": "bfloat16",
+           "heads": (h, kvh), "hd": hd, "tokens": s, "max_abs_err": err,
+           "err_over_tol": ratio,
+           "ms": cuda_ms(kern, per_group=2, groups=3, warmup=1),
+           "plain_ms": a.elapsed_time(b),
+           "plain_form": f"{n_rep} heads x {BIG_B4_BLOCK} queries at a time",
+           "bound_ms": bound_ms, "bound_by": by, "flops": flops,
+           "bytes": nbytes, "library_ms": lib_ms}
+    log(f"    B4 {arch} (1 x {s} causal, {h} / {kvh} heads of {hd}, bf16): "
+        f"{rec['ms']:.2f} ms, bound {bound_ms:.2f} ms by {by} "
+        f"({bound_ms / rec['ms']:.0%}), plain {rec['plain_ms']:.0f} ms "
+        f"({rec['plain_form']}), SDPA {lib_ms:.2f} ms, err {err:.3g} "
+        f"({ratio:.3g} x the tolerance)")
+    return rec
+
+
+def _b5_big_row(G, label, q, kt, vt, pos, w, rate):
+    """B5 at a path's geometry on a layer cache as the path lays it out
+    (the ``transpose(1, 2)`` view of ``(B, S, KV, hd)``), bf16: against its
+    plain version (FD_F32_TOL plus one bf16 ulp) run on the live keys alone
+    (the keys ``pos - w + 1 .. pos``; those outside are masked anyway) a
+    row at a time, where the whole would not fit the card; timed (events,
+    device time) beside the bytes bound, the plain version's loop and one
+    SDPA call on the live keys: each KV head's n_rep query heads as n_rep
+    queries of one head (a view of q), so that no mask and no GQA
+    expansion is asked of it."""
+    rows, h = q.shape[:2]
+    kvh, s, hd = kt.shape[1], kt.shape[2], kt.shape[3]
+    lo = max(0, pos - w + 1) if w > 0 else 0
+    kl, vl = kt[:, :, lo:pos + 1], vt[:, :, lo:pos + 1]
+    qg = q.view(rows, kvh, h // kvh, hd)
+    kern = lambda: G.FD.flash_decode(q, kt, vt, pos, window=w)
+    got = kern()
+
+    def plain():
+        return torch.cat([G.FD._xla_decode(q[r:r + 1], kl[r:r + 1],
+                                           vl[r:r + 1], pos - lo)
+                          for r in range(rows)])
+    want = plain()
+    torch.cuda.synchronize()
+    err, ok, worst = _fd_err(got, want)
+    if not ok:
+        raise AssertionError(f"flash_decode {label} pos {pos} window {w}: "
+                             f"kernel differs from its plain version by "
+                             f"{err}; worst {worst}")
+    dev_pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    if not torch.equal(G.FD.flash_decode(q, kt, vt, dev_pos, window=w), got):
+        raise AssertionError(f"flash_decode {label}: the device pos gives "
+                             "other bits than the host int")
+    bound_ms, by, nbytes = _b5_bound(q, kt, pos, w, rate)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    plain()
+    b.record()
+    b.synchronize()
+    rec = {"shape": label, "q": "bfloat16", "cache": "bfloat16",
+           "layout": "(B, S, KV, hd)", "rows": rows, "heads": (h, kvh),
+           "hd": hd, "keys": s, "pos": pos, "window": w, "max_abs_err": err,
+           "split": G.FD.decode_cluster_size(
+               rows, h, kvh, s,
+               torch.cuda.get_device_properties(0).multi_processor_count,
+               hd, kt.element_size(), w),
+           "ms": cuda_ms(kern, groups=5), "device_ms": device_ms(kern),
+           "device_ms_pos_on_card": device_ms(
+               lambda: G.FD.flash_decode(q, kt, vt, dev_pos, window=w)),
+           "plain_ms": a.elapsed_time(b), "plain_form": "a row at a time",
+           "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               qg, kl, vl).view(rows, h, 1, hd), groups=5)}
+    log(f"    B5 {label} ({rows} x {h} / {kvh} heads of {hd}, {s} keys, pos "
+        f"{pos}, window {w}; cluster {rec['split']}): "
+        f"{rec['ms'] * 1e3:.1f} us, device {rec['device_ms'] * 1e3:.1f} us "
+        f"(pos on the card {rec['device_ms_pos_on_card'] * 1e3:.1f}), bound "
+        f"{bound_ms * 1e3:.1f} us by {by} ({nbytes / 1e6:.1f} MB; "
+        f"{bound_ms / rec['device_ms']:.0%} of device time), plain "
+        f"{rec['plain_ms']:.1f} ms (a row at a time), SDPA "
+        f"{rec['library_ms'] * 1e3:.1f} us, err {err:.3g}")
+    return rec
+
+
+def _big_steps(G, step, params, cache, tok, pos0, n):
+    """``n`` one-token steps of ``step`` from a device ``pos`` of ``pos0``
+    advanced in place, the greedy token fed back: (last logits, CUDA-event
+    ms of each step)."""
+    pos = torch.tensor(pos0, dtype=torch.int32, device="cuda")
+    marks = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = step(params, cache, tok, pos)
+        b.record()
+        marks.append((a, b))
+        tok = logits.argmax(-1)[:, None]
+        pos.add_(1)
+    torch.cuda.synchronize()
+    return logits, [a.elapsed_time(b) for a, b in marks]
+
+
+def big_decode(G, arch, cfg, params, shape_name, rate):
+    """Phase 25 (c) / (d): ``make_decode_step(cfg, SHAPES[shape_name])``
+    on ``init_cache(cfg, B, S)`` of that shape, K / V filled with N(0, 1)
+    bf16 draws on the card: BIG_STEPS one-token steps from a device pos of
+    S - BIG_STEPS - 1, exactly one B5 launch a layer a step and nothing
+    else, finite logits; ms a step; B5's row at this geometry (on layer
+    0's cache at pos S - 1).  At long_500k (the window override) also the
+    planted check: every key and value before the window rewritten, the
+    same step gives bit-equal logits; the step without the shape differs."""
+    shape = G.SHAPES[shape_name]
+    b, s = shape.global_batch, shape.seq_len
+    w = G.specs.effective_window(cfg, shape)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    torch.cuda.reset_peak_memory_stats()
+    cache = G.models.init_cache(cfg, b, s, device="cuda")
+    _fill_kv(cache, gen)
+    step = G.make_decode_step(cfg, shape)
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), device="cuda",
+                        generator=gen)
+    pos0 = s - BIG_STEPS - 1
+    _big_steps(G, step, params, cache, tok, pos0, 1)          # warm-up
+    _reset_dec_counts(G)
+    logits, ms = _big_steps(G, step, params, cache, tok, pos0, BIG_STEPS)
+    got = _dec_counts(G)
+    peak = torch.cuda.max_memory_allocated()
+    want = _big_want(b5=BIG_STEPS * cfg.n_layers)
+    if got != want:
+        raise AssertionError(f"{arch} {shape_name}: launches {got}, "
+                             f"expected {want}")
+    if tuple(logits.shape) != (b, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} {shape_name}: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    rec = {"rows": b, "keys": s, "window": w, "pos": [pos0, pos0 + BIG_STEPS
+                                                      - 1],
+           "ms_per_step": statistics.median(ms), "ms_steps": ms,
+           "tokens_per_s": b / (statistics.median(ms) / 1e3),
+           "peak_bytes": peak, "launches": got,
+           "cache_bytes": sum(t.numel() * t.element_size()
+                              for t in G.tree_leaves(cache))}
+    log(f"  {shape_name} ({b} rows, cache {s}, window {w or 'none'}; "
+        f"{rec['cache_bytes'] / 1e9:.1f} GB of K / V): "
+        f"{rec['ms_per_step']:.2f} ms a step (steps "
+        f"{[round(t, 2) for t in ms]}), {rec['tokens_per_s']:.0f} tokens/s, "
+        f"peak {peak / 2**30:.2f} GiB; launches {got}")
+    if shape_name == "long_500k":
+        if not w:
+            raise AssertionError(f"{arch}: long_500k runs no window")
+        last = s - 1
+        gen2 = torch.Generator(device="cuda").manual_seed(23)
+        tok = torch.randint(0, cfg.vocab_size, (b, 1), device="cuda",
+                            generator=gen2)
+        first, _ = step(params, cache, tok, last)
+        lo = last - w + 1
+        for c in cache:
+            for key in ("k", "v"):
+                c[key][:, :, :lo].normal_(generator=gen2)
+        again, _ = step(params, cache, tok, last)
+        free, _ = G.make_decode_step(cfg)(params, cache, tok, last)
+        torch.cuda.synchronize()
+        rec["planted"] = {
+            "outside_rewritten_bit_equal": bool(torch.equal(first, again)),
+            "without_override_gap": float((free.float()
+                                           - first.float()).abs().max())}
+        log(f"    planted: keys and values before {lo} rewritten, the "
+            f"windowed step's logits bit-equal "
+            f"{rec['planted']['outside_rewritten_bit_equal']}; the step "
+            f"without the shape (every key) "
+            f"{rec['planted']['without_override_gap']:.3g} away")
+        if not rec["planted"]["outside_rewritten_bit_equal"] or \
+                not rec["planted"]["without_override_gap"] > 0:
+            raise AssertionError(f"{arch} long_500k: the window override "
+                                 f"does not hold: {rec['planted']}")
+    if arch in BIG_ROWS:
+        gq = torch.Generator(device="cuda").manual_seed(25)
+        q = torch.randn(b, cfg.n_heads, 1, cfg.head_dim, generator=gq,
+                        device="cuda").to(torch.bfloat16)
+        kt = cache[0]["k"][0].transpose(1, 2)
+        vt = cache[0]["v"][0].transpose(1, 2)
+        rec["b5"] = _b5_big_row(G, f"{arch} {shape_name}", q, kt, vt, s - 1,
+                                w, rate)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, got
+
+
+def big_parity(G, arch):
+    """Phase 25 (e): the reduced f32 model (BIG_REDUCED) on the card
+    against the CPU port: prefill logits within PREFILL_PARITY_BAND;
+    ``generate`` tokens identical and logits within DECODE_PARITY_BAND; a
+    long_500k-named shape (window BIG_LONG_WINDOW over BIG_LONG's
+    positions) through ``make_decode_step(cfg, shape)``, a chunk then
+    one-token steps past the window, logits within DECODE_PARITY_BAND,
+    and other logits than the step without the shape.  Arctic's CPU legs
+    run on the card's expert choices (``_routed_pair``)."""
+    import numpy as np
+    cfg = G.replace(G.reduced(G.get_config(arch), **BIG_REDUCED[arch]),
+                    attn_window_override=BIG_LONG_WINDOW)
+    p_cpu = G.models.init_params(cfg, torch.Generator().manual_seed(3),
+                                 device="cpu")
+    p_card = G.tree_map(lambda t: t.cuda(), p_cpu)
+    rng = np.random.default_rng(5)
+    out = {"heads": (cfg.n_heads, cfg.n_kv_heads), "head_dim": cfg.head_dim,
+           "d_model": cfg.d_model}
+
+    def pair(card_run, cpu_run, label):
+        if cfg.moe:
+            card, cpu, _, _, flips = _routed_pair(G, card_run, cpu_run,
+                                                  label)
+            return card, cpu, flips
+        return card_run(), _cpu(cpu_run), None
+
+    def counted(fn):
+        def run():
+            _reset_dec_counts(G)
+            res = fn()
+            return res, _dec_counts(G)
+        return run
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (2, PREFILL_PARITY_SEQ)))
+    prefill = G.make_prefill_step(cfg)
+    (card, n), cpu, flips = pair(
+        counted(lambda: prefill(p_card, tok.cuda()).cpu()),
+        lambda: prefill(p_cpu, tok), f"{arch} reduced prefill")
+    out["prefill"] = {"logit_gap": float((card - cpu).abs().max()),
+                      "launches": n, "routes": flips}
+    plen, gen = DECODE_PARITY_PROMPT, DECODE_PARITY_GEN
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, plen)))
+    run = lambda p, t: G.serve.generate(cfg, p, t, gen=gen,
+                                        max_seq=plen + gen,
+                                        return_logits=True)
+    ((ct, cl), gn), (pt, pl), gflips = pair(
+        counted(lambda: run(p_card, prompts.cuda())),
+        lambda: run(p_cpu, prompts), f"{arch} reduced generate")
+    out["generate"] = {"tokens_equal": bool(torch.equal(ct.cpu(), pt)),
+                       "logit_gap": float((cl.cpu() - pl).abs().max()),
+                       "launches": gn, "routes": gflips}
+    shape = G.InputShape(**BIG_LONG)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (2, BIG_LONG_PROMPT + 4)))
+    chunks = [(0, BIG_LONG_PROMPT)] + [
+        (t, t + 1) for t in range(BIG_LONG_PROMPT, BIG_LONG_PROMPT + 4)]
+
+    def long_run(p, device, windowed=True):
+        step = G.make_decode_step(cfg, shape if windowed else None)
+        cache = G.models.init_cache(cfg, 2, BIG_LONG["seq_len"],
+                                    device=device)
+        for a, b in chunks:
+            logits, cache = step(p, cache, toks[:, a:b].to(device), a)
+        return logits.cpu()
+    (lc, ln), lp, lflips = pair(counted(lambda: long_run(p_card, "cuda")),
+                                lambda: long_run(p_cpu, "cpu"),
+                                f"{arch} reduced long_500k")
+    free = long_run(p_card, "cuda", windowed=False)
+    out["long_500k"] = {"window": BIG_LONG_WINDOW,
+                        "logit_gap": float((lc - lp).abs().max()),
+                        "without_override_gap": float((free - lc).abs()
+                                                      .max()),
+                        "launches": ln, "routes": lflips}
+    log(f"  card vs CPU, reduced f32 ({cfg.n_heads} / {cfg.n_kv_heads} heads "
+        f"of {cfg.head_dim}, d_model {cfg.d_model}, {cfg.n_layers} layers"
+        + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+           if cfg.moe else "") + f"): prefill gap "
+        f"{out['prefill']['logit_gap']:.3g} (band {PREFILL_PARITY_BAND:g}); "
+        f"generate tokens equal {out['generate']['tokens_equal']}, gap "
+        f"{out['generate']['logit_gap']:.3g}; long_500k-named (window "
+        f"{BIG_LONG_WINDOW}) gap {out['long_500k']['logit_gap']:.3g} (band "
+        f"{DECODE_PARITY_BAND:g}), without the override "
+        f"{out['long_500k']['without_override_gap']:.3g} away; launches "
+        f"{n} / {gn} / {ln}")
+    if not out["prefill"]["logit_gap"] <= PREFILL_PARITY_BAND or \
+            n != _big_want(b4=cfg.n_layers) or \
+            not out["generate"]["tokens_equal"] or \
+            not out["generate"]["logit_gap"] <= DECODE_PARITY_BAND or \
+            gn != _big_want(b4=cfg.n_layers,
+                            b5=cfg.n_layers * (DECODE_PARITY_GEN - 1)) or \
+            not out["long_500k"]["logit_gap"] <= DECODE_PARITY_BAND or \
+            ln != _big_want(b4=cfg.n_layers, b5=4 * cfg.n_layers) or \
+            not out["long_500k"]["without_override_gap"] > \
+            DECODE_PARITY_BAND:
+        raise AssertionError(f"{arch} reduced: the card and the CPU port "
+                             f"disagree, or the kernels did not run: {out}")
+    return out
+
+
+def big_phase(G, rate):
+    """Phase 25: the abstract trees of every config (a), then each of
+    llama3-405b, deepseek-67b, arctic-480b and chameleon-34b at full width
+    and BIG_LAYERS depth: the prefill (b), decode_32k (c) and long_500k
+    (d); then the reduced four card vs CPU (e).  Returns (records, B4 and
+    B5 launches of (b)-(d), B4's and B5's rows at the BIG_ROWS geometries
+    by kernel)."""
+    out = {"abstract": big_abstract(G)}
+    launches = {"flash_attention": 0, "flash_decode": 0}
+    rows = {"flash_attention": [], "flash_decode": []}
+    for arch in BIG_LAYERS:
+        cfg = G.replace(G.get_config(arch), n_layers=BIG_LAYERS[arch])
+        t0 = time.perf_counter()
+        params = G.models.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        torch.cuda.synchronize()
+        rec = {"layers": cfg.n_layers,
+               "full_layers": G.get_config(arch).n_layers,
+               "init_s": time.perf_counter() - t0,
+               "params": sum(t.numel() for t in G.tree_leaves(params)),
+               "weight_bytes": sum(t.numel() * t.element_size()
+                                   for t in G.tree_leaves(params))}
+        log(f"{arch}: {cfg.n_layers} of {rec['full_layers']} layers at full "
+            f"width, {rec['params'] / 1e9:.2f} B params "
+            f"({rec['weight_bytes'] / 1e9:.1f} GB bf16), drawn in "
+            f"{rec['init_s']:.2f} s; {cfg.n_heads} / {cfg.n_kv_heads} heads "
+            f"of {cfg.head_dim}")
+        rec["prefill"], n = big_prefill(G, arch, cfg, params)
+        launches["flash_attention"] += n["flash_attention"]
+        if arch in BIG_ROWS:
+            rec["prefill"]["b4"] = _b4_big_row(
+                G, arch, cfg, G.SHAPES["prefill_32k"].seq_len, rate)
+            rows["flash_attention"].append(rec["prefill"]["b4"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        for shape_name in ("decode_32k", "long_500k"):
+            rec[shape_name], n = big_decode(G, arch, cfg, params, shape_name,
+                                            rate)
+            launches["flash_decode"] += n["flash_decode"]
+            if "b5" in rec[shape_name]:
+                rows["flash_decode"].append(rec[shape_name]["b5"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = rec
+    out["parity"] = {arch: big_parity(G, arch) for arch in BIG_LAYERS}
+    return out, launches, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5522,6 +6108,34 @@ def main() -> int:
     report["encdec"]["launches"] = encdec_launches
     for entry in line:
         entry["launches"] += encdec_launches.get(entry["name"], 0)
+
+    # 25. the remaining configs: llama3-405b, deepseek-67b, arctic-480b and
+    # chameleon-34b at full width and cut depth through the reference's
+    # input shapes (their kernel geometries ride in phases 11, 14 and 21),
+    # then card vs CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import specs as specs_mod
+    G = SimpleNamespace(**vars(E), ARCH_IDS=ARCH_IDS, SHAPES=SHAPES,
+                        InputShape=InputShape, specs=specs_mod,
+                        replace=replace, moe=moe_mod, transformer=tf_mod)
+    report["big"], big_launches, big_rows = big_phase(G, rate)
+    log(f"[{time.perf_counter() - t_start:.0f} s] remaining configs done")
+    report["big"]["kernels"] = {
+        e["name"]: [r for r in e["variants"]
+                    if r.get("shape", "").split(" ")[0] in BIG_LAYERS]
+        for e in line if e["name"] in ("flash_attention", "flash_decode",
+                                       "flash_decode_paged")}
+    report["big"]["launches"] = big_launches
+    for entry in line:
+        entry["launches"] += big_launches.get(entry["name"], 0)
+    for entry in line:
+        if entry["name"] in big_rows:
+            entry["variants"].extend(big_rows[entry["name"]])
+            entry["max_abs_err"] = max(r["max_abs_err"]
+                                       for r in entry["variants"])
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:

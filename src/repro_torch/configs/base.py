@@ -12,8 +12,7 @@ from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence, Tuple
 
 
-# Per-layer block kinds of the LM architectures (their models wait for the
-# LM slice of the port; the kinds stay so configs keep one schema).
+# Per-layer block kinds understood by repro_torch.models.transformer.
 ATTN = "attn"            # global self-attention (GQA)
 ATTN_LOCAL = "attn_local"  # sliding-window self-attention
 MAMBA2 = "mamba2"        # Mamba2 / SSD block

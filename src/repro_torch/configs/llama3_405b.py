@@ -1,0 +1,19 @@
+"""llama3-405b — dense GQA, 128k vocab. [arXiv:2407.21783]
+
+126L d_model=16384 128H (GQA kv=8) d_ff=53248 vocab=128256.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3-405b",
+    arch_type="dense",
+    n_layers=126,
+    d_model=16384,
+    n_heads=128,
+    n_kv_heads=8,
+    d_ff=53248,
+    vocab_size=128256,
+    head_dim=128,
+    long_context_mode="window",
+    source="arXiv:2407.21783",
+)

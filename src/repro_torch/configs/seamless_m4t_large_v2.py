@@ -4,9 +4,9 @@
 
 The mel-spectrogram + conformer feature extractor is the stubbed modality
 frontend: the caller passes precomputed source frame embeddings of shape
-(batch, encoder_seq, d_model) (the JAX package's ``input_specs``, which
-waits for ROADMAP A12e here); the port implements the transformer
-encoder-decoder backbone that consumes them.
+(batch, encoder_seq, d_model) in the compute dtype (``launch.specs
+.input_specs``); the port implements the transformer encoder-decoder
+backbone that consumes them.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -2,12 +2,27 @@
 prefill step and the decode step."""
 from __future__ import annotations
 
+from dataclasses import replace
+
 import torch
 
 from repro_torch import models
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, InputShape, ModelConfig
 from repro_torch.device import strict_f32
+from repro_torch.launch.specs import effective_window
 from repro_torch.optim import Optimizer
+
+
+def with_window_override(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
+    """``cfg`` as it runs ``shape``: where ``effective_window`` gives a
+    window (long_500k on a full-attention decoder), every global
+    attention layer becomes a sliding-window one of that width."""
+    w = effective_window(cfg, shape)
+    if w and not cfg.encoder_layers:
+        return replace(cfg, local_global_ratio=0, attn_window=w,
+                       layer_pattern=tuple(ATTN_LOCAL if k == ATTN else k
+                                           for k in cfg.blocks))
+    return cfg
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer):
@@ -59,18 +74,21 @@ def make_decode_step(cfg: ModelConfig, shape=None):
     on the device with no copy to the host: then the caller keeps ``0 <=
     pos < max_seq`` (``models.decode_step``).  The cache is updated in
     place and returned.  On the card it turns TF32 off first
-    (process-wide, as the prefill step does).  An encoder-decoder's step
-    runs with window 0 and reads the encoder output from
-    ``cache["enc_out"]``.
+    (process-wide, as the prefill step does).
 
-    ``shape`` (an input shape whose window overrides the config's) needs
-    ``launch/specs.py``'s ``effective_window`` and
-    ``with_window_override``, which come with ROADMAP A12e."""
-    if shape is not None:
-        raise NotImplementedError(
-            "make_decode_step(shape=...) needs launch/specs.py "
-            "(effective_window, with_window_override): ROADMAP A12e")
-    kw = {"window": 0} if cfg.encoder_layers else {}
+    ``shape`` (an input shape) sets the window the step runs with
+    (``effective_window``): an encoder-decoder's self-attention takes it
+    as ``window`` (0 otherwise) and reads the encoder output from
+    ``cache["enc_out"]``; any other config steps as
+    ``with_window_override(cfg, shape)``, so at long_500k every global
+    attention layer of a full-attention decoder attends to the last
+    ``attn_window_override`` keys only.  The cache is the config's own
+    (``models.init_cache(cfg, ...)``, every position kept)."""
+    kw = {}
+    if cfg.encoder_layers:
+        kw["window"] = effective_window(cfg, shape) if shape else 0
+    elif shape is not None:
+        cfg = with_window_override(cfg, shape)
 
     def decode(params, cache, tokens, pos):
         strict_f32(tokens.device)

@@ -8,11 +8,15 @@
 
 ``batch`` dicts carry an optional per-example ``weight`` — the hook used
 by dual-batch learning's model-update factor.  The CNN (``resnet``), the
-decoder-only LMs' dense, MoE, SSM and hybrid stacks (``transformer``,
-``moe``) and the encoder-decoder (``encdec``, whose ``forward`` also
-takes the frames and whose ``decode_step`` takes a ``window``) are
-ported; another arch type (the reference's ``vlm``) waits for ROADMAP
-A12e.  ``decode_step`` updates the cache in place and returns it.
+encoder-decoder (``encdec``, whose ``forward`` also takes the frames and
+whose ``decode_step`` takes a ``window``) and every decoder-only LM
+(``transformer`` with ``moe``): dense, MoE, SSM, hybrid and the
+early-fusion ``vlm`` (chameleon, a decoder over a vocabulary that text
+and image codes share), dispatched as the reference dispatches them.
+``decode_step`` updates the cache in place and returns it.  With
+``device="meta"`` and a ``MetaDraws`` in place of the generator,
+``init_params`` builds the tree's shapes and dtypes and allocates
+nothing (``launch.specs.abstract_params``).
 """
 from __future__ import annotations
 
@@ -24,11 +28,7 @@ def _mod(cfg):
         return resnet
     if cfg.encoder_layers:
         return encdec
-    if cfg.arch_type in ("dense", "moe", "ssm", "hybrid"):
-        return transformer
-    raise NotImplementedError(
-        f"{cfg.name} ({cfg.arch_type}) is not ported yet: it waits for "
-        "ROADMAP A12e (the remaining configs)")
+    return transformer
 
 
 def init_params(cfg, gen, device=None):

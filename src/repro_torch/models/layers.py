@@ -10,10 +10,24 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.shard_ctx import whole
 
 
+class MetaDraws:
+    """Stands in for the generator of ``init_params`` on the meta device:
+    each weight it "draws" is an empty meta tensor of the draw's shape and
+    dtype, so a tree of any size is built with no storage
+    (``launch.specs.abstract_params``).  A real generator still has to
+    live where the params go."""
+    device = torch.device("meta")
+
+
 def normal_init(gen: torch.Generator, shape, scale: float,
                 dtype: torch.dtype, device) -> torch.Tensor:
     """``scale · N(0, 1)`` drawn from ``gen`` (a CPU generator, so the
-    values do not depend on the device), placed on ``device``."""
+    values do not depend on the device), placed on ``device``; from a
+    ``MetaDraws``, an empty tensor on the meta device."""
+    if isinstance(gen, MetaDraws):
+        if torch.device(device).type != "meta":
+            raise ValueError(f"MetaDraws builds meta tensors, not {device}")
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = scale * torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
     return x.to(dtype=dtype, device=device)
 

@@ -58,9 +58,10 @@ from repro_torch.models.shard_ctx import lookup
 from repro_torch.models.attention import (NEG_INF, attention_block,
                                          attn_project_qkv, chunked_attention,
                                          decode_attention, gqa_expand)
-from repro_torch.models.layers import (chunked_cross_entropy, cross_entropy,
-                                      dropout, dtype_of, rms_norm,
-                                      rope_tables, swiglu)
+from repro_torch.models.layers import (MetaDraws, chunked_cross_entropy,
+                                      cross_entropy, dropout, dtype_of,
+                                      normal_init, rms_norm, rope_tables,
+                                      swiglu)
 
 
 @dataclass(frozen=True)
@@ -89,7 +90,10 @@ def layout(cfg: ModelConfig) -> Tuple[Segment, ...]:
 def _normal(gen: torch.Generator, shape, scale: float,
             dtype: torch.dtype) -> torch.Tensor:
     """``scale · N(0, 1)`` in f32, cast to ``dtype``, drawn from ``gen`` on
-    its own device (the reference's ``normal_init``)."""
+    its own device (the reference's ``normal_init``); a ``MetaDraws``
+    goes to ``layers.normal_init``, which owns the meta route."""
+    if isinstance(gen, MetaDraws):
+        return normal_init(gen, shape, scale, dtype, gen.device)
     x = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return x.mul_(scale).to(dtype)
@@ -163,7 +167,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None):
     """The full parameter tree on ``device`` (``None`` means the card),
     drawn from ``gen``, which must live on that device: the reference's
     shapes, scales and dtypes (``param_dtype`` weights, f32 norms), not
-    its bits."""
+    its bits.  ``models.layers.MetaDraws`` with ``device="meta"`` builds
+    the shapes and dtypes alone."""
     device = resolve_device(device)
     if gen.device.type != device.type:
         raise ValueError(f"the generator lives on {gen.device}, the params "

@@ -755,3 +755,101 @@ def test_encdec_paths_launch_the_kernels(cuda):
         outs.append(torch.stack(seen))
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-4
     assert torch.equal(outs[0].argmax(-1), outs[1].argmax(-1))
+
+
+# the attention of llama3-405b (128 / 8 heads, n_rep 16), deepseek-67b and
+# chameleon-34b (64 / 8, n_rep 8) and arctic-480b (56 / 8, n_rep 7) at hd
+# 128: B5 and B6 serve 8 query heads a block (kRep 8), two groups a KV
+# head, one, and one of 7 in 8
+WIDE_GQA = [(128, 8), (64, 8), (56, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", WIDE_GQA)
+def test_flash_decode_at_wide_gqa(cuda, dtype, h, kv):
+    """B5 on the (B, S, KV, hd) layer cache at hd 128 and n_rep 16 / 8 /
+    7, every cluster size, positions 0, the middle and the last, and a
+    window: within 2e-5 of its plain version (bf16 one ulp more)."""
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(h)
+    b, hd, s = 2, 128, 300
+    q = torch.randn(b, h, 1, hd, generator=gen, device=cuda).to(dtype)
+    kc, vc = (torch.randn(b, s, kv, hd, generator=gen, device=cuda)
+              .to(dtype).transpose(1, 2) for _ in range(2))
+    fd.reset_counts()
+    for pos, w in ((0, 0), (s // 2, 0), (s - 1, 0), (s - 1, 100)):
+        want = fd._xla_decode(q, kc, vc, pos, window=w)
+        for split in fd.CLUSTER_SIZES:
+            _close_decode(fd.flash_decode(q, kc, vc, pos, window=w,
+                                          split=split), want, dtype)
+    assert fd.launch_count("flash_decode") == 4 * len(fd.CLUSTER_SIZES)
+    assert fd.plain_count() == 0
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", WIDE_GQA)
+def test_paged_decode_at_wide_gqa(cuda, kv_dtype, h, kv):
+    """B6 at hd 128 and n_rep 16 / 8 / 7, every cluster size, a scrambled
+    page table and a dead row, with and without a window: within 2e-5 of
+    its plain version."""
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(h + 1)
+    rows, hd, page_len, pp, n_pages = 4, 128, 16, 16, 80
+    q = torch.randn(rows, h, 1, hd, generator=gen, device=cuda)
+    kp, vp = (torch.randn(n_pages, page_len, kv, hd, generator=gen,
+                          device=cuda).to(kv_dtype) for _ in range(2))
+    table = torch.randperm(n_pages, generator=gen, device=cuda)[
+        :rows * pp].reshape(rows, pp).int()
+    table[1] = n_pages                                   # dead row
+    lengths = torch.tensor([255, 0, 40, 129], dtype=torch.int32, device=cuda)
+    fd.reset_counts()
+    for w in (0, 64):
+        want = fd.paged_decode_ref(q, kp, vp, table, lengths, window=w)
+        for split in fd.CLUSTER_SIZES:
+            got = fd.flash_decode_paged(q, kp, vp, table, lengths, window=w,
+                                        split=split)
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert fd.launch_count() == 2 * len(fd.CLUSTER_SIZES)
+    assert fd.plain_count() == 0
+
+
+def test_windowed_decode_step_card_vs_cpu(cuda):
+    """Reduced f32 llama3-405b (16 / 1 heads of 128, n_rep 16) through
+    ``make_decode_step(cfg, shape)`` at a long_500k-named shape (64
+    positions, window 16): a 40-token chunk (one B4 a layer) and 4
+    one-token steps past the window (one B5 a layer each) on the card, the
+    logits within 1e-4 of the CPU port's; the step without the shape
+    differs."""
+    from dataclasses import replace
+
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.steps import make_decode_step
+    cfg = replace(reduced(get_config("llama3-405b"), n_heads=16,
+                          d_model=2048), attn_window_override=16)
+    shape = InputShape("long_500k", 64, 2, "decode")
+    params = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 44),
+                         generator=torch.Generator().manual_seed(1))
+
+    def run(p, device, s=shape):
+        step = make_decode_step(cfg, s)
+        cache = models.init_cache(cfg, 2, 64, device=device)
+        for a, b in [(0, 40), (40, 41), (41, 42), (42, 43), (43, 44)]:
+            logits, cache = step(p, cache, toks[:, a:b].to(device), a)
+        return logits.cpu()
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    fa.reset_counts()
+    fd.reset_counts()
+    card = run(on_card, cuda)
+    assert fa.launch_count() == cfg.n_layers
+    assert fd.launch_count("flash_decode") == 4 * cfg.n_layers
+    assert fa.plain_count() == fd.plain_count() == 0
+    cpu = run(params, "cpu")
+    assert float((card - cpu).abs().max()) <= 1e-4
+    assert float((run(on_card, cuda, None) - card).abs().max()) > 1e-3

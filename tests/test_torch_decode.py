@@ -376,8 +376,26 @@ def test_make_decode_step_refuses_what_waits():
 
     from repro_torch.configs.base import InputShape, MoEConfig
     cfg = reduced(get_config("phi3-mini-3.8b"))
-    with pytest.raises(NotImplementedError, match="A12e"):
-        make_decode_step(cfg, InputShape("decode_32k", 32768, 1, "decode"))
+    # an input shape sets the step's window (launch/specs.py, tests/
+    # test_torch_configs.py): decode_32k keeps the config's layers, a
+    # long_500k-named one makes every global layer a window of
+    # attn_window_override keys
+    tp = models.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+
+    def step(shape, pos, window=8192):
+        c = replace(cfg, attn_window_override=window)
+        cache = models.init_cache(c, 1, 8, device="cpu")
+        for t in range(pos + 1):
+            logits, cache = make_decode_step(c, shape)(
+                tp, cache, torch.full((1, 1), 3 * t + 1), t)
+        return logits
+    base = step(None, 5)
+    assert torch.equal(
+        step(InputShape("decode_32k", 32768, 1, "decode"), 5), base)
+    long = InputShape("long_500k", 8, 1, "decode")
+    assert torch.equal(step(long, 5, window=8), base)
+    assert not torch.equal(step(long, 5, window=2), base)
     # an encoder-decoder's decode is ported (ROADMAP A12d, tests/
     # test_torch_encdec.py): phi3's widths with 2 encoder layers step over
     # the self-attention cache and the encoder output

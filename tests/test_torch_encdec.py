@@ -103,8 +103,8 @@ def _tree_gap(got, want):
 def test_seamless_is_registered_with_the_reference_config():
     cfg, jcfg = get_config(ARCH), jget_config(ARCH)
     assert ARCH in ARCH_IDS
-    # the port's ids in the reference's order (A12e's four still wait)
-    assert list(ARCH_IDS) == [a for a in JARCH_IDS if a in ARCH_IDS]
+    # the port's ids are the reference's, in its order
+    assert ARCH_IDS == tuple(JARCH_IDS)
     for f in ("n_layers", "encoder_layers", "encoder_seq", "d_model",
               "n_heads", "n_kv_heads", "d_ff", "vocab_size", "head_dim",
               "arch_type", "long_context_mode", "source", "param_dtype",
@@ -396,12 +396,21 @@ def test_serve_decode_example_runs_the_encoder_decoder():
 def test_refusals_that_stay():
     cfg = reduced(get_config(ARCH))
     from repro_torch.configs.base import InputShape
-    with pytest.raises(NotImplementedError, match="A12e"):
-        make_decode_step(cfg, InputShape("decode_32k", 32768, 1, "decode"))
+    from repro_torch.models.layers import MetaDraws
+    # an input shape's window reaches the self-attention (0 at decode_32k)
+    tp = encdec.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    outs = [make_decode_step(cfg, shape)(
+        tp, encdec.init_cache(cfg, 1, 4, device="cpu"), tok, 0)[0]
+        for shape in (None, InputShape("decode_32k", 32768, 1, "decode"))]
+    assert torch.equal(outs[0], outs[1])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         encdec.init_params(cfg, torch.Generator())
     with pytest.raises(ValueError, match="draw them where they live"):
         encdec.init_params(cfg, torch.Generator(), device="meta")
+    with pytest.raises(ValueError, match="draw them where they live"):
+        encdec.init_params(cfg, MetaDraws(), device="cpu")
     tc = encdec.init_cache(cfg, 1, 4, device="cpu")
     assert {k: tuple(v.shape) for k, v in tc.items()} == {
         "k": (2, 1, 4, 4, 64), "v": (2, 1, 4, 4, 64),

@@ -38,6 +38,11 @@ def test_port_imports_with_jax_blocked():
         "        'repro_torch.examples.serve_decode',\n"
         "        'repro_torch.launch.serve', 'repro_torch.launch.steps',\n"
         "        'repro_torch.launch.mesh', 'repro_torch.launch.sharding',\n"
+        "        'repro_torch.launch.specs', 'repro_torch.configs.shapes',\n"
+        "        'repro_torch.configs.llama3_405b',\n"
+        "        'repro_torch.configs.deepseek_67b',\n"
+        "        'repro_torch.configs.arctic_480b',\n"
+        "        'repro_torch.configs.chameleon_34b',\n"
         "        'repro_torch.models.shard_ctx',\n"
         "        'repro_torch.examples.dual_batch_spmd',\n"
         "        'repro_torch.tune.autotune'} <= set(names)\n"

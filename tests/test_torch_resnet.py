@@ -107,7 +107,17 @@ def test_dropout_uses_the_generator_and_rate():
 
 
 def test_unported_arch_names_its_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.init_params(replace(get_config("cifar-resnet18"),
-                                   arch_type="transformer"),
-                           torch.Generator())
+    """No arch type is left unported: ``_mod`` dispatches every config as
+    the reference's does (the CNN to ``resnet``, an encoder to
+    ``encdec``, any other type — chameleon's ``vlm`` too — to
+    ``transformer``)."""
+    from repro.configs import ARCH_IDS as JARCH_IDS
+    for arch in tuple(JARCH_IDS) + ("cifar-resnet18",):
+        got = models._mod(get_config(arch)).__name__.rsplit(".", 1)[1]
+        want = jmodels._mod(jget_config(arch)).__name__.rsplit(".", 1)[1]
+        assert got == want, arch
+    other = replace(get_config("cifar-resnet18"), arch_type="transformer")
+    assert models._mod(other).__name__ == "repro_torch.models.transformer"
+    assert jmodels._mod(replace(jget_config("cifar-resnet18"),
+                                arch_type="transformer")).__name__ \
+        == "repro.models.transformer"

@@ -18,6 +18,7 @@ from repro import models as jmodels
 from repro.configs import ARCH_IDS, get_config
 from repro.launch import sharding as jsharding
 
+from repro_torch.configs.base import InputShape
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import axis_sizes, data_axes
 
@@ -93,6 +94,34 @@ def test_cache_specs_equal_reference(arch, mesh, shape):
     bad = [(path, r, g) for path, r, g in zip(_paths(tree), ref, got)
            if r != g]
     assert not bad, bad[:5]
+
+
+@pytest.mark.parametrize("arch", CONFIGS)
+def test_specs_of_the_ports_meta_trees_equal_reference(arch):
+    """``param_specs`` and ``cache_specs`` on the port's own abstract
+    trees (``launch.specs``: meta tensors) equal the reference's on its
+    ``jax.eval_shape`` trees, leaf for leaf, on every mesh and cache
+    geometry."""
+    from repro_torch.configs import get_config as tget_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import specs
+    cfg = tget_config(arch)
+    trees = [(specs.abstract_params(cfg), _abstract_params(arch), None)]
+    if arch != "cifar-resnet18":
+        trees += [(specs.input_specs(cfg, InputShape(
+            "decode", max_seq, batch, "decode"))["cache"],
+            _abstract_cache(arch, batch, max_seq), batch)
+            for batch, max_seq in CACHE_SHAPES.values()]
+    for tree, jtree, batch in trees:
+        assert all(t.is_meta for t in tree_leaves(tree))
+        for mesh in MESHES.values():
+            if batch is None:
+                ref = jsharding.param_specs(jtree, mesh)
+                got = sharding.param_specs(tree, mesh)
+            else:
+                ref = jsharding.cache_specs(jtree, mesh, batch=batch)
+                got = sharding.cache_specs(tree, mesh, batch=batch)
+            assert sharding.spec_leaves(tree, got) == _ref_leaves(ref)
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=str)
