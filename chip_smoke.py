@@ -73,7 +73,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     TPOT, ms per decode tick, a profile of ``PROFILE_TICKS`` (B6's share,
     device idle share, top kernels) and peak memory; the contiguous
     backend on the same requests (token agreement reported, not
-    asserted: bf16 logits can tie);
+    asserted: bf16 logits can tie); (a) the same requests sampled
+    (``SAMPLE_KW``: T 0.8, top-k 40, seed 7, logits recorded): the greedy
+    leg's schedule and B6 count, tokens in the vocabulary, the threefry
+    keys of its (rid, step) pairs drawn on the card equal the CPU's bit
+    for bit, the card's noise on the recorded logits gives the engine's
+    tokens, and the CPU port's sampler on them picks the same tokens or
+    lies within ``GUMBEL_CARD_BAND`` of them (near-ties and the smallest
+    top-two gap printed); a second sampled run without recorded logits
+    (the same tokens), its ms a tick against the timed greedy run's, the
+    draw alone (``paged.sample_tokens`` at 8 rows) in device ms and
+    launches;
 13. serving parity: reduced gemma3-4b (window 16) and phi3-mini in f32 on
     the card against the CPU port on the churn workload, tokens identical
     and logits within ``SERVE_PARITY_BAND``; on the card, speculative
@@ -165,12 +175,20 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     the prefill and a decode step (CUDA events around each decode call),
     tokens/s, peak memory and one profiled decode step (idle share, B5's
     share, top kernels); zamba2-2.7b (9 B5 launches a step) and rwkv6-7b
-    (no kernel) on 4 x 32 + 32, ms a step; (c) reduced f32 phi3-mini,
+    (no kernel) on 4 x 32 + 32, ms a step; and phi3 sampled,
+    ``generate(greedy=False, rng=PRNGKey(0))`` on the same prompts: the
+    same launches, bf16 logits, the keys and the bf16 noise (all 128
+    values of its uniform) card = CPU bit for bit, the CPU's draw on the
+    card's logits the card's tokens exactly, ms a step against greedy;
+    (c) reduced f32 phi3-mini,
     gemma3-4b (window 16), zamba2-2.7b (6 layers) and rwkv6-7b,
     ``generate`` on the card against the CPU port: identical greedy tokens,
     logits within ``DECODE_PARITY_BAND``, the stepped prefill against the
     chunked one; the static path's tokens against ``ServeEngine(backend=
-    "paged")`` over ``PAGED_DRAWS`` prompt draws, reported.
+    "paged")`` over ``PAGED_DRAWS`` prompt draws, reported; and sampled,
+    reduced phi3-mini's paged engine (``PARITY_SAMPLE_KW``) and
+    ``generate`` (``PRNGKey(5)``) on the card and the CPU: the same
+    tokens.
 22. the MoE family, ``granite-moe-3b-a800m`` (40 experts, top-8, GQA 24 /
     8 heads of 64, n_rep 3): (a) its kernel geometries ride in phases 11,
     14 and 21 (rows of ``FD_SHAPES``, ``FA_SHAPES`` and ``B5_SHAPES``: B5
@@ -266,28 +284,30 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     ``DECODE_PARITY_BAND`` (arctic's CPU legs on the card's expert
     choices).
 
-The launch counts are set to 0 just before each path and read just after;
-the ``launches`` in the kernels line are those counts, summed over the
-main path and the short runs (for B1 and B2, the engine runs of phases 3-4
-and the LM runs of phases 18-19 on the card; for B5 and B6, the paged
-serving main path's timed run, and for B5 the static decode runs of phase
-21 (b), on phi3-mini and zamba2-2.7b — the only path that calls B5, whose
+The launch counts are set to 0 just before each path and read just
+after; the ``launches`` in the kernels line are those counts, summed
+over the main path and the short runs (for B1 and B2, the engine runs of
+phases 3-4 and the LM runs of phases 18-19 on the card; for B5 and B6,
+the paged serving main path's timed run and its two sampled runs (12 (a)),
+and for B5 the static decode runs of phase 21 (b), greedy and sampled,
+on phi3-mini and zamba2-2.7b — the only path that calls B5, whose
 numbers in the line are its phi3 static decode form; for B4, B7 and B8,
 one forward of each model of phase 15, B4 adding phase 21's chunked
-prefill; B3 adds phase 20's search, its one-store and batched launches,
-the batched form's records among its variants; phase 22 adds granite's
-B4, B5, B6 and B1 launches on its four paths and its card-vs-CPU
-training steps, B1's granite-store record among its variants; phase 23
-adds B2's leafwise launches of its mesh runs on the card, (b), (c) and
-(d), and B2's numbers in the line are its leafwise form at the phi3
-tree, the form this slice's main path runs; phase 24 adds seamless's B4
-and B5 launches of its full-width prefill (a) and static decode (b), the
-encode included; phase 25 adds the B4 launches of its four prefills (b)
-and the B5 launches of its decode_32k and long_500k steps (c, d), B4's
-rows at 32,768 tokens and B5's at those caches among their variants).  Launches made to compare a kernel with its plain version are not counted.  B1's
-numbers in the line are its LM-store ones (phase 18), the shape this
-slice's main path gives it; the ResNet-store records stay among its
-variants.
+prefills (greedy and sampled); B3 adds phase 20's search, its one-store
+and batched launches, the batched form's records among its variants;
+phase 22 adds granite's B4, B5, B6 and B1 launches on its four paths and
+its card-vs-CPU training steps, B1's granite-store record among its
+variants; phase 23 adds B2's leafwise launches of its mesh runs on the
+card, (b), (c) and (d), and B2's numbers in the line are its leafwise
+form at the phi3 tree, the form this slice's main path runs; phase 24
+adds seamless's B4 and B5 launches of its full-width prefill (a) and
+static decode (b), the encode included; phase 25 adds the B4 launches of
+its four prefills (b) and the B5 launches of its decode_32k and
+long_500k steps (c, d), B4's rows at 32,768 tokens and B5's at those
+caches among their variants). Launches made to compare a kernel with its
+plain version are not counted. B1's numbers in the line are its LM-store
+ones (phase 18), the shape this slice's main path gives it; the
+ResNet-store records stay among its variants.
 The last three lines of standard output are the card's name and power
 limit (as ``nvidia-smi`` gives them), one JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -955,6 +975,17 @@ SERVE_WORKLOAD = dict(prompt_lens=(16, 256), gen_short=(16, 32),
                       gen_long=(96, 128), p_long=0.25)
 SERVE_REQUESTS = 16
 PROFILE_TICKS = 10               # full (8-row) decode ticks profiled
+# phase 12 (a), the sampled leg: phase 12's requests at the serving
+# example's settings (T 0.8, top-k 40, sample seed 7), logits recorded
+SAMPLE_KW = dict(temperature=0.8, top_k=40, sample_seed=7)
+# f32 Gumbel noise, card against CPU: CUDA's logf and the CPU's log each
+# lie within an ulp of the rounded result, so ``-log(-log(u))`` differs by
+# up to 2 ulp of g (low-mode noise: |g| < 16, an ulp at most 2**-20) plus
+# the inner log's rounding carried through (2**-22 absolute); a draw the
+# two devices' noise picks differently has its top-two gap of
+# ``lo / T + g`` within twice that plus an ulp of z (the sum's rounding)
+GUMBEL_CARD_BAND = 2 * 2.0 ** -20 + 2.0 ** -22
+REDRAW_ROWS = 64                 # CPU re-draw rows at a time
 # card vs CPU on the reduced configs, f32, the churn workload of
 # tests/test_serve.py: greedy tokens identical, logits within this band
 # (measured 4.9e-6 / 5.1e-6 for gemma3 / phi3 on NVIDIA H100 80GB HBM3,
@@ -1322,12 +1353,13 @@ def _profile_share(profiled, timed):
 
 
 def serve_run(S, cfg, params, reqs, *, backend="paged", record=False,
-              profile_ticks=None):
+              profile_ticks=None, sample=None):
     """One ``ServeEngine.serve`` on the card with the launch counts set to
-    0 just before it; returns what the run shows."""
+    0 just before it (``sample``: the engine's sampling arguments);
+    returns what the run shows."""
     engine = S.ServeEngine(cfg, params, spec=S.PageSpec(**SERVE_SPEC),
                            backend=backend, prefill_chunk=SERVE_CHUNK,
-                           record_logits=record)
+                           record_logits=record, **(sample or {}))
     ticks = _timed_decode(engine, profile_ticks)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1352,14 +1384,16 @@ def serve_run(S, cfg, params, reqs, *, backend="paged", record=False,
     return out
 
 
-SERVE_LEGS = ("paged_recorded", "paged", "paged_profiled", "contig")
+SERVE_LEGS = ("paged_recorded", "paged", "paged_profiled", "paged_sampled",
+              "paged_sampled_timed", "contig")
 
 
 def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS):
     """Phase 12: the paged ServeEngine at the full width of phi3-mini
     (all 32 layers, bf16 params and compute, f32 pages), B6 in every layer
-    of every decode tick; then the contiguous backend on the same
-    requests (phase 22 (d): ``arch`` granite, the paged legs only)."""
+    of every decode tick; (a) the same requests sampled (``SAMPLE_KW``,
+    ``sampled_leg``); then the contiguous backend on the same requests
+    (phase 22 (d): ``arch`` granite, the greedy paged legs only)."""
     import numpy as np
     cfg = S.get_config(arch)
     params = S.models.init_params(
@@ -1381,6 +1415,8 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS):
     for leg, kw in (("paged_recorded", {"record": True}),
                     ("paged", {}),
                     ("paged_profiled", {"profile_ticks": set(full)}),
+                    ("paged_sampled", {"record": True, "sample": SAMPLE_KW}),
+                    ("paged_sampled_timed", {"sample": SAMPLE_KW}),
                     ("contig", {"backend": "contig", "record": True})):
         if leg not in legs:
             continue
@@ -1467,9 +1503,125 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS):
             f"the paged run {out['paged_contig_token_agreement']:.1%}")
     log(f"  paged run repeats itself: {out['paged_repeats_itself']}")
     path = {k: dict(v) for k, v in main["launches"].items()}
+    if "paged_sampled" in runs:
+        out["sampled"] = sampled_leg(S, cfg, runs)
+        for leg in ("paged_sampled", "paged_sampled_timed"):
+            for k, v in runs[leg]["launches"].items():
+                for var, n in v.items():
+                    path[k][var] += n
     del runs, params, main
     torch.cuda.empty_cache()
     return out, path
+
+
+def _noise(S, keys, v):
+    """f32 Gumbel noise (N, v) for keys (N, 2) on their device, REDRAW_ROWS
+    rows at a time, returned on the CPU."""
+    return torch.cat([S.prng.gumbel(keys[i:i + REDRAW_ROWS], (v,)).cpu()
+                      for i in range(0, keys.shape[0], REDRAW_ROWS)])
+
+
+def sampled_leg(S, cfg, runs):
+    """Phase 12 (a): the paged engine's sampled run (``SAMPLE_KW``, logits
+    recorded) against the greedy legs and the CPU port.  Its schedule and
+    B6 count are the greedy run's (checked with the other legs); every
+    token is in the vocabulary.  The keys of its (rid, step) pairs drawn on
+    the card equal the CPU's bit for bit; the card's noise on the recorded
+    logits reproduces the engine's tokens; the CPU's noise picks the same
+    tokens, or the two picks lie within the Gumbel band of each other
+    (``GUMBEL_CARD_BAND``; near-ties counted, the smallest top-two gap
+    reported).  Times: ms a tick of a second sampled run that records no
+    logits (its tokens the recorded run's) against the timed greedy run,
+    which records none either; the draw alone (``paged.sample_tokens`` at
+    8 rows) in device ms and the launches it adds."""
+    import numpy as np
+    r, timed, greedy = (runs[k] for k in ("paged_sampled",
+                                          "paged_sampled_timed", "paged"))
+    if r["b6"] != greedy["b6"] or timed["b6"] != greedy["b6"]:
+        raise AssertionError(f"sampled leg: {r['b6']} / {timed['b6']} B6 "
+                             f"launches, the greedy leg {greedy['b6']}")
+    if [x.tokens for x in timed["recs"]] != [x.tokens for x in r["recs"]]:
+        raise AssertionError("sampled leg: the run without recorded logits "
+                             "gives other tokens than the recorded run")
+    pairs = [(rec.rid, s) for rec in r["recs"] for s in range(len(rec.tokens))]
+    want = torch.tensor([t for rec in r["recs"] for t in rec.tokens])
+    lo = torch.from_numpy(np.stack([lg for rec in r["recs"]
+                                    for lg in rec.logits]))
+    rids, steps = (torch.tensor(c, dtype=torch.int32) for c in zip(*pairs))
+    seed, temp, top_k = (SAMPLE_KW[k] for k in ("sample_seed", "temperature",
+                                                "top_k"))
+    derive = lambda dev: S.prng.fold_in(S.prng.fold_in(
+        S.prng.PRNGKey(seed, dev), rids.to(dev)), steps.to(dev))
+    keys, keys_card = derive("cpu"), derive("cuda")
+    if not torch.equal(keys_card.cpu(), keys):
+        raise AssertionError("sampled leg: the keys drawn on the card differ "
+                             "from the CPU's")
+    scale = torch.ones(()) / torch.tensor(temp)
+    kth = torch.topk(lo, top_k, dim=-1).values[..., -1:]
+    cut = torch.where(lo >= kth, lo, S.paged.NEG_INF) * scale
+    g, g_card = _noise(S, keys, lo.shape[1]), _noise(S, keys_card, lo.shape[1])
+    z = cut + g
+    picks = z.argmax(-1)
+    if not torch.equal((cut + g_card).argmax(-1), want):
+        raise AssertionError("sampled leg: the card's noise on the recorded "
+                             "logits does not give the engine's tokens")
+    dg = (g_card.double() - g.double()).abs()
+    ulp_g = torch.from_numpy(np.spacing(np.abs(g.numpy()))).double()
+    if not bool((dg <= 2 * ulp_g + 2.0 ** -22).all()):
+        raise AssertionError(f"sampled leg: f32 noise card vs CPU "
+                             f"{float(dg.max()):.3g} beyond 2 ulp + 2**-22")
+    top2 = z.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).double()
+    near, worst = 0, 0.0
+    for i in torch.nonzero(picks != want).flatten().tolist():
+        gap = float(z[i, picks[i]]) - float(z[i, want[i]])
+        band = 2 * (GUMBEL_CARD_BAND + float(np.spacing(np.float32(
+            abs(float(z[i, picks[i]]))))))
+        if not 0 <= gap <= band:
+            raise AssertionError(f"sampled leg rid/step {pairs[i]}: the CPU "
+                                 f"picks {int(picks[i])}, the card "
+                                 f"{int(want[i])}, {gap:.3g} apart (band "
+                                 f"{band:.3g})")
+        near, worst = near + 1, max(worst, gap)
+    # the draw alone, at a full tick's 8 rows of recorded logits
+    lg8 = lo[:8, None].cuda()
+    ids = torch.stack([rids[:8], steps[:8]]).long().cuda()
+    key, sc = S.prng.PRNGKey(seed, "cuda"), scale.cuda()
+    draw = lambda: S.paged.sample_tokens(lg8, key, sc, top_k, ids[0], ids[1])
+    if not torch.equal(draw().cpu().flatten(), want[:8].int()):
+        raise AssertionError("sampled leg: sample_tokens on 8 recorded rows "
+                             "does not give the engine's tokens")
+    # the draw is some 570 launches, more than the card's launch queue
+    # holds behind device_ms's sleep: its device time is the profiler's
+    # sum of its kernels
+    kern, count, _ = traced_kernels(draw)
+    tick = lambda run: 1e3 * float(np.mean(run["ticks"]["tick_s"]))
+    out = {"tokens": len(pairs), "near_ties": near, "near_tie_worst": worst,
+           "smallest_top2_gap": float(gaps.min()),
+           "noise_max_diff": float(dg.max()),
+           "noise_diff_share": float((dg > 0).double().mean()),
+           "b6_launches": r["b6"],
+           "ms_per_tick": tick(timed), "greedy_ms_per_tick": tick(greedy),
+           "recorded_ms_per_tick": tick(r),
+           "draw_ms": cuda_ms(draw),
+           "draw_device_ms": sum(kern.values()) / 1e3,
+           "draw_launches": sum(count.values()),
+           "draw_kernels": len(count),
+           "tok_per_s": len(pairs) / timed["wall_s"]}
+    log(f"  (a) sampled leg (T {temp}, top-k {top_k}, seed {seed}): "
+        f"{len(pairs)} tokens, {out['tok_per_s']:.1f} tok/s; "
+        f"{out['ms_per_tick']:.2f} ms a tick (greedy "
+        f"{out['greedy_ms_per_tick']:.2f}; neither records logits; the "
+        f"recorded sampled run {out['recorded_ms_per_tick']:.2f}, its "
+        f"tokens the same); {r['b6']} B6 launches a run as the "
+        f"greedy leg's; keys card = CPU bit for bit; CPU re-draw on the "
+        f"card's logits: {near} near-ties (worst {worst:.3g}), smallest "
+        f"top-two gap {out['smallest_top2_gap']:.3g}; f32 noise card vs "
+        f"CPU apart in {out['noise_diff_share']:.1%} of draws, at most "
+        f"{out['noise_max_diff']:.3g}; the draw at 8 rows "
+        f"{out['draw_ms'] * 1e3:.1f} us ({out['draw_device_ms'] * 1e3:.1f} us "
+        f"device), {out['draw_launches']} launches")
+    return out
 
 
 def serve_parity_phase(S):
@@ -3147,6 +3299,14 @@ DECODE_PARITY_ARCHS = (("phi3-mini-3.8b", 2), ("gemma3-4b", 2),
 DECODE_PARITY_PROMPT, DECODE_PARITY_GEN = 20, 8
 DECODE_PARITY_BAND = 1e-4
 PAGED_DRAWS = 4          # prompt draws of the static-vs-paged comparison
+# phase 21 (b), sampled: generate(greedy=False) on phi3's prompts with the
+# key PRNGKey(0); (c) reduced f32 phi3-mini sampled on the card and the CPU:
+# the engine at T 0.8, top-k 32, seed 11 on 4 repetitive requests (pages
+# of 16, 4 a slot, 2 slots, chunks of 16), generate with PRNGKey(5)
+DEC_SAMPLE_SEED, PARITY_SAMPLE_SEED = 0, 5
+PARITY_SAMPLE_KW = dict(prefill_chunk=16, temperature=0.8, top_k=32,
+                        sample_seed=11)
+PARITY_SAMPLE_SPEC = dict(page_len=16, pages_per_slot=4, n_slots=2)
 
 
 def _b5_bound(q, kt, pos, w, rate):
@@ -3377,12 +3537,13 @@ def _reset_dec_counts(D):
         mod.reset_counts()
 
 
-def _timed_generate(D, cfg, params, prompts, gen, max_seq):
-    """``launch.serve.generate`` with a CUDA event recorded before and
-    after each of its decode calls (``make_decode_step`` wrapped; no
-    sync in the loop) and the host clock around the call, ending in a
-    sync.  Returns (tokens, logits, wall s, [(T, ms from this call's
-    start to the next one's, or to its own end for the last)])."""
+def _timed_generate(D, cfg, params, prompts, gen, max_seq, **kw):
+    """``launch.serve.generate`` (``kw``: its sampling arguments) with a
+    CUDA event recorded before and after each of its decode calls
+    (``make_decode_step`` wrapped; no sync in the loop) and the host clock
+    around the call, ending in a sync.  Returns (tokens, logits, wall s,
+    [(T, ms from this call's start to the next one's, or to its own end
+    for the last)])."""
     inner = D.serve.make_decode_step
     marks = []
 
@@ -3403,7 +3564,8 @@ def _timed_generate(D, cfg, params, prompts, gen, max_seq):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks, logits = D.serve.generate(cfg, params, prompts, gen=gen,
-                                        max_seq=max_seq, return_logits=True)
+                                        max_seq=max_seq, return_logits=True,
+                                        **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -3449,6 +3611,67 @@ def _decode_profile(D, cfg, params, prompts):
             "b5_ms": b5 / 1e3, "b5_share": b5 / busy if busy else 0.0,
             "top_kernels": [{"name": n[:90], "ms": us / 1e3,
                              "share": us / busy} for n, us in top]}
+
+
+def sampled_generate(D, cfg, params, prompts, n_attn, want, greedy):
+    """Phase 21 (b), sampled: ``generate(greedy=False, rng=PRNGKey(0))`` on
+    the greedy run's prompts at full width: the greedy run's launches
+    (``want``: 32 B4, 32 x 63 B5, no plain attention), bf16 logits, tokens
+    in the vocabulary, the prompts kept; the keys ``fold_in(rng, t)`` drawn
+    on the card equal the CPU's; bf16 noise on the card equals the CPU's
+    bit for bit on all 128 values its uniform takes; the CPU's
+    ``categorical`` on the card's logits gives the card's tokens exactly.
+    ms a step against the greedy run's."""
+    plen, gen = prompts.shape[1], DEC_GEN
+    rng = D.prng.PRNGKey(DEC_SAMPLE_SEED, "cuda")
+    _reset_dec_counts(D)
+    toks, logits, wall, steps = _timed_generate(
+        D, cfg, params, prompts, gen, plen + gen, greedy=False, rng=rng)
+    got = _dec_counts(D)
+    if got != want:
+        raise AssertionError(f"sampled static decode: launches {got}, "
+                             f"expected {want}")
+    _check_tokens("sampled", toks, logits, cfg, DEC_BATCH, plen + gen)
+    if not torch.equal(toks[:, :plen], prompts) or \
+            logits.dtype != torch.bfloat16:
+        raise AssertionError(f"sampled static decode: prompts kept "
+                             f"{torch.equal(toks[:, :plen], prompts)}, "
+                             f"logits {logits.dtype}")
+    t = torch.arange(plen, plen + gen)
+    keys = D.prng.fold_in(D.prng.PRNGKey(DEC_SAMPLE_SEED), t)
+    if not torch.equal(D.prng.fold_in(rng, t.cuda()).cpu(), keys):
+        raise AssertionError("sampled static decode: the keys drawn on the "
+                             "card differ from the CPU's")
+    bf16, tiny = torch.bfloat16, torch.finfo(torch.bfloat16).tiny
+    n_u = len(torch.unique(D.prng.uniform(keys[0].cuda(), (20000,), bf16,
+                                          tiny, 1.0).float()))
+    g_card = D.prng.gumbel(keys[0].cuda(), (20000,), bf16).cpu()
+    if n_u != 128 or not torch.equal(
+            g_card.view(torch.int16),
+            D.prng.gumbel(keys[0], (20000,), bf16).view(torch.int16)):
+        raise AssertionError(f"bf16 noise card vs CPU differs ({n_u} of the "
+                             "128 uniforms drawn)")
+    lo = logits.cpu()
+    picks = torch.stack([D.prng.categorical(keys[i], lo[:, i])
+                         for i in range(gen)], dim=1)
+    if not torch.equal(picks, toks[:, plen:].cpu().long()):
+        raise AssertionError("sampled static decode: the CPU's draw on the "
+                             "card's logits gives other tokens")
+    step_ms = [ms for _, ms in steps[-(gen - 1):]]
+    med = statistics.median(step_ms)
+    out = {"seed": DEC_SAMPLE_SEED, "wall_s": wall,
+           "tokens_per_s": DEC_BATCH * gen / wall, "ms_per_step": med,
+           "ms_per_step_min": min(step_ms), "ms_per_step_max": max(step_ms),
+           "greedy_ms_per_step": greedy["ms_per_step"],
+           "prefill_ms": steps[0][1], "launches": got}
+    log(f"  (b) sampled (key PRNGKey({DEC_SAMPLE_SEED}), bf16 logits): "
+        f"{wall:.2f} s, {out['tokens_per_s']:.1f} tokens/s, {med:.2f} ms a "
+        f"decode step (greedy {greedy['ms_per_step']:.2f}; min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}); launches {got} as "
+        f"the greedy run's; keys and bf16 noise (128 of 128 uniforms) card "
+        f"= CPU bit for bit; the CPU's draw on the card's logits gives its "
+        f"{DEC_BATCH} x {gen} tokens exactly")
+    return out
 
 
 def decode_phase(D, archs=(DEC_ARCH,) + DEC_SHORT_ARCHS):
@@ -3540,6 +3763,11 @@ def decode_phase(D, archs=(DEC_ARCH,) + DEC_SHORT_ARCHS):
             if not p["b5_share"] > 0:
                 raise AssertionError("the profiled decode step finds no "
                                      "time under B5's name")
+        if arch == DEC_ARCH:
+            rec["sampled"] = sampled_generate(D, cfg, params, prompts,
+                                              n_attn, want, rec)
+            for k in launches:
+                launches[k] += rec["sampled"]["launches"][k]
         del params, toks, logits, prompts
         gc.collect()
         torch.cuda.empty_cache()
@@ -3623,6 +3851,57 @@ def decode_parity_phase(D):
                f"static vs paged engine tokens agree in "
                f"{sum(rec['paged_agree'])} of {len(rec['paged_agree'])} "
                "draws" if "stepped_gap" in rec else ""))
+    out["sampled"] = sampled_parity(D)
+    return out
+
+
+def sampled_parity(D):
+    """Phase 21 (c), sampled: reduced f32 phi3-mini (2 layers), a sampled
+    paged ServeEngine (``PARITY_SAMPLE_KW`` on 4 repetitive requests) and a
+    sampled ``generate`` (``PRNGKey(PARITY_SAMPLE_SEED)``) on the card (B6
+    and B5 launched) and on the CPU port: the same tokens."""
+    import numpy as np
+    cfg = D.reduced(D.get_config(DEC_ARCH), layers=2)
+    p_cpu = D.models.init_params(cfg, torch.Generator().manual_seed(3),
+                                 device="cpu")
+    p_card = D.tree_map(lambda t: t.cuda(), p_cpu)
+    reqs = D.repetitive_workload(3, 4, vocab=cfg.vocab_size, prompt_len=12,
+                                 gen=(8, 14))
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, DECODE_PARITY_PROMPT)))
+    gen = DECODE_PARITY_GEN
+
+    def run(params, dev):
+        recs = D.ServeEngine(cfg, params, spec=D.PageSpec(
+            **PARITY_SAMPLE_SPEC), device=dev, **PARITY_SAMPLE_KW).serve(reqs)
+        toks = D.serve.generate(
+            cfg, params, tok.to(dev), gen=gen, max_seq=tok.shape[1] + gen,
+            greedy=False, rng=D.prng.PRNGKey(PARITY_SAMPLE_SEED, dev))
+        return [r.tokens for r in recs], toks.cpu()
+    _reset_dec_counts(D)
+    card_recs, card_gen = run(p_card, "cuda")
+    got = _dec_counts(D)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu_recs, cpu_gen = run(p_cpu, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    out = {"engine_tokens": sum(len(t) for t in card_recs),
+           "engine_equal": card_recs == cpu_recs,
+           "generate_equal": bool(torch.equal(card_gen, cpu_gen)),
+           "launches": got}
+    if not (out["engine_equal"] and out["generate_equal"]) or \
+            not got["flash_decode_paged"] or not got["flash_decode"]:
+        raise AssertionError(f"sampled parity, reduced {DEC_ARCH}: card vs "
+                             f"CPU engine tokens equal {out['engine_equal']},"
+                             f" generate tokens equal "
+                             f"{out['generate_equal']}; launches {got}")
+    log(f"  (c) sampled, reduced {DEC_ARCH} (f32), card vs CPU: the paged "
+        f"engine's {out['engine_tokens']} tokens (T "
+        f"{PARITY_SAMPLE_KW['temperature']}, top-k "
+        f"{PARITY_SAMPLE_KW['top_k']}) and generate's 2 x {gen} equal; "
+        f"launches {got}")
     return out
 
 
@@ -5877,10 +6156,13 @@ def main() -> int:
     log(f"[{time.perf_counter() - t_start:.0f} s] B5/B6 checked")
 
     # 12. the serving main path at full width, then 13. card vs CPU
+    from repro_torch.core import prng
+    from repro_torch.serve import paged
     S = SimpleNamespace(FD=FD, models=models, get_config=get_config,
                         reduced=reduced, tree_leaves=tree_leaves,
-                        tree_map=tree_map, **{n: getattr(serve_pkg, n)
-                                              for n in serve_pkg.__all__})
+                        tree_map=tree_map, prng=prng, paged=paged,
+                        **{n: getattr(serve_pkg, n)
+                           for n in serve_pkg.__all__})
     report["serving"], serve_launches = serving_phase(S)
     log(f"[{time.perf_counter() - t_start:.0f} s] serving main path done")
     report["serve_parity"] = serve_parity_phase(S)
@@ -6017,7 +6299,9 @@ def main() -> int:
                         get_config=get_config, reduced=reduced, layout=layout,
                         tree_leaves=tree_leaves, tree_map=tree_map,
                         serve=serve_launch, ServeEngine=S.ServeEngine,
-                        PageSpec=S.PageSpec, Request=S.Request)
+                        PageSpec=S.PageSpec, Request=S.Request, prng=prng,
+                        paged=paged,
+                        repetitive_workload=S.repetitive_workload)
     b5_recs = b5_static_phase(D, rate)
     b4_recs = b4_offset_phase(D, rate)
     log(f"[{time.perf_counter() - t_start:.0f} s] B5 strided / B4 offset "

@@ -2,10 +2,9 @@
 families — KV-cache decode (dense/GQA + sliding window), recurrent-state
 decode (Mamba2, RWKV6), encoder-decoder decode over stubbed audio frame
 embeddings — and the continuous-batching engine (paged KV cache + slot
-scheduler) on an attention arch, with draft-free speculative decode and
-COW prefix sharing (the greedy parts of the reference's
-``examples/serve_decode.py``).  Its sampled decode waits for ROADMAP A18
-(threefry streams).
+scheduler) on an attention arch, with draft-free speculative decode,
+sampled decode on the reference's threefry-keyed streams and COW prefix
+sharing (the reference's ``examples/serve_decode.py``).
 
   python -m repro_torch.examples.serve_decode                # on the card
   python -m repro_torch.examples.serve_decode --device cpu   # on the CPU
@@ -84,6 +83,16 @@ def main(argv=None):
           f"tok/s  accept rate {spc.accept_rate:.2f} "
           f"({spc.stats['draft_accepted']}/{spc.stats['draft_proposed']} "
           f"drafts, {spc.stats['spec_dispatches']} verify dispatches)")
+
+    # sampled decode: temperature / top-k selection inside the step, each
+    # token keyed on (seed, request id, step), so that a replay is the same
+    # whatever the batch composition; greedy-only speculation refuses it
+    smp = ServeEngine(cfg, params, spec=spec, prefill_chunk=16,
+                      temperature=0.8, top_k=40, sample_seed=7, device=dev)
+    recs = smp.serve(reqs)
+    out["gemma3-4b sampled"] = {r.rid: list(r.tokens) for r in recs}
+    print(f"{'gemma3 (T=0.8 k=40)':<22} sampled {len(recs)} reqs, "
+          f"first tokens {list(recs[0].tokens[:6])}")
 
     # COW prefix sharing: admission maps the full KV pages of a matching
     # earlier prompt into the new slot's table and skips their prefill; a

@@ -8,8 +8,11 @@ call for attention archs — the whole prompt enters the KV cache at once
 by token for recurrent state (mamba2 / rwkv6), which has no cache to
 chunk into; every generated token is one decode step (B5 in every
 attention layer on the card, reading the step's position from the
-device).  Greedy only: sampling waits for ROADMAP
-A18.
+device).  ``generate(greedy=False, rng=key)`` samples as the
+reference's does, one threefry key ``fold_in(rng, t)`` a step over the
+whole batch (``core.prng``); the CLI's static engine stays greedy whatever
+``--temperature`` says, as the reference's CLI does (it never passes
+``greedy=False``; ROADMAP C14).
 
 ``--engine continuous`` hands a synthetic request stream to
 ``repro_torch.serve.ServeEngine``: paged KV cache, admission the moment
@@ -17,8 +20,9 @@ pages free up, chunked prefill interleaved with in-flight decode, and on
 the card the hand-written paged decode kernel in every layer of every
 one-token decode tick.  ``--spec-k`` turns on draft-free speculative
 decode (n-gram prompt lookup, greedy only) and ``--prefix-share``
-copy-on-write prefix sharing.  ``--temperature``/``--top-k`` sampling
-is not ported yet and raises, naming ROADMAP A18.
+copy-on-write prefix sharing; ``--temperature``/``--top-k`` sample each
+token in the step, keyed on (``--seed``, request, step) as the
+reference's engine does.
 
 As the reference's CLI, ``--reduced`` is on by default (``store_true``
 with default ``True``), so the CLI always serves the reduced model; a
@@ -30,6 +34,8 @@ Usage:
       --batch 4 --prompt-len 32 --gen 16 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
       --requests 16 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
+      --temperature 0.8 --top-k 40
   PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
       --workload repetitive --spec-k 3
   PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
@@ -46,6 +52,7 @@ import torch
 from repro_torch import models
 from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.configs.base import MAMBA2, RWKV6
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step
 
@@ -64,7 +71,7 @@ def generate(cfg, params, prompts, *, gen: int, max_seq: int, greedy=True,
              return_logits: bool = False):
     """prompts: (B, P) int tensor on the params' device.  Returns (B, P +
     gen) tokens in the prompts' dtype (and, with ``return_logits``, the
-    (B, gen, V) logits each generated token was the argmax of).
+    (B, gen, V) logits each generated token was chosen from).
 
     Attention archs prefill in ONE chunked decode call (at the host
     position 0); recurrent archs and the encoder-decoder — or
@@ -74,15 +81,22 @@ def generate(cfg, params, prompts, *, gen: int, max_seq: int, greedy=True,
     from one int32 tensor on the prompts' device,
     advanced in place after the step, as the reference passes a traced
     ``jnp.int32(t)``: B5 reads it there, so each step launches its
-    kernels with the same arguments.  Greedy only: ``greedy=False`` (the
-    reference's threefry sampling with ``rng``) waits for ROADMAP A18.
-    The loop reads nothing back from the card until the end: each step's
-    token is the argmax on the device."""
-    if not greedy:
-        raise NotImplementedError(
-            "sampled generation (greedy=False) needs the reference's "
-            "threefry streams: ROADMAP A18")
+    kernels with the same arguments.
+
+    ``greedy=False`` samples token ``t`` (its absolute position) with
+    ``categorical(fold_in(rng, t), logits)`` (``core.prng``), one key over
+    the whole ``(B, V)`` batch and the noise in the logits' own dtype, as
+    the reference's ``jax.random`` call does; ``rng`` is a key from
+    ``prng.PRNGKey``.  The loop reads nothing back from the card until the
+    end: each step's token is chosen on the device, and the keys are
+    derived there once, before the first step."""
     b, p = prompts.shape
+    if not greedy:
+        if rng is None:
+            raise ValueError("sampled generation (greedy=False) needs rng, "
+                             "a key from core.prng.PRNGKey")
+        keys = prng.fold_in(rng.to(prompts.device), torch.arange(
+            p, p + gen, device=prompts.device))
     cache = models.init_cache(cfg, b, max_seq, device=prompts.device)
     decode = make_decode_step(cfg)
     if stepped_prefill or not chunkable(cfg):
@@ -95,9 +109,11 @@ def generate(cfg, params, prompts, *, gen: int, max_seq: int, greedy=True,
         logits, cache = decode(params, cache, prompts, 0)
         pos = torch.full((), p, dtype=torch.int32, device=prompts.device)
     out, seen = [prompts], []
-    for t in range(p, p + gen):
+    for i, t in enumerate(range(p, p + gen)):
         seen.append(logits)
-        nxt = torch.argmax(logits, dim=-1).to(prompts.dtype)[:, None]
+        pick = (torch.argmax(logits, dim=-1) if greedy
+                else prng.categorical(keys[i], logits))
+        nxt = pick.to(prompts.dtype)[:, None]
         out.append(nxt)
         if t < p + gen - 1:
             logits, cache = decode(params, cache, nxt, pos)
@@ -182,8 +198,10 @@ def run(argv=None):
                     help="speculative decode: n-gram draft length "
                          "(0 = one-token decode; greedy only)")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="sampling temperature (0 = greedy; "
-                         "incompatible with --spec-k)")
+                    help="sampling temperature of the continuous engine "
+                         "(0 = greedy; incompatible with --spec-k); the "
+                         "static engine ignores it and decodes greedily, "
+                         "as the reference's CLI does")
     ap.add_argument("--top-k", type=int, default=0,
                     help="top-k truncation for sampled decode (0 = full)")
     ap.add_argument("--prefix-share", action="store_true",
@@ -198,9 +216,9 @@ def run(argv=None):
     if cfg.encoder_layers:
         raise SystemExit("use examples/serve_encdec.py for enc-dec archs")
     if args.engine == "static" and args.temperature > 0:
-        raise NotImplementedError(
-            "--temperature > 0 needs the reference's threefry streams: "
-            "ROADMAP A18")
+        print(f"note: --engine static decodes greedily; --temperature "
+              f"{args.temperature:g} applies to --engine continuous only "
+              "(as in the reference's CLI)")
     dev = resolve_device(args.device)
     params = models.init_params(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)

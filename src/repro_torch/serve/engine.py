@@ -30,11 +30,14 @@ can attend to it (see ``serve.paged``).  Greedy acceptance makes the
 emitted stream token-identical to one-token decode (tested, as the
 paged-vs-contig parity is).
 
-Sampling (``temperature > 0``, ``top_k``) keys the reference's threefry
-streams on ``(sample_seed, rid, step)``; the port raises for it until
-that generator is ported (ROADMAP A18).  Speculation fences to greedy-only
-(drafting against a sampled stream would break the identity contract),
-loudly.
+Sampling (``temperature > 0``, ``top_k``) runs inside the step
+(``paged.make_token_fn``): each token is drawn with the reference's
+threefry key ``fold_in(fold_in(PRNGKey(sample_seed), rid), step)``
+(``core.prng``), so a request's sampled stream is the same whatever the
+batch it rides in, and equals the reference's token for token outside
+f32 near-ties.  Speculation fences to greedy-only (drafting against a
+sampled stream would break the identity contract), loudly, as the
+reference's does.
 
 ``fused_sample=False`` keeps the reference's baseline: logits come back
 from the step and argmax runs as a separate call per tick.  The fused

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTN, ModelConfig
-from repro_torch.core import flat
+from repro_torch.core import flat, prng
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.models.attention import NEG_INF, attn_project_qkv, gqa_expand
 from repro_torch.models.layers import dtype_of, rms_norm, rope_tables, swiglu
@@ -296,6 +296,29 @@ def make_serve_step(cfg: ModelConfig, spec: PageSpec,
 
 
 # ------------------------- token selection ---------------------------------
+def sample_tokens(logits, key, scale, top_k: int, rids, steps0):
+    """The sampled selection of ``make_token_fn``: ``(m, T)`` int32 tokens
+    from ``(m, T, V)`` logits, every tensor on the logits' device.
+
+    As the reference: the logits in f32; ``top_k > 0`` keeps those at or
+    above the k-th largest of their row (ties at the k-th value stay) and
+    sets the rest to ``NEG_INF``; ``scale`` (the f32 reciprocal of the
+    temperature, a 0-d tensor: XLA compiles the reference's division by a
+    constant temperature into that product) scales them; chunk position
+    ``j`` of row ``i`` draws ``categorical`` over its own key
+    ``fold_in(fold_in(key, rids[i]), steps0[i] + j)`` (``core.prng``).
+    ``rids`` / ``steps0`` are ``(m,)`` integer tensors (int32 values,
+    bit-cast as the reference's traced int32 are)."""
+    lo = logits.float()
+    if top_k > 0:
+        kth = torch.topk(lo, top_k, dim=-1).values[..., -1:]
+        lo = torch.where(lo >= kth, lo, NEG_INF)
+    lo = lo * scale
+    steps = steps0[:, None] + torch.arange(lo.shape[1], device=lo.device)
+    keys = prng.fold_in(prng.fold_in(key, rids)[:, None], steps)
+    return prng.categorical(keys, lo).to(torch.int32)
+
+
 def make_token_fn(cfg: ModelConfig, spec: PageSpec, backend: str = "paged",
                   *, gather_rows: bool = False, temperature: float = 0.0,
                   top_k: int = 0, seed: int = 0):
@@ -306,25 +329,39 @@ def make_token_fn(cfg: ModelConfig, spec: PageSpec, backend: str = "paged",
     both on the step's device; the caller pulls only ``next_tokens``.
 
     ``temperature == 0`` is greedy argmax (the first maximal index, as
-    the reference's).  Sampling (``temperature > 0``, ``top_k``) draws
-    with the reference's threefry keys ``(seed, rid, step)``: a
-    token-identical port needs threefry in PyTorch, which waits for
-    ROADMAP A18, so it raises here.
+    the reference's).  ``temperature > 0`` samples chunk position ``j``
+    of row ``i`` with the reference's threefry key ``fold_in(fold_in(
+    PRNGKey(seed), rids[i]), steps0[i] + j)`` (``sample_tokens``), keyed
+    on (seed, request, generation step), so a sampled stream replays the
+    same whatever the batch composition, slot bucketing or admission
+    order.  The host arrays ``rids`` / ``steps0`` go to the device in one
+    copy a tick, made before the step's forward is queued, as the step's
+    own uploads are; the keys are derived there, no row a Python loop.
     """
     if temperature < 0.0:
         raise ValueError(f"temperature must be >= 0: {temperature}")
     if top_k < 0:
         raise ValueError(f"top_k must be >= 0: {top_k}")
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature / top-k sampling is not ported yet: it needs the "
-            "reference's threefry-keyed streams (ROADMAP A18, threefry-keyed "
-            "sampling for make_token_fn); serve greedily (temperature=0)")
     step = make_serve_step(cfg, spec, backend, gather_rows=gather_rows)
+    consts = {}                      # device -> (PRNGKey(seed), 1 / T)
 
     def fn(params, caches, rows, lengths, active, tokens, rids, steps0):
+        if temperature == 0.0:
+            logits, caches = step(params, caches, rows, lengths, active,
+                                  tokens)
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            return toks, logits, caches
+        dev = params["embed"].device
+        if dev not in consts:
+            recip = torch.ones((), dtype=torch.float32) / torch.tensor(
+                temperature, dtype=torch.float32)
+            consts[dev] = (prng.PRNGKey(seed, dev), recip.to(dev))
+        # uploaded beside the step's own uploads, before its forward is
+        # queued: a pageable copy waits for the stream to drain
+        ids = _upload(np.stack([np.asarray(rids, np.int32),
+                                np.asarray(steps0, np.int32)]), dev)
         logits, caches = step(params, caches, rows, lengths, active, tokens)
-        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks = sample_tokens(logits, *consts[dev], top_k, ids[0], ids[1])
         return toks, logits, caches
 
     return fn

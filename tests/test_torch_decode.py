@@ -554,13 +554,27 @@ def test_generate_matches_reference(arch, layers, stepped):
     np.testing.assert_array_equal(logits.argmax(-1).numpy(), want[:, PROMPT:])
 
 
-def test_generate_refuses_sampling():
+def test_generate_refuses_sampling(capsys):
+    """Sampling without a key is refused; with one it draws (against the
+    reference in tests/test_torch_sampling.py).  The static CLI decodes
+    greedily whatever ``--temperature`` says, as the reference's CLI does
+    (ROADMAP C14), and says so."""
+    from repro_torch.core import prng
     cfg, _, _, tp, tok = _setup("phi3-mini-3.8b", 2)
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(ValueError, match="needs rng"):
         serve.generate(cfg, tp, torch.from_numpy(tok), gen=2,
                        max_seq=PROMPT + 2, greedy=False)
-    with pytest.raises(NotImplementedError, match="A18"):
-        serve.run(["--device", "cpu", "--temperature", "0.5"])
+    got = serve.generate(cfg, tp, torch.from_numpy(tok).long(), gen=2,
+                         max_seq=PROMPT + 2, greedy=False,
+                         rng=prng.PRNGKey(0))
+    assert got.shape == (BATCH, PROMPT + 2)
+    argv = ["--device", "cpu", "--batch", "2", "--prompt-len", "5", "--gen",
+            "3"]
+    greedy = serve.run(argv)
+    capsys.readouterr()
+    hot = serve.run(argv + ["--temperature", "0.5"])
+    assert torch.equal(hot, greedy)
+    assert "decodes greedily" in capsys.readouterr().out
 
 
 def test_static_cli(capsys):

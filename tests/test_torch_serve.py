@@ -382,8 +382,16 @@ def test_engine_fences(model):
     with pytest.raises(ValueError, match="page-table"):
         ServeEngine(cfg, tparams, backend="contig", prefix_share=True,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="threefry"):
-        ServeEngine(cfg, tparams, temperature=0.7, device="cpu")
+    with pytest.raises(ValueError, match="in-step RNG"):
+        ServeEngine(cfg, tparams, temperature=0.7, fused_sample=False,
+                    device="cpu")
+    # sampling itself builds and serves (tests/test_torch_sampling.py
+    # holds its streams against the reference's)
+    from repro_torch.serve import Request
+    rec = ServeEngine(cfg, tparams, temperature=0.7, top_k=8, device="cpu")\
+        .serve([Request(rid=0, tokens=(1, 2, 3), max_new=3)])[0]
+    assert len(rec.tokens) == 3 and all(0 <= t < cfg.vocab_size
+                                        for t in rec.tokens)
     with pytest.raises(ValueError, match="live on cpu"):
         ServeEngine(cfg, tparams, device="meta")
 
@@ -448,6 +456,9 @@ def test_launch_serve_cli(capsys):
     toks = cli.run(["--device", "cpu", "--batch", "2", "--gen", "4"])
     assert toks.shape == (2, 32 + 4)
     assert "arch=gemma3-4b-reduced batch=2" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A18"):
-        cli.run(["--engine", "continuous", "--device", "cpu",
-                 "--temperature", "0.5"])
+    # sampled: every token in the vocabulary, and the same streams again
+    argv = ["--engine", "continuous", "--device", "cpu", "--requests", "4",
+            "--gen", "4", "--temperature", "0.5", "--top-k", "8"]
+    recs, again = cli.run(argv), cli.run(argv)
+    assert [r.tokens for r in recs] == [r.tokens for r in again]
+    assert all(0 <= t < 512 for r in recs for t in r.tokens)
