@@ -283,6 +283,22 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     at window 16 through ``make_decode_step(cfg, shape)`` within
     ``DECODE_PARITY_BAND`` (arctic's CPU legs on the card's expert
     choices).
+26. the dry run and cost analysis (``launch/dryrun.py``,
+    ``launch/hlo_analysis.py``): (a) ``python -m
+    repro_torch.launch.dryrun --arch granite-moe-3b-a800m --shape
+    decode_32k --both-meshes`` in a subprocess (the reference test's
+    pair, on fake process groups of 256 and 512 ranks over the card's
+    mesh; its records written to a temporary directory and read back):
+    exit 0 and "all dry-runs passed", each record's per-rank FLOPs,
+    collective bytes by kind and dominant term printed; (b) phase 15's
+    full-width zamba2-2.7b prefill (2 x 2048) counted twice, on meta
+    tensors (B4 and B7 by the formulas beside their wrappers, 9 and 45
+    meta launches) and on the card (9 B4 and 45 B7 launched and counted
+    by the same formulas): equal FLOPs and ``dot_bytes_flash``, finite
+    logits; the median CUDA-event ms of 3 prefills beside the roofline's
+    ``step_time_s`` on one card and their ratio (printed, not gated);
+    (c) ``engine.parity.check_parity`` on the card (reduced phi3-mini,
+    its bit-for-bit checks in PyTorch's deterministic mode).
 
 The launch counts are set to 0 just before each path and read just
 after; the ``launches`` in the kernels line are those counts, summed
@@ -304,7 +320,9 @@ adds seamless's B4 and B5 launches of its full-width prefill (a) and
 static decode (b), the encode included; phase 25 adds the B4 launches of
 its four prefills (b) and the B5 launches of its decode_32k and
 long_500k steps (c, d), B4's rows at 32,768 tokens and B5's at those
-caches among their variants). Launches made to compare a kernel with its
+caches among their variants; phase 26 adds the B4 and B7 launches of
+its counted and timed zamba2 prefills (b) and the B1, B2 and B3
+launches of the parity module on the card (c)). Launches made to compare a kernel with its
 plain version are not counted. B1's numbers in the line are its LM-store
 ones (phase 18), the shape this slice's main path gives it; the
 ResNet-store records stay among its variants.
@@ -1882,78 +1900,34 @@ def _wkv_inputs(shape, dtype, seed):
     return r, k, v, w, rn(h, kd) * 0.3
 
 
-def _band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs a row-wise mask keeps: the work of B4."""
-    if not causal:
-        return sq * sk
-    return sum(min(i + 1, sk, window) if window > 0 else min(i + 1, sk)
-               for i in range(sq))
-
-
-def _ssd_chunked_flops(bt, h, s, p, n, q=64):
-    """The products of B7's bf16 form: per (b, h) and chunk of q steps,
-    C·Bᵀ (q x q x N), the masked decay matrix's two bf16 parts times x (q x
-    q x P), C times the state's two parts (q x N x P, from the second chunk
-    on) and xᵀ times W's two parts (P x q x N), 2 operations a
-    multiply-add; a ragged last chunk runs whole."""
-    nc = -(-s // q)
-    per_chunk = 2 * q * q * n + 2 * (2 * q * q * p) + 2 * (2 * p * q * n)
-    return bt * h * (nc * per_chunk + (nc - 1) * 2 * (2 * q * n * p))
-
-
-def _wkv_chunked_flops(b, h, s, kd, vd, q=64, sub=16, parts=3):
-    """The products of B8's tensor-core form: per (b, h) and chunk of q
-    steps, with K padded to 64 and each f32 operand in ``parts`` bf16
-    parts (6 products of two split sides, 3 against an exact one): y_inter
-    (q x K x V, from the second chunk on), the 3 off-diagonal block
-    columns of A (q x K x 16 each), A·v (q x q x V) and the state update
-    (K x q x V), 2 operations a multiply-add; a ragged last chunk runs
-    whole."""
-    kp, nc = 64, -(-s // q)
-    two, one = parts * (parts + 1) // 2, parts
-    per_chunk = (2 * (q // sub - 1) * two * q * kp * sub
-                 + 2 * one * q * q * vd + 2 * one * kp * q * vd)
-    return b * h * (nc * per_chunk + (nc - 1) * 2 * two * q * kp * vd)
-
-
 def _pf_bound(kernel, args, rate, window=0, causal=True, out_dtype=None):
-    """(bound ms, bound_by, flops, bytes, op rate): each input read once,
-    each output written once; the operations the kernel's algorithm does
-    on these inputs (B4: the causal / window band only) at the rate of the
-    units it runs on — the bf16 forms of B4 and B7 the dense bf16
-    tensor-core rate (B7's chunked products, splits included), the rest
+    """(bound ms, bound_by, flops, bytes, op rate): the kernel's own work
+    by the formula beside its wrapper (``flash_attention_work``,
+    ``mamba_ssd_work``, ``wkv6_work``: each input read once, each output
+    written once; the operations its algorithm does on these inputs, B4
+    the causal / window band only) at the rate of the units it runs on —
+    the bf16 forms of B4, B7 and B8's tensor-core route the dense bf16
+    tensor-core rate (the chunked products, splits included), the rest
     the f32 rate of the CUDA cores (B7's f32 form the step recurrence)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba_scan as SSD
+    from repro_torch.kernels import wkv6 as WKV
     op_rate = F32_RATE
     if kernel == "flash_attention":
         q, k, v = args
-        b, h, sq, hd = q.shape
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        flops = 4 * hd * b * h * _band_pairs(sq, k.shape[2], causal, window)
+        flops, nbytes = FA.flash_attention_work(q, k, v, causal=causal,
+                                                window=window)
         if q.dtype == torch.bfloat16:
             op_rate = BF16_RATE
     elif kernel == "mamba_ssd_scan":
-        x, dt, a_log, B, C, D = args
-        bt, h, s, p = x.shape
-        n = B.shape[-1]
-        nbytes = (2 * x.numel() + B.numel() + C.numel()) * x.element_size() \
-            + 4 * (dt.numel() + 2 * h)
-        if x.dtype == torch.bfloat16:
-            flops = _ssd_chunked_flops(bt, h, s, p, n)
+        flops, nbytes = SSD.mamba_ssd_work(*args)
+        if args[0].dtype == torch.bfloat16:
             op_rate = BF16_RATE
-        else:
-            flops = 5 * p * n * s * bt * h    # decay, update, y = h·C
     else:
         r, k, v, w, u = args
-        b, h, s, kd = r.shape
-        y_size = (out_dtype or r.dtype).itemsize
-        nbytes = (2 * r.numel() + v.numel()) * r.element_size() \
-            + w.numel() * w.element_size() + v.numel() * y_size \
-            + 4 * u.numel()
-        if r.dtype == torch.bfloat16 and kd <= 64:
-            flops = _wkv_chunked_flops(b, h, s, kd, v.shape[-1])
+        flops, nbytes = WKV.wkv6_work(r, k, v, w, u, out_dtype=out_dtype)
+        if WKV.tensor_core_route(r, k):
             op_rate = BF16_RATE
-        else:
-            flops = 7 * kd * v.shape[-1] * s * b * h
     t_bytes, t_ops = nbytes / rate, flops / op_rate
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
@@ -4358,8 +4332,9 @@ SPMD_WEIGHTED_STEPS = 4         # the example's own form
 # gradients, velocity and the new params and velocity at once: 5 x 15.3
 # GB at 32 layers) and the no-mesh per-step fused run (params, both
 # group gradients and their three raveled copies at its B2 launch: 6 x
-# 15.3 GB) fit the card only at cut depth; full width, 16 of 32 layers
-SPMD_CUT_LAYERS = 16
+# 15.3 GB) fit the card only at cut depth; full width, 8 of 32 layers
+# (16 until phase 26 needed the time)
+SPMD_CUT_LAYERS = 8
 SPMD_CPU_RANKS, SPMD_CPU_MESH = 4, (2, 2)
 SPMD_PARITY_STEPS = 4
 SPMD_TIMEOUT_S = 300
@@ -5761,6 +5736,146 @@ def big_phase(G, rate):
     return out, launches, rows
 
 
+# phase 26: the dry run of the reference test's pair (tests/test_spmd.py
+# test_dryrun_single_combo) on both production meshes, in a process of its
+# own (it owns its fake process group); the zamba2 prefill counted twice
+DRYRUN_ARGV = ("--arch", GRANITE, "--shape", "decode_32k", "--both-meshes")
+DRYRUN_TIMEOUT = 300
+COUNT_ARCH = "zamba2-2.7b"
+
+
+def dryrun_phase(Q):
+    """Phase 26: (a) ``python -m repro_torch.launch.dryrun`` on
+    ``DRYRUN_ARGV`` in a subprocess: exit 0, "all dry-runs passed", each
+    record's per-rank FLOPs, collective bytes by kind and dominant term;
+    (b) phase 15's full-width zamba2-2.7b prefill (2 x 2048) counted by
+    ``launch.hlo_analysis`` twice, on meta tensors (B4 and B7 by their
+    formulas, no launch) and on the card (the kernels launched and counted
+    by the same formulas): equal FLOPs and ``dot_bytes_flash``; its median
+    CUDA-event ms over 3 calls beside the roofline's ``step_time_s`` on
+    one card, and their ratio (printed, not gated); (c) the parity module
+    (``engine.parity.check_parity``) on the card.  Returns (records,
+    launches per kernel on the card)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    out, launches = {}, {}
+    # (a)
+    rec_dir = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             *DRYRUN_ARGV, "--out", rec_dir], env=env, cwd=ROOT,
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT)
+        wall = time.perf_counter() - t0
+        recs = [json.load(open(os.path.join(rec_dir, f)))
+                for f in sorted(os.listdir(rec_dir))]
+    finally:
+        shutil.rmtree(rec_dir, ignore_errors=True)
+    if run.returncode or "all dry-runs passed" not in run.stdout:
+        raise AssertionError(f"dry run exit {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+    out["dryrun"] = {"wall_s": wall, "records": [
+        {k: r[k] for k in ("mesh", "n_chips", "t_lower_s",
+                           "hlo_flops_per_device",
+                           "hlo_dot_bytes_flash_per_device",
+                           "collective_bytes_per_device",
+                           "collective_by_kind", "collective_counts",
+                           "roofline", "kernels")} for r in recs]}
+    for r in recs:
+        log(f"dry run {GRANITE} x decode_32k x {r['mesh']}: "
+            f"{r['hlo_flops_per_device']:.4e} FLOPs a rank, collectives "
+            f"{r['collective_by_kind']} bytes ({r['collective_counts']}), "
+            f"dominant {r['roofline']['dominant']}, trace {r['t_lower_s']} s")
+    log(f"dry run subprocess: {wall:.1f} s, all dry-runs passed")
+
+    # (b)
+    cfg = Q.get_config(COUNT_ARCH)
+    prefill = Q.make_prefill_step(cfg)
+    shape = (PREFILL_BATCH, PREFILL_SEQ)
+    with Q.CostCounter() as meta:
+        Q.reset_counts()
+        prefill(Q.abstract_params(cfg),
+                torch.empty(shape, dtype=torch.int64, device="meta"))
+        meta_n = Q.meta_counts()
+    params = Q.models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, shape)).cuda()
+    prefill(params, tokens)                          # warm-up
+    torch.cuda.synchronize()
+    Q.reset_counts()
+    with Q.CostCounter() as card:
+        logits = prefill(params, tokens)
+        torch.cuda.synchronize()
+    counted = Q.counts()
+    ms = []
+    for _ in range(PREFILL_TIMED):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        a.record()
+        prefill(params, tokens)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    launches = Q.counts()["launches"]
+    mc, cc = meta.cost, card.cost
+    if meta_n != counted["launches"] or counted["launches"] != {
+            "flash_attention": 9, "mamba_ssd_scan": 45, "wkv6_chunked": 0}:
+        raise AssertionError(f"{COUNT_ARCH} counted prefill: meta "
+                             f"{meta_n}, card {counted['launches']}; expected "
+                             "9 B4 and 45 B7 each")
+    if (mc.flops, mc.dot_bytes_flash) != (cc.flops, cc.dot_bytes_flash) \
+            or not cc.flops > 0:
+        raise AssertionError(f"{COUNT_ARCH} prefill counts differ: meta "
+                             f"{mc.flops} FLOPs / {mc.dot_bytes_flash} "
+                             f"bytes, card {cc.flops} / "
+                             f"{cc.dot_bytes_flash}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{COUNT_ARCH} counted prefill: logits not "
+                             "finite")
+    roof = Q.roofline_terms(
+        per_device_flops=cc.flops, per_device_bytes=cc.dot_bytes_flash,
+        per_device_collective_bytes=0.0, n_chips=1,
+        model_flops=2.0 * cfg.active_param_count() * shape[0] * shape[1])
+    med = statistics.median(ms)
+    out["count"] = {"arch": COUNT_ARCH, "tokens": list(shape),
+                    "flops": cc.flops, "dot_bytes": cc.dot_bytes,
+                    "dot_bytes_flash": cc.dot_bytes_flash,
+                    "kernels": cc.kernels, "ms": med, "ms_runs": ms,
+                    "roofline_step_ms": 1e3 * roof.step_time_s,
+                    "dominant": roof.dominant,
+                    "share_of_roofline": 1e3 * roof.step_time_s / med,
+                    "useful_flops_ratio": roof.useful_flops_ratio}
+    log(f"counted prefill {COUNT_ARCH} 2 x 2048: {cc.flops:.6e} FLOPs, "
+        f"{cc.dot_bytes_flash:.6e} bytes (flash), equal on meta and on the "
+        f"card; kernels {cc.kernels}")
+    log(f"  {med:.2f} ms a prefill (CUDA events, median of "
+        f"{PREFILL_TIMED}: {[round(t, 2) for t in ms]}) against the "
+        f"roofline's {1e3 * roof.step_time_s:.3f} ms ({roof.dominant}): "
+        f"{out['count']['share_of_roofline']:.1%} of the roofline")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c)
+    Q.K.reset_counts()
+    t0 = time.perf_counter()
+    par = Q.check_parity(device="cuda")
+    out["parity"] = {"wall_s": time.perf_counter() - t0, **par}
+    for k in Q.K.KERNEL_VARIANTS:
+        launches[k] = Q.K.launch_count(k)
+    log(f"parity module on the card (reduced phi3-mini): "
+        f"{out['parity']['wall_s']:.1f} s, merge "
+        f"{par['merge']['max_param_diff']:.3g}, backend "
+        f"{par['backend']['max_param_diff']:.3g}, bf16 backend "
+        f"{par['backend_bf16']['max_param_diff']:.3g}; dbl kernels "
+        f"{ {k: launches[k] for k in Q.K.KERNEL_VARIANTS} }")
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -6420,6 +6535,25 @@ def main() -> int:
             entry["variants"].extend(big_rows[entry["name"]])
             entry["max_abs_err"] = max(r["max_abs_err"]
                                        for r in entry["variants"])
+
+    # 26. the dry run on the production meshes (a subprocess), the zamba2
+    # prefill counted on meta tensors and on the card, the parity module
+    # on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.engine.parity import check_parity
+    from repro_torch.launch.hlo_analysis import CostCounter, roofline_terms
+    from repro_torch.launch.specs import abstract_params
+    Q = SimpleNamespace(**vars(P), K=K, CostCounter=CostCounter,
+                        roofline_terms=roofline_terms,
+                        abstract_params=abstract_params,
+                        check_parity=check_parity,
+                        meta_counts=lambda: {k: mod.meta_count(k)
+                                             for k, mod in pf_mods.items()})
+    report["dryrun"], dry_launches = dryrun_phase(Q)
+    log(f"[{time.perf_counter() - t_start:.0f} s] dry run and counts done")
+    for entry in line:
+        entry["launches"] += dry_launches.get(entry["name"], 0)
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:

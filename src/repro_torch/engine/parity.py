@@ -29,16 +29,23 @@ Checks 3 and 5 also carry a ``precision="bf16"`` mode (bf16 shadow + f32
 master) gated by the reference's tolerance bands; timeline facts stay
 exact.
 
-The reference runs these on a reduced ``phi3-mini-3.8b``, which the port
-trains too since its LM slice (moving these checks onto it is left,
-ROADMAP A12a); here the tiny model is a width-8
-``cifar-resnet18`` (10 classes) on 8 px images (16 px in the data-plane
-check's second phase).  At 8 px the last stage is 1 x 1; at 16 px it is
-2 x 2, where the instance norm of near-constant channels amplifies
-rounding differences far beyond these bands (ROADMAP C4).  Every check runs on
-``device`` (``None`` means the card); the bit-for-bit checks (4b, and 5
-in f32) run on cuDNN's deterministic kernels, as its default ones do not
-repeat themselves on the card.
+The tiny model is the reference's: ``phi3-mini-3.8b`` reduced to one
+layer of width 64, 2 heads and a vocabulary of 64, on ``(8, 16)`` token
+batches (32 tokens in the data-plane check's second phase, fed by
+``SyntheticTokens`` as the reference's check 4 is), under the
+reference's tolerances.  Before the port trained LMs these checks ran on
+a width-8 ``cifar-resnet18`` at 8 px instead: the reference's model was
+not ported yet, and a ResNet's instance norm of near-constant channels
+amplifies rounding differences far beyond these bands at any larger
+resolution (ROADMAP C4), so the images were kept that small.
+
+Every check runs on ``device`` (``None`` means the card).  The
+bit-for-bit checks (4b, and 5 in f32) run in PyTorch's deterministic
+mode (``_deterministic``): cuBLAS's products repeat themselves bit for
+bit on one card and stream, given a fixed workspace
+(``CUBLAS_WORKSPACE_CONFIG=:4096:8``), and the mode swaps the atomic
+accumulations of the embedding's and the loss's backwards (``index_put``
+with accumulation, ``scatter_add``) for deterministic ones.
 
 Run directly:  PYTHONPATH=src python -m repro_torch.engine.parity [--device cpu]
 """
@@ -47,8 +54,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 from dataclasses import replace
 
+import numpy as np
 import torch
 
 from repro_torch import models
@@ -60,7 +69,8 @@ from repro_torch.core import LinearTimeModel, solve_plan
 from repro_torch.core.spmd_dual_batch import SpmdDualBatch
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
-from repro_torch.data import DataPlane, SyntheticImages
+from repro_torch.configs import reduced
+from repro_torch.data import DataPlane, SyntheticTokens
 from repro_torch.device import resolve_device, strict_f32
 from repro_torch.engine.engine import TrainEngine
 from repro_torch.engine.phases import single_phase
@@ -78,16 +88,21 @@ def _device(device) -> torch.device:
 
 
 def _tiny_setup(seed: int, device):
-    cfg = replace(get_config("cifar-resnet18"), d_model=8, vocab_size=10)
+    cfg = reduced(get_config("phi3-mini-3.8b"), layers=1, d_model=64,
+                  n_heads=2, vocab=64)
+    # drawn on the CPU and moved: the same params on every device
     gen = torch.Generator().manual_seed(seed)
-    params = models.init_params(cfg, gen, device=device)
-    return cfg, params, _images(gen, 8, 8, device)
+    params = tree_map(lambda t: t.to(device),
+                      models.init_params(cfg, gen, device="cpu"))
+    return cfg, params, _tokens(gen, 8, 16, cfg.vocab_size, device)
 
 
-def _images(gen: torch.Generator, n: int, res: int, device) -> dict:
-    return {"images": torch.rand((n, res, res, 3), generator=gen).to(device),
-            "labels": torch.randint(0, 10, (n,), generator=gen,
-                                    dtype=torch.int32).to(device)}
+def _tokens(gen: torch.Generator, n: int, seq: int, vocab: int,
+            device) -> dict:
+    """A batch whose labels are its tokens, as the reference's."""
+    t = torch.randint(0, vocab, (n, seq), generator=gen,
+                      dtype=torch.int32).to(device)
+    return {"tokens": t, "labels": t}
 
 
 def _grad_fn(cfg):
@@ -110,14 +125,18 @@ def _copy(tree):
 
 @contextlib.contextmanager
 def _deterministic():
-    """cuDNN's deterministic kernels for the bit-for-bit checks: its
-    default kernels do not repeat themselves on the card."""
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
+    """PyTorch's deterministic mode for the bit-for-bit checks: the
+    backward's atomic accumulations (the embedding's ``index_put``, the
+    loss's ``scatter_add``) do not repeat themselves on the card.  It
+    asks for a fixed cuBLAS workspace, which ``CUBLAS_WORKSPACE_CONFIG``
+    sets (``:4096:8`` unless the caller set one)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
     try:
         yield
     finally:
-        torch.backends.cudnn.deterministic = prev
+        torch.use_deterministic_algorithms(prev)
 
 
 def check_merge_parity(*, seed: int = 0, lr_sim: float = 0.05,
@@ -199,10 +218,11 @@ def check_backend_parity(*, seed: int = 0, lr: float = 0.05,
     # one large worker, factor 1.0, exactly 1 iteration per epoch (d == B_L)
     plan = solve_plan(tm, B_L=8, d=8, n_workers=1, n_small=0, k=1.0)
     gen = torch.Generator().manual_seed(seed + 2)
-    batches = [_images(gen, 8, 8, device) for _ in range(4)]
-    phases = single_phase(input_size=8, n_steps=2, lr=lr, batch_size=8,
+    batches = [_tokens(gen, 8, 16, cfg.vocab_size, device)
+               for _ in range(4)]
+    phases = single_phase(input_size=16, n_steps=2, lr=lr, batch_size=8,
                           plan=plan, epochs=2) \
-        + single_phase(input_size=8, n_steps=2, lr=lr / 5, batch_size=8,
+        + single_phase(input_size=16, n_steps=2, lr=lr / 5, batch_size=8,
                        plan=plan, epochs=2)
     if mixed:
         layout = SpmdDualBatch(global_batch=8, n_workers=4, n_small=2,
@@ -254,11 +274,11 @@ def check_data_plane_parity(*, seed: int = 0, device=None) -> dict:
     cfg, params, _ = _tiny_setup(seed, device)
     tm = LinearTimeModel(a=1.0, b=24.6)
     plan = solve_plan(tm, B_L=2, d=64, n_workers=4, n_small=2, k=1.05)
-    phases = single_phase(input_size=8, n_steps=2, lr=0.01, batch_size=8,
+    phases = single_phase(input_size=16, n_steps=2, lr=0.01, batch_size=8,
                           plan=plan, epochs=1) \
-        + single_phase(input_size=16, n_steps=2, lr=0.01, batch_size=8,
+        + single_phase(input_size=32, n_steps=2, lr=0.01, batch_size=8,
                        plan=plan, epochs=1)
-    data = SyntheticImages(n_train=256, n_test=16, num_classes=10, seed=seed)
+    data = SyntheticTokens(vocab=cfg.vocab_size, seed=seed, n_examples=256)
 
     # (a) per-worker stream identity, the sim drawing in reversed worker
     # order at the WorkerSpec batch sizes
@@ -273,18 +293,18 @@ def check_data_plane_parity(*, seed: int = 0, device=None) -> dict:
         sim_draws = {}
         for t in range(phase.n_steps):
             for (w, _, _), spec in reversed(list(zip(rows, specs))):
-                sim_draws[(w, t)] = df(None, w, spec.batch_size)["images"]
+                sim_draws[(w, t)] = df(None, w, spec.batch_size)["tokens"]
         for t in range(phase.n_steps):
             gb = plane(phase, plane._starts[pi] + t)
             ofs = 0
             for w, valid, rcount in rows:
                 canon = torch.from_numpy(data.batch_at(
                     plane.worker_indices(pi, w, t, valid),
-                    phase.input_size)["images"])
+                    phase.input_size)["tokens"])
                 assert torch.equal(sim_draws[(w, t)].cpu(), canon), \
                     f"sim stream diverges at phase {pi} worker {w} step {t}"
                 assert torch.equal(torch.from_numpy(
-                    gb["images"][ofs:ofs + valid]), canon), \
+                    gb["tokens"][ofs:ofs + valid]), canon), \
                     f"spmd rows diverge at phase {pi} worker {w} step {t}"
                 ofs += rcount
                 checked += 1
@@ -338,17 +358,19 @@ def check_trace_parity(*, seed: int = 0, precision: str = "f32",
     losses within ``atol + 1e-2`` (the reference's bands)."""
     device = _device(device)
     cfg, params, _ = _tiny_setup(seed, device)
-    bank = _images(torch.Generator().manual_seed(seed + 3), 128, 8, device)
+    toks = torch.from_numpy(np.random.RandomState(seed + 3).randint(
+        0, cfg.vocab_size, (128, 16)).astype(np.int32)).to(device)
     grad_fn = _grad_fn(cfg)
 
     def data_fn(rng, wid, bsz):
-        idx = torch.from_numpy(rng.integers(0, 128, size=bsz)).to(device)
-        return {k: v[idx] for k, v in bank.items()}
+        idx = torch.from_numpy(rng.integers(0, len(toks), size=bsz))
+        t = toks[idx.to(device)]
+        return {"tokens": t, "labels": t}
 
     def eval_fn(p):
         with torch.no_grad():
-            loss, _ = models.loss_fn(p, cfg, {k: v[:8]
-                                              for k, v in bank.items()})
+            loss, _ = models.loss_fn(p, cfg, {"tokens": toks[:8],
+                                              "labels": toks[:8]})
         return {"loss": float(loss)}
 
     workers = [WorkerSpec(8, 16, 1.0, 0.1, 0.2),     # B_L rows
@@ -416,9 +438,5 @@ if __name__ == "__main__":
     ap.add_argument("--device", default=None,
                     help="where to run (default: the card)")
     dev = resolve_device(ap.parse_args().device)
-    if dev.type == "cpu":
-        # multi-threaded oneDNN conv backward has aborted the process on
-        # small ResNets (ROADMAP C5)
-        torch.set_num_threads(1)
     print(json.dumps(check_parity(device=dev), indent=1))
     print("parity OK")

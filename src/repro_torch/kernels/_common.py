@@ -1,5 +1,6 @@
 """What the prefill kernels' wrappers share: launch and plain-run counts,
-the checks before a launch, and the ``ctypes`` plumbing."""
+the checks before a launch, the meta-device route of a cost count
+(``launch.hlo_analysis``), and the ``ctypes`` plumbing."""
 from __future__ import annotations
 
 import ctypes
@@ -14,18 +15,24 @@ class Counts:
     """Kernel launches and plain-version runs per kernel and variant.
 
     ``launch`` is called where a wrapper launches its kernel and nowhere
-    else; ``plain`` where it runs its plain version for CPU tensors."""
+    else; ``plain`` where it runs its plain version for CPU tensors;
+    ``meta`` where it stands in for a launch on meta tensors under a cost
+    count (kept apart: no kernel ran)."""
 
     def __init__(self, variants: Dict[str, Tuple[str, ...]]):
         self.variants = variants
         self._launches = {k: dict.fromkeys(vs, 0) for k, vs in variants.items()}
         self._plain = {k: dict.fromkeys(vs, 0) for k, vs in variants.items()}
+        self._meta = {k: dict.fromkeys(vs, 0) for k, vs in variants.items()}
 
     def launch(self, kernel: str, variant: str) -> None:
         self._launches[kernel][variant] += 1
 
     def plain(self, kernel: str, variant: str) -> None:
         self._plain[kernel][variant] += 1
+
+    def meta(self, kernel: str, variant: str) -> None:
+        self._meta[kernel][variant] += 1
 
     def launch_count(self, kernel: Optional[str] = None,
                      variant: Optional[str] = None) -> int:
@@ -35,8 +42,12 @@ class Counts:
                     variant: Optional[str] = None) -> int:
         return self._count(self._plain, kernel, variant)
 
+    def meta_count(self, kernel: Optional[str] = None,
+                   variant: Optional[str] = None) -> int:
+        return self._count(self._meta, kernel, variant)
+
     def reset(self) -> None:
-        for table in (self._launches, self._plain):
+        for table in (self._launches, self._plain, self._meta):
             for per in table.values():
                 for v in per:
                     per[v] = 0
@@ -52,6 +63,36 @@ def variant_of(t: torch.Tensor) -> str:
     return "bf16" if t.dtype == torch.bfloat16 else "f32"
 
 
+def _counter():
+    from repro_torch.launch.hlo_analysis import active
+    return active()
+
+
+def counted_meta(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes a wrapper's meta route: a meta tensor while a
+    cost count is active.  A meta tensor holds no data, so outside a
+    count it is refused like any other device without the kernel."""
+    return t.device.type == "meta" and _counter() is not None
+
+
+def add_work(name: str, work) -> None:
+    """Add the kernel's own work to the active cost count, if any:
+    ``work()`` gives its (FLOPs, bytes), by the formula beside the
+    wrapper."""
+    counter = _counter()
+    if counter is not None:
+        counter.add_kernel(name, *work())
+
+
+def meta_launch(counts: "Counts", name: str, variant: str, out, work):
+    """The meta route of a wrapper, after its checks: ``out`` (an empty
+    meta tensor of the kernel's output shape, dtype and layout), the
+    kernel's work added to the count, one meta launch counted."""
+    add_work(name, work)
+    counts.meta(name, variant)
+    return out
+
+
 def check_launchable(name: str, *ts: torch.Tensor,
                      contiguous: bool = True) -> None:
     """Before a launch: every tensor on one CUDA device, contiguous (unless
@@ -60,7 +101,7 @@ def check_launchable(name: str, *ts: torch.Tensor,
     train through the differentiable scans, which ``models.forward(...,
     train=True)`` selects)."""
     dev = ts[0].device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not counted_meta(ts[0]):
         raise ValueError(f"no {name} kernel for {dev}")
     for t in ts:
         if t.device != dev:

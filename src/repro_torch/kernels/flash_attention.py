@@ -24,6 +24,11 @@ For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor — and only then — it runs the plain version, the naive-softmax
 oracle ``ref.flash_attention_ref``.  ``launch_count`` counts kernel
 launches, ``plain_count`` plain runs, per dtype (``f32``, ``bf16``).
+
+Under a cost count (``launch.hlo_analysis``) a launch adds the kernel's
+own work, ``flash_attention_work``; meta tensors then take the card's
+checks and return an empty output of the kernel's shape (``meta_count``),
+and outside a count they are refused like any other device.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ KERNEL_VARIANTS = {"flash_attention": ("f32", "bf16")}
 _COUNTS = _c.Counts(KERNEL_VARIANTS)
 launch_count = _COUNTS.launch_count
 plain_count = _COUNTS.plain_count
+meta_count = _COUNTS.meta_count
 reset_counts = _COUNTS.reset
 
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
@@ -45,6 +51,31 @@ HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 # the plain form of ``flash_attention``: the naive-softmax oracle
 flash_attention_plain = flash_attention_ref
+
+
+def band_pairs(sq: int, sk: int, *, causal: bool = True, window: int = 0,
+               q_offset: int = 0) -> int:
+    """(query, key) pairs the mask keeps: query ``i`` at ``q_offset + i``
+    attends to keys ``j < sk`` with ``j <= q_offset + i`` (and ``q_offset +
+    i - j < window`` when ``window > 0``) when ``causal``."""
+    if not causal:
+        return sq * sk
+    p = torch.arange(q_offset, q_offset + sq, dtype=torch.int64)
+    hi = p.clamp(max=sk - 1)
+    lo = (p - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(p)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def flash_attention_work(q, k, v, *, causal: bool = True, window: int = 0,
+                         q_offset: int = 0):
+    """(FLOPs, bytes) of one B4 call, the bound's formula: q, k, v read
+    once and the output written once; 4·hd operations a kept (query head,
+    key) pair (QKᵀ and PV), the masked ones skipped."""
+    b, h, sq, hd = q.shape
+    pairs = band_pairs(sq, k.shape[2], causal=causal, window=int(window),
+                       q_offset=int(q_offset))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return 4 * hd * b * h * pairs, nbytes
 
 
 def _lib():
@@ -90,6 +121,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} is not one of {HEAD_DIMS}")
     _c.check_launchable(name, q, k, v)
+    work = lambda: flash_attention_work(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset)
+    if q.device.type == "meta":
+        return _c.meta_launch(_COUNTS, name, variant, torch.empty_like(q),
+                              work)
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: the bf16 kernel loads by TMA from "
                          "16-byte-aligned tensors")
@@ -101,4 +137,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         _c.stream_of(q))
     _c.raise_on(err, name)
     _COUNTS.launch(name, variant)
+    _c.add_work(name, work)
     return out

@@ -35,7 +35,10 @@ tensor — and only then — it runs the plain PyTorch version
 a tolerance (the softmax's order and ``exp`` differ).  ``launch_count``
 counts kernel launches, ``plain_count`` runs of the plain versions;
 ``KERNEL_VARIANTS`` maps each kernel to its variants, named by the cache
-dtype (``f32``, ``bf16``).
+dtype (``f32``, ``bf16``).  Under a cost count (``launch.hlo_analysis``)
+a B5 launch adds its own work, ``flash_decode_work``, and meta tensors
+take B5's checks and the meta route (``_common.meta_launch``,
+``meta_count``); outside a count they are refused.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ KERNEL_VARIANTS = {"flash_decode": ("f32", "bf16"),
 _COUNTS = _c.Counts(KERNEL_VARIANTS)
 launch_count = _COUNTS.launch_count     # CUDA kernel launches so far
 plain_count = _COUNTS.plain_count       # runs of the plain versions
+meta_count = _COUNTS.meta_count         # meta stand-ins under a cost count
 reset_counts = _COUNTS.reset
 
 MAX_HEAD_DIM = 256
@@ -179,6 +183,31 @@ def resolve_impl(impl: str, device) -> str:
         return impl
     raise ValueError(f"impl {impl!r} cannot run on {dev}: the kernel needs "
                      "CUDA tensors, the plain version runs for CPU tensors")
+
+
+def live_keys(pos, n_keys: int, window: int = 0) -> int:
+    """Keys one row attends to at position ``pos`` (a host int) over a
+    cache of ``n_keys``: ``j <= pos``, within the last ``window`` when
+    ``window > 0``.  A tensor ``pos`` is not read (that would wait on the
+    card, and a meta one has no value): the row counts at the cache's
+    last position, the decode step its shapes describe."""
+    if isinstance(pos, torch.Tensor):
+        pos = n_keys - 1
+    hi = min(pos, n_keys - 1)
+    lo = max(0, pos - window + 1) if window > 0 else 0
+    return max(0, hi - lo + 1)
+
+
+def flash_decode_work(q, k_cache, pos, *, window: int = 0):
+    """(FLOPs, bytes) of one B5 call, the bound's formula: each live K and
+    V row read once (``live_keys``), q read and the output written once;
+    4·hd operations a (query head, live key)."""
+    rows, h, _, hd = q.shape
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
+    live = live_keys(pos, s, int(window)) * rows
+    nbytes = live * kvh * hd * 2 * k_cache.element_size() \
+        + 2 * q.numel() * q.element_size()
+    return live * h * hd * 4, nbytes
 
 
 # -- plain PyTorch versions --------------------------------------------------
@@ -316,7 +345,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: int = 0, split=None):
     if q.device.type == "cpu":
         _COUNTS.plain(name, variant)
         return _xla_decode(q, k_cache, v_cache, pos, window=window)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not _c.counted_meta(q):
         raise ValueError(f"no {name} kernel for {q.device}")
     _contiguous(name, q)
     for label, t in (("k_cache", k_cache), ("v_cache", v_cache)):
@@ -335,6 +364,10 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: int = 0, split=None):
                              "16-byte pieces and needs 16-byte-aligned rows; "
                              f"got strides {t.stride()} and base offset "
                              f"{t.data_ptr() % 16}")
+    work = lambda: flash_decode_work(q, k_cache, pos, window=window)
+    if q.device.type == "meta":
+        return _c.meta_launch(_COUNTS, name, variant, torch.empty_like(q),
+                              work)
     b, h, _, hd = q.shape
     kvh, s = k_cache.shape[1], k_cache.shape[2]
     if split is None:
@@ -349,6 +382,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: int = 0, split=None):
         _is_bf16(k_cache), *strides, int(split), _c.stream_of(q))
     _c.raise_on(err, name)
     _COUNTS.launch(name, variant)
+    _c.add_work(name, work)
     return out
 
 

@@ -29,7 +29,9 @@ For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor — and only then — it runs the plain version, the per-step oracle
 ``ref.ssd_scan_ref`` in the kernel's ``(Bt, H, S, P)`` layout.
 ``launch_count`` counts kernel launches, ``plain_count`` plain runs, per
-dtype of x (``f32``, ``bf16``).
+dtype of x (``f32``, ``bf16``).  Under a cost count a launch adds
+``mamba_ssd_work``, and meta tensors take the card's checks and the
+meta route (``_common.meta_launch``, ``meta_count``).
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ KERNEL_VARIANTS = {"mamba_ssd_scan": ("f32", "bf16")}
 _COUNTS = _c.Counts(KERNEL_VARIANTS)
 launch_count = _COUNTS.launch_count
 plain_count = _COUNTS.plain_count
+meta_count = _COUNTS.meta_count
 reset_counts = _COUNTS.reset
 
 STATE_DIMS = (8, 16, 32, 64, 128)
@@ -55,6 +58,31 @@ def mamba_ssd_plain(x, dt, A_log, B, C, D_skip):
     y, _ = ssd_scan_ref(x.transpose(1, 2), dt.transpose(1, 2), A_log, B, C,
                         D_skip)
     return y.transpose(1, 2).contiguous()
+
+
+def ssd_chunked_flops(bt, h, s, p, n, q=64):
+    """The products of B7's bf16 form: per (b, h) and chunk of q steps,
+    C·Bᵀ (q x q x N), the masked decay matrix's two bf16 parts times x (q x
+    q x P), C times the state's two parts (q x N x P, from the second chunk
+    on) and xᵀ times W's two parts (P x q x N), 2 operations a
+    multiply-add; a ragged last chunk runs whole."""
+    nc = -(-s // q)
+    per_chunk = 2 * q * q * n + 2 * (2 * q * q * p) + 2 * (2 * p * q * n)
+    return bt * h * (nc * per_chunk + (nc - 1) * 2 * (2 * q * n * p))
+
+
+def mamba_ssd_work(x, dt, A_log, B, C, D_skip):
+    """(FLOPs, bytes) of one B7 call, the bound's formula: x, B, C read
+    once, y written once, dt, A_log and D read as f32; the bf16 form's
+    chunked products (``ssd_chunked_flops``, splits included), the f32
+    form's step recurrence 5·P·N operations a (b, h, step)."""
+    bt, h, s, p = x.shape
+    n = B.shape[-1]
+    nbytes = (2 * x.numel() + B.numel() + C.numel()) * x.element_size() \
+        + 4 * (dt.numel() + 2 * h)
+    if x.dtype == torch.bfloat16:
+        return ssd_chunked_flops(bt, h, s, p, n), nbytes
+    return 5 * p * n * s * bt * h, nbytes
 
 
 def _lib():
@@ -110,6 +138,11 @@ def mamba_ssd_scan(x, dt, A_log, B, C, D_skip, *, chunk: int = 128):
     _c.check_launchable(name, x, dt, A_log, B, C, D_skip, contiguous=False)
     bf16 = x.dtype == torch.bfloat16
     _check_loads(name, x, B, C, bf16)
+    work = lambda: mamba_ssd_work(x, dt, A_log, B, C, D_skip)
+    if x.device.type == "meta":
+        y = torch.empty((bt, s, h, p), dtype=x.dtype,
+                        device=x.device).transpose(1, 2)
+        return _c.meta_launch(_COUNTS, name, variant, y, work)
     dtf = dt.float()
     af, df = (t.float().contiguous() for t in (A_log, D_skip))
     y = torch.empty((bt, s, h, p), dtype=x.dtype,
@@ -124,4 +157,5 @@ def mamba_ssd_scan(x, dt, A_log, B, C, D_skip, *, chunk: int = 128):
         int(bf16), _c.stream_of(x))
     _c.raise_on(err, name)
     _COUNTS.launch(name, variant)
+    _c.add_work(name, work)
     return y

@@ -31,7 +31,9 @@ For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor — and only then — it runs the plain version, the per-step oracle
 ``ref.wkv6_ref`` in the kernel's ``(B, H, S, ·)`` layout.  ``launch_count``
 counts kernel launches, ``plain_count`` plain runs, per dtype of r
-(``f32``, ``bf16``).
+(``f32``, ``bf16``).  Under a cost count a launch adds ``wkv6_work``, and
+meta tensors take the card's checks and the meta route
+(``_common.meta_launch``, ``meta_count``).
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ KERNEL_VARIANTS = {"wkv6_chunked": ("f32", "bf16")}
 _COUNTS = _c.Counts(KERNEL_VARIANTS)
 launch_count = _COUNTS.launch_count
 plain_count = _COUNTS.plain_count
+meta_count = _COUNTS.meta_count
 reset_counts = _COUNTS.reset
 
 KEY_DIMS = (32, 64, 128)
@@ -59,6 +62,35 @@ def wkv6_plain(r, k, v, w, u, *, out_dtype=None):
     tr = lambda t: t.transpose(1, 2)
     y, _ = wkv6_ref(tr(r), tr(k), tr(v), tr(w), u, out_dtype=out_dtype)
     return tr(y).contiguous()
+
+
+def wkv_chunked_flops(b, h, s, kd, vd, q=64, sub=16, parts=3):
+    """The products of B8's tensor-core form: per (b, h) and chunk of q
+    steps, with K padded to 64 and each f32 operand in ``parts`` bf16
+    parts (6 products of two split sides, 3 against an exact one): y_inter
+    (q x K x V, from the second chunk on), the 3 off-diagonal block
+    columns of A (q x K x 16 each), A·v (q x q x V) and the state update
+    (K x q x V), 2 operations a multiply-add; a ragged last chunk runs
+    whole."""
+    kp, nc = 64, -(-s // q)
+    two, one = parts * (parts + 1) // 2, parts
+    per_chunk = (2 * (q // sub - 1) * two * q * kp * sub
+                 + 2 * one * q * q * vd + 2 * one * kp * q * vd)
+    return b * h * (nc * per_chunk + (nc - 1) * 2 * two * q * kp * vd)
+
+
+def wkv6_work(r, k, v, w, u, *, out_dtype=None):
+    """(FLOPs, bytes) of one B8 call, the bound's formula: r, k, v, w, u
+    read once and y written once in ``out_dtype``; the tensor-core form's
+    chunked products (``wkv_chunked_flops``), the step recurrence's 7·K·V
+    operations a (b, h, step)."""
+    b, h, s, kd = r.shape
+    y_size = (out_dtype or r.dtype).itemsize
+    nbytes = (2 * r.numel() + v.numel()) * r.element_size() \
+        + w.numel() * w.element_size() + v.numel() * y_size + 4 * u.numel()
+    if tensor_core_route(r, k):
+        return wkv_chunked_flops(b, h, s, kd, v.shape[-1]), nbytes
+    return 7 * kd * v.shape[-1] * s * b * h, nbytes
 
 
 def _lib():
@@ -122,9 +154,12 @@ def wkv6_chunked(r, k, v, w, u, *, chunk: int = 128, out_dtype=None):
         _c.check_last_contiguous(name, label, t)
         if tc:
             _c.check_tma(name, label, t)
-    uf = u.float().contiguous()
+    work = lambda: wkv6_work(r, k, v, w, u, out_dtype=out_dtype)
     y = torch.empty((b, s, h, vd), dtype=out_dtype,
                     device=r.device).transpose(1, 2)
+    if r.device.type == "meta":
+        return _c.meta_launch(_COUNTS, name, variant, y, work)
+    uf = u.float().contiguous()
     strides = (ctypes.c_int64 * 15)(
         *(st for t in (r, k, v, w, y) for st in _c.strides_of(t, (0, 1, 2))))
     err = _lib().repro_wkv6(
@@ -134,4 +169,5 @@ def wkv6_chunked(r, k, v, w, u, *, chunk: int = 128, out_dtype=None):
         _c.stream_of(r))
     _c.raise_on(err, name)
     _COUNTS.launch(name, variant)
+    _c.add_work(name, work)
     return y

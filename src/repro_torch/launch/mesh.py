@@ -4,8 +4,9 @@
 The process group comes first: ``init_process_group`` with its address,
 world size and rank, which the caller gives (nothing on a host tells a
 program of a cluster).  These functions lay the group's ranks out as a
-named ``DeviceMesh``.  The reference's TPU constants stay there; the
-card's come with the roofline that uses them (ROADMAP A16).
+named ``DeviceMesh``.  The card's constants, which the roofline of
+``launch/hlo_analysis.py`` prices a step with, live here as the
+reference keeps its TPU's in its own ``launch/mesh.py``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,40 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.core.dtensor import axis_sizes
 from repro_torch.device import resolve_device
+
+# NVIDIA H100 SXM5 (NVIDIA's H100 Tensor Core GPU datasheet), per card
+PEAK_FLOPS_BF16 = 989e12     # FLOP/s, dense bf16 on the tensor cores
+HBM_BW = 3.35e12             # bytes/s, HBM3
+NVLINK_LINKS = 18            # NVLink 4 links a card ...
+NVLINK_BW = 900e9 / NVLINK_LINKS   # ... 900 GB/s a card in total
+IB_BW = 400e9 / 8            # bytes/s, one InfiniBand NDR port (400 Gb/s)
+#                              a card between nodes
+CARDS_PER_NODE = 8           # an HGX H100 node: 8 cards on one NVLink switch
+
+
+def axis_links(shape, axes, cards_per_node: int = CARDS_PER_NODE) -> dict:
+    """``{axis: "nvlink" or "infiniband"}``: the slowest link each axis of
+    a row-major mesh ``shape`` crosses when its ranks fill nodes of
+    ``cards_per_node`` in rank order.  An axis stays on NVLink only when
+    every group of it lies within one node: its stride times its size is
+    at most a node, and a node holds whole groups.  On the 16 x 16
+    production mesh (32 nodes of 8) the ``model`` axis (stride 1, 16
+    ranks) spans two nodes and ``data`` (stride 16) one rank a node, so
+    both cross InfiniBand, as does ``pod``."""
+    out, stride = {}, 1
+    for name, n in reversed(list(zip(axes, shape))):
+        span = stride * n
+        inside = n == 1 or (span <= cards_per_node
+                            and cards_per_node % span == 0)
+        out[name] = "nvlink" if inside else "infiniband"
+        stride = span
+    return {a: out[a] for a in axes}
+
+
+def link_bandwidth(link: str) -> float:
+    """Bytes/s a card moves over ``link``: all its NVLink links, or its one
+    InfiniBand port."""
+    return NVLINK_LINKS * NVLINK_BW if link == "nvlink" else IB_BW
 
 
 def _world() -> int:

@@ -8,7 +8,9 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, InputShape, ModelConfig
+from repro_torch.core.dtensor import is_dtensor
 from repro_torch.device import strict_f32
+from repro_torch.launch.hlo_analysis import active
 from repro_torch.launch.specs import effective_window
 from repro_torch.optim import Optimizer
 
@@ -44,11 +46,15 @@ def make_prefill_step(cfg: ModelConfig):
     """(params, tokens) -> last-position logits (B, V); for an
     encoder-decoder (params, tokens, frames), the frames (B, S_enc, D).
     Under ``torch.inference_mode()`` (the kernels on its path have no
-    backward).  On the card it turns TF32 off first (process-wide, as the
-    engines do): an f32 config computes in f32."""
+    backward), or ``torch.no_grad()`` on a mesh or under a cost count
+    (``launch.hlo_analysis``): inference mode bypasses the count's
+    dispatch mode, and DTensor's collectives refuse inference tensors.
+    On the card it turns TF32 off first (process-wide, as the engines
+    do): an f32 config computes in f32."""
     def last_logits(params, tokens, *frames):
         strict_f32(tokens.device)
-        with torch.inference_mode():
+        plain = active() is None and not is_dtensor(tokens)
+        with torch.inference_mode() if plain else torch.no_grad():
             logits = models.forward(params, cfg, tokens, *frames,
                                     last_only=True)
         return logits[:, 0]

@@ -23,7 +23,8 @@ bf16 on the card the model therefore computes with f32 scores and f32
 ``decode_attention`` is one query token over a ``(B, S, KV, hd)``
 cache: on the CPU the reference's einsum form line for line (f32 scores
 and softmax), on the card the kernel B5 (``kernels.flash_decode``),
-which reads the cache where it lies.  The paged serve step has its own
+which reads the cache where it lies.  On a mesh both kernels run on
+each rank's own batch rows and heads.  The paged serve step has its own
 decode math (``serve.paged``).
 """
 from __future__ import annotations
@@ -35,8 +36,10 @@ import torch
 from repro_torch.core.dtensor import is_dtensor
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.launch.hlo_analysis import fused
 from repro_torch.models.layers import apply_rope
-from repro_torch.models.shard_ctx import constrain, on_shards
+from repro_torch.models.shard_ctx import (constrain, on_rank_shards,
+                                         split_heads)
 
 NEG_INF = -1e30
 
@@ -56,9 +59,9 @@ def attn_project_qkv(p, x, positions, cfg, *, rope=None):
     holds them for several layers."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kvh, hd)
-    v = (x @ p["wv"]).reshape(b, s, kvh, hd)
+    q = split_heads(x @ p["wq"], (b, s, h, hd))
+    k = split_heads(x @ p["wk"], (b, s, kvh, hd))
+    v = split_heads(x @ p["wv"], (b, s, kvh, hd))
     q = apply_rope(q, positions, cfg.rope_theta, tables=rope)
     k = apply_rope(k, positions, cfg.rope_theta, tables=rope)
     return q, k, v
@@ -88,18 +91,26 @@ def chunked_attention(q, k, v, *, window: int = 0, causal: bool = True,
         # on a mesh, each rank attends over its own batch rows and heads:
         # the reference's "bh.." constraints on q, k and v (its
         # attention.py:70-73) as the local shards' placements
-        return on_shards(partial(chunked_attention, window=window,
-                                 causal=causal, block_k=block_k,
-                                 q_offset=q_offset, train=train),
-                         (q, k, v))
-    b, sq, h, hd = q.shape
-    sk, kv = k.shape[1], k.shape[2]
+        return on_rank_shards(partial(chunked_attention, window=window,
+                                      causal=causal, block_k=block_k,
+                                      q_offset=q_offset, train=train),
+                              (q, k, v), ("b.h.",) * 3, "b.h.")
     window = int(window)
     if q.device.type != "cpu" and not train:
         t = lambda a: a.transpose(1, 2).contiguous()
         o = _fa.flash_attention(t(q), t(k), t(v), causal=causal,
                                 window=window, q_offset=q_offset)
         return o.transpose(1, 2)
+    # B4's work in its plain form: a cost count keeps the scan's scores
+    # and probabilities out of its device-memory bytes
+    return fused(_attention_scan, q, k, v, window=window, causal=causal,
+                 block_k=block_k, q_offset=q_offset)
+
+
+def _attention_scan(q, k, v, *, window, causal, block_k, q_offset):
+    """The reference's XLA scan (``chunked_attention``'s plain form)."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
     n_rep = h // kv
     k = gqa_expand(k, n_rep)
     v = gqa_expand(v, n_rep)
@@ -160,9 +171,17 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
     on the CPU the reference's einsum form (f32 scores, softmax and
     product), the same bits for either form of ``pos``."""
     if q.device.type != "cpu":
-        o = _fd.flash_decode(q.transpose(1, 2), k_cache.transpose(1, 2),
-                             v_cache.transpose(1, 2), pos, window=window)
-        return o.transpose(1, 2)
+        # on a mesh each rank attends over its own batch rows and heads
+        t = lambda a: a.transpose(1, 2)
+        return on_rank_shards(
+            lambda q, k, v: t(_fd.flash_decode(t(q), t(k), t(v), pos,
+                                               window=window)),
+            (q, k_cache, v_cache), ("b.h.",) * 3, "b.h.")
+    return fused(_decode_einsum, q, k_cache, v_cache, pos, window=window)
+
+
+def _decode_einsum(q, k_cache, v_cache, pos, *, window):
+    """The reference's einsum form (``decode_attention``'s plain form)."""
     b, _, h, hd = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
     n_rep = h // kvh
@@ -202,7 +221,7 @@ def cross_attention_block(p, x, enc_kv, cfg, *, train: bool = False):
     as ``attention_block``'s does."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    q = split_heads(x @ p["wq"], (b, s, h, hd))
     senc = enc_kv.shape[1]
     k = (enc_kv @ p["wk"]).reshape(b, senc, kvh, hd)
     v = (enc_kv @ p["wv"]).reshape(b, senc, kvh, hd)

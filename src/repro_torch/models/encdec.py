@@ -188,7 +188,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
     only (its RoPE positions are ``jnp.full((b, 1), pos)``), and
     ``generate`` steps this family one token at a time.  Returns (logits
     (B, 1, V) in the compute dtype, ``cache``)."""
-    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    x = lookup(params["embed"], tokens).to(dtype_of(cfg.compute_dtype))
     b, t = x.shape[:2]
     if t != 1:
         raise ValueError(f"an encoder-decoder decode step takes one token, "

@@ -131,8 +131,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _chunk_nll(h, head, labels, mask):
-    """Masked token NLL sums and counts of one sequence chunk."""
-    logits = torch.einsum("bqd,vd->bqv", h, head).float()
+    """Masked token NLL sums and counts of one sequence chunk.  On a mesh
+    the vocab dim is gathered whole first, as in ``cross_entropy``."""
+    logits = whole(torch.einsum("bqd,vd->bqv", h, head).float(), -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = (logz - gold) * mask

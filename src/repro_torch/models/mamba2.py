@@ -21,13 +21,17 @@ token need no kernel of their own.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import mamba_scan as _ssd
+from repro_torch.launch.hlo_analysis import fused
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.shard_ctx import constrain
+from repro_torch.models.shard_ctx import (constrain, on_rank_shards,
+                                         split_heads)
 
 
 def ssd_chunked(x, dt, A_log, B, C, D_skip, *, chunk: int, h0=None):
@@ -40,7 +44,16 @@ def ssd_chunked(x, dt, A_log, B, C, D_skip, *, chunk: int, h0=None):
     D_skip: (H,)       skip connection
     h0: optional (Bt, H, P, N) initial state
     Returns y (Bt, S, H, P) in x's dtype and the final state (Bt, H, P, N).
+    On a mesh each rank scans its own batch rows and heads over the whole
+    sequence.
     """
+    return on_rank_shards(
+        partial(_ssd_chunked, chunk=chunk), (x, dt, A_log, B, C, D_skip, h0),
+        ("b.h.", "b.h", "h", "b..", "b..", "h",
+         None if h0 is None else "bh.."), ("b.h.", "bh.."))
+
+
+def _ssd_chunked(x, dt, A_log, B, C, D_skip, h0, *, chunk: int):
     bt, s, h, p = x.shape
     n = B.shape[-1]
     q = min(chunk, s)
@@ -136,8 +149,8 @@ def mamba2_split(p, x, cfg):
 
 
 def mamba2_block(p, x, cfg, *, train: bool = False):
-    """Full Mamba2 block.  x: (Bt, S, D) -> (Bt, S, D).  On CUDA tensors
-    the SSD scan is B7, unless ``train`` asks for the differentiable
+    """Full Mamba2 block.  x: (Bt, S, D) -> (Bt, S, D).  Off the CPU the
+    SSD scan is B7, unless ``train`` asks for the differentiable
     ``ssd_chunked``."""
     s_cfg = cfg.ssm
     bt, s, _ = x.shape
@@ -146,17 +159,21 @@ def mamba2_block(p, x, cfg, *, train: bool = False):
     conv_out, _ = causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
     conv_out = F.silu(conv_out)
     xs, Bv, Cv = torch.split(conv_out, [d_in, n, n], dim=-1)
-    xh = constrain(xs.reshape(bt, s, nh, s_cfg.head_dim), "b.h.")
+    xh = constrain(split_heads(xs, (bt, s, nh, s_cfg.head_dim)), "b.h.")
     dt = constrain(dt, "b.h")
-    if x.device.type == "cuda" and not train:
+    if x.device.type != "cpu" and not train:
         # views in, a view out: B7 reads the strides of the conv output's
-        # columns and writes y in (Bt, S, H, P) memory
-        y = _ssd.mamba_ssd_scan(
-            xh.transpose(1, 2), dt.transpose(1, 2), p["A_log"], Bv, Cv,
-            p["D"], chunk=s_cfg.chunk).transpose(1, 2)
+        # columns and writes y in (Bt, S, H, P) memory; on a mesh each
+        # rank scans its own batch rows and heads
+        def scan(xh, dt, a_log, b, c, d):
+            return _ssd.mamba_ssd_scan(
+                xh.transpose(1, 2), dt.transpose(1, 2), a_log, b, c, d,
+                chunk=s_cfg.chunk).transpose(1, 2)
+        y = on_rank_shards(scan, (xh, dt, p["A_log"], Bv, Cv, p["D"]),
+                           ("b.h.", "b.h", "h", "b..", "b..", "h"), "b.h.")
     else:
-        y, _ = ssd_chunked(xh, dt, p["A_log"], Bv, Cv, p["D"],
-                           chunk=s_cfg.chunk)
+        y, _ = fused(ssd_chunked, xh, dt, p["A_log"], Bv, Cv, p["D"],
+                     chunk=s_cfg.chunk)
     y = y.reshape(bt, s, d_in) * F.silu(z)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps)
     return y @ p["w_out"]

@@ -91,6 +91,68 @@ def load_balance_loss(probs, top1_idx, num_experts: int):
     return num_experts * torch.sum(me * ce)
 
 
+def _experts(xe, wg, wi, wo):
+    h = torch.nn.functional.silu(torch.einsum("necd,edf->necf", xe, wg)) \
+        * torch.einsum("necd,edf->necf", xe, wi)
+    return torch.einsum("necf,efd->necd", h, wo)
+
+
+def expert_ffn(xe, wg, wi, wo):
+    """Each expert's SwiGLU on its capacity slots: xe (N, E', C, D), wg /
+    wi (E', D, F), wo (E', F, D) -> (N, E', C, D).  On a mesh it runs on
+    each rank's shards (``local_map``): the groups N over the data axes
+    where they divide, and on the model axis the experts where they
+    divide it, else the ff dim (the output then a pending sum), else
+    whole; the weights gathered over the data axes (their gradients a
+    pending sum there).  DTensor's own einsum makes views of strided
+    local shards that fail (arctic's 128 experts) and flattens uneven
+    expert shards in the backward (granite's 40)."""
+    from repro_torch.core.dtensor import axis_sizes, is_dtensor
+    if not is_dtensor(xe):
+        return _experts(xe, wg, wi, wo)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xe.device_mesh
+    sizes = axis_sizes(mesh)
+    data = [a for a in mesh.mesh_dim_names if a in ("pod", "data")]
+    dsize = 1
+    for a in data:
+        dsize *= sizes[a]
+    by_rows = xe.shape[0] % dsize == 0
+    m = sizes.get("model", 1)
+    mode = ("experts" if wg.shape[0] % m == 0 else
+            "ff" if wg.shape[2] % m == 0 else "whole") if m > 1 else "whole"
+    R, P = Replicate(), Partial()
+    x_in, x_grad, out, w_in, w_grad = [], [], [], [[], [], []], [[], [], []]
+    model_w = {"experts": (Shard(0), Shard(0), Shard(0)),
+               "ff": (Shard(2), Shard(2), Shard(1)),
+               "whole": (R, R, R)}[mode]
+    for a in mesh.mesh_dim_names:
+        if a in data:
+            xp = Shard(0) if by_rows and sizes[a] > 1 else R
+            x_in.append(xp)
+            x_grad.append(xp)
+            out.append(xp)
+            for i in range(3):
+                w_in[i].append(R)
+                w_grad[i].append(P if xp != R else R)
+        elif a == "model" and mode != "whole":
+            x_in.append(Shard(1) if mode == "experts" else R)
+            x_grad.append(Shard(1) if mode == "experts" else P)
+            out.append(Shard(1) if mode == "experts" else P)
+            for i in range(3):
+                w_in[i].append(model_w[i])
+                w_grad[i].append(model_w[i])
+        else:
+            for lst in (x_in, x_grad, out, *w_in, *w_grad):
+                lst.append(R)
+    return local_map(_experts, out_placements=out,
+                     in_placements=(x_in, *w_in),
+                     in_grad_placements=(x_grad, *w_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        xe, wg, wi, wo)
+
+
 def moe_ffn(p, x, moe_cfg, *, group_size: int | None = None,
             dropless: bool = False):
     """x: (B, S, D) -> ((B, S, D), the scalar aux loss).
@@ -133,10 +195,7 @@ def moe_ffn(p, x, moe_cfg, *, group_size: int | None = None,
     # expert-parallel under a mesh: experts on the model axis when they
     # divide it, else the ff dim (granite's 40 experts)
     xe = constrain_first(xe, ["bh..", "b..."])
-    h = torch.nn.functional.silu(torch.einsum("necd,edf->necf", xe, p["wg"])) \
-        * torch.einsum("necd,edf->necf", xe, p["wi"])
-    h = constrain_first(h, ["bh..", "b..m"])
-    ye = torch.einsum("necf,efd->necd", h, p["wo"])               # (N, E', C, D)
+    ye = expert_ffn(xe, p["wg"], p["wi"], p["wo"])               # (N, E', C, D)
     ye = constrain_first(ye, ["bh..", "b..."])
     # on a mesh the experts dim is gathered whole (and pending sums
     # reduced) for the combine: some DTensor releases cannot flatten a

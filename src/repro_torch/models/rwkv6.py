@@ -25,7 +25,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import wkv6 as _wkv
 from repro_torch.kernels.ref import wkv6_ref
-from repro_torch.models.shard_ctx import constrain
+from repro_torch.launch.hlo_analysis import fused
+from repro_torch.models.shard_ctx import (constrain, merge_heads,
+                                         on_rank_shards, split_heads)
 
 
 def token_shift(x, shift_state=None):
@@ -43,13 +45,26 @@ def wkv6_scan(r, k, v, w, u, state=None):
     Returns y (B,S,H,V) f32 and the final state: the per-step oracle
     ``ref.wkv6_ref`` from ``state``.  (The reference nests its scan in
     chunks only to bound its backward's memory, so its ``chunk`` argument
-    has no counterpart; the steps are the same.)"""
-    return wkv6_ref(r, k, v, w, u, state=state, out_dtype=torch.float32)
+    has no counterpart; the steps are the same.)  On a mesh each rank
+    scans its own batch rows and heads over the whole sequence."""
+    return on_rank_shards(
+        lambda r, k, v, w, u, state: wkv6_ref(r, k, v, w, u, state=state,
+                                              out_dtype=torch.float32),
+        (r, k, v, w, u, state),
+        ("b.h.",) * 4 + ("h.", None if state is None else "bh.."),
+        ("b.h.", "bh.."))
 
 
 def wkv6_step(S, r, k, v, w, u):
     """Single decode step. r,k,w: (B,H,K); v: (B,H,V); S: (B,H,K,V) f32.
-    Returns y (B,H,V) f32 and the new state."""
+    Returns y (B,H,V) f32 and the new state; on a mesh each rank steps
+    its own batch rows and heads."""
+    return on_rank_shards(_wkv6_step, (S, r, k, v, w, u),
+                          ("bh..", "bh.", "bh.", "bh.", "bh.", "h."),
+                          ("bh.", "bh.."))
+
+
+def _wkv6_step(S, r, k, v, w, u):
     kv = torch.einsum("bhk,bhv->bhkv", k.float(), v.float())
     y = torch.einsum("bhk,bhkv->bhv", r.float(),
                      S + u.float()[None, :, :, None] * kv)
@@ -94,7 +109,7 @@ def time_mix(p, x, cfg, *, shift_state=None, wkv_state=None,
     g = F.silu(_mix(x, xx, p["mu_g"]) @ p["w_g"])
     w = _ddecay(p, _mix(x, xx, p["mu_w"]))                     # (B,S,D)
 
-    r, k, v, w = (constrain(t.reshape(b, s, h, hd), "b.h.")
+    r, k, v, w = (constrain(split_heads(t, (b, s, h, hd)), "b.h.")
                   for t in (r, k, v, w))
     if decode:
         y, wkv_state = wkv6_step(wkv_state, r[:, 0], k[:, 0], v[:, 0],
@@ -102,16 +117,20 @@ def time_mix(p, x, cfg, *, shift_state=None, wkv_state=None,
         y = y[:, None]
     elif kernel:
         t = lambda a: a.transpose(1, 2)                      # (B,H,S,·) views
-        y = _wkv.wkv6_chunked(t(r), t(k), t(v), t(w), p["u"],
-                              out_dtype=torch.float32).transpose(1, 2)
+        # on a mesh each rank runs its own batch rows and heads
+        y = on_rank_shards(
+            lambda r, k, v, w, u: _wkv.wkv6_chunked(
+                t(r), t(k), t(v), t(w), u,
+                out_dtype=torch.float32).transpose(1, 2),
+            (r, k, v, w, p["u"]), ("b.h.",) * 4 + ("h.",), "b.h.")
     else:
-        y, wkv_state = wkv6_scan(r, k, v, w, p["u"], wkv_state)
+        y, wkv_state = fused(wkv6_scan, r, k, v, w, p["u"], wkv_state)
     # per-head group norm
     yf = y.float()
     mean = yf.mean(dim=-1, keepdim=True)
     var = yf.var(dim=-1, unbiased=False, keepdim=True)
     y = ((yf - mean) * torch.rsqrt(var + 64e-5)).to(x.dtype)
-    y = y.reshape(b, s, d) * g
+    y = merge_heads(y, (b, s, d)) * g
     return y @ p["w_o"], x[:, -1:], wkv_state
 
 

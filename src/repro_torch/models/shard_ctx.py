@@ -18,7 +18,7 @@ the mesh.
 
 The rest serve the mesh path whether or not the context is on, and each
 is the identity on plain tensors: ``whole`` gathers dims where DTensor's
-own strategy for the next op fails, ``on_shards`` and ``lookup`` run
+own strategy for the next op fails, ``on_rank_shards`` and ``lookup`` run
 per-row work on each rank's shards and ``on_whole`` whole-tensor work on
 every rank (``local_map``), and ``replicated_ops`` is the context a
 sharded step runs in.  The layer-free helpers (``is_dtensor``,
@@ -114,6 +114,34 @@ def whole(x, *dims):
     return _ContiguousGrad.apply(x.redistribute(x.device_mesh, pl))
 
 
+def split_heads(x, shape):
+    """``x.reshape(shape)`` where the last dim of ``x`` splits into
+    ``shape[-2]`` heads of ``shape[-1]``.  On a DTensor whose last dim is
+    sharded over a mesh dim that does not divide the heads, that dim is
+    gathered first: DTensor cannot unflatten an uneven shard (granite's
+    24 heads on a 16-wide model axis), where the reference's partitioner
+    gathers or pads on its own."""
+    if is_dtensor(x):
+        last, n = x.dim() - 1, shape[-2]
+        if any(p.is_shard(last) and n % x.device_mesh.size(i)
+               for i, p in enumerate(x.placements)):
+            x = whole(x, -1)
+    return x.reshape(shape)
+
+
+def merge_heads(x, shape):
+    """``x.reshape(shape)`` where the last two dims of ``x`` (heads, head
+    dim) merge into one.  On a DTensor whose head dim is sharded, it is
+    gathered first: DTensor cannot flatten a sharded inner dim (rwkv6's
+    64 heads of 64 on a 16-wide model axis, its heads whole and its head
+    dim split)."""
+    if is_dtensor(x):
+        last = x.dim() - 1
+        if any(p.is_shard(last) for p in x.placements):
+            x = whole(x, -1)
+    return x.reshape(shape)
+
+
 class _ContiguousGrad(torch.autograd.Function):
     """The identity, whose backward makes the gradient contiguous.  The
     backward of a gather cuts the whole gradient into shards, and the
@@ -131,37 +159,95 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def on_shards(fn, args):
-    """``fn(*args)`` on each rank's shards of the ``(B, S, H, hd)``
-    DTensors ``args``, each batch row and head where it lies
-    (``local_map``): the batch dim over the data axes and the head dim
-    over the model axis where every arg's dim divides, else whole.  For math that is independent per (batch
-    row, head) — attention — this is exactly the partition of the
-    reference's ``"bh.."`` constraint, and DTensor propagates nothing
-    inside (it cannot flatten a sharded head dim into the batch of a
-    product in every PyTorch release).  Returns one DTensor on the
-    args' placements."""
-    from torch.distributed.tensor import Replicate, Shard
+def on_rank_shards(fn, args, dims, out_dims):
+    """``fn(*args)`` on each rank's shards, for math independent per
+    (batch row, head) — attention, the scans (``local_map``): ``dims``
+    holds one tag string per arg (``"b"`` batch, ``"h"`` heads, ``"."``
+    any other dim; ``None`` for an arg passed as it is) and ``out_dims``
+    the output's (a tuple of them for several outputs).  The data axes
+    shard the ``"b"`` dims where every such dim divides their ranks, the
+    model axis the ``"h"`` dims where every one divides its ranks, and
+    the rest is whole (an arg whole on such an axis takes the sum of the
+    ranks' gradients): for attention exactly
+    the partition of the reference's ``"bh.."`` constraint.  DTensor
+    propagates nothing inside (it cannot flatten a sharded head dim into
+    the batch of a product in every PyTorch release), each kernel call
+    sees local shapes, and a cost count its work on one rank.  Without a
+    DTensor arg, ``fn(*args)``."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    mesh = args[0].device_mesh
+    mesh = next(a for a in args if is_dtensor(a)).device_mesh
     sizes = axis_sizes(mesh)
     data = [a for a in mesh.mesh_dim_names if a in ("pod", "data")]
     dsize = 1
     for a in data:
         dsize *= sizes[a]
-    shard_b = all(t.shape[0] % dsize == 0 for t in args)
-    pl = []
-    for a in mesh.mesh_dim_names:
-        if sizes[a] > 1 and a in data and shard_b:
-            pl.append(Shard(0))
-        elif sizes[a] > 1 and a == "model" and all(
-                t.shape[2] % sizes[a] == 0 for t in args):
-            pl.append(Shard(2))
-        else:
-            pl.append(Replicate())
-    # one output: its placements as a list (a tuple means one per output)
-    return local_map(fn, out_placements=pl, in_placements=(pl,) * len(args),
+    tagged = [(a, d) for a, d in zip(args, dims) if d is not None]
+    ok = {tag: any(tag in d for _, d in tagged)
+          and all(a.shape[d.index(tag)] % n == 0
+                  for a, d in tagged if tag in d)
+          for tag, n in (("b", dsize), ("h", sizes.get("model", 1)))}
+
+    def pl(d, grad=False):
+        out = []
+        for a in mesh.mesh_dim_names:
+            tag = "b" if a in data else "h" if a == "model" else None
+            split = tag is not None and sizes[a] > 1 and ok[tag]
+            if split and tag in d:
+                out.append(Shard(d.index(tag)))
+            elif split and grad:
+                # whole on ranks that each use their own rows or heads
+                # with it (a scan's decay, say): its gradient is their sum
+                out.append(Partial())
+            else:
+                out.append(Replicate())
+        return out
+    outs = tuple(pl(d) for d in out_dims) if isinstance(out_dims, tuple) \
+        else pl(out_dims)
+    return local_map(fn, out_placements=outs,
+                     in_placements=tuple(None if d is None else pl(d)
+                                         for d in dims),
+                     in_grad_placements=tuple(
+                         None if d is None else pl(d, grad=True)
+                         for d in dims),
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def write_rows(dst, dim: int, index, src) -> None:
+    """``dst.index_copy_(dim, index, src)`` in place, where ``dst`` may be
+    a DTensor, sharded along ``dim`` or not (a long-context cache whose
+    positions the data axes shard).  Some releases have no DTensor
+    strategy for ``index_copy_``, and others label a result sharded along
+    ``dim`` with a wrong placement, so each rank writes its own shard:
+    ``src`` placed as ``dst`` is except whole along ``dim``, each index
+    moved by the shard's offset, and rows outside the shard left as they
+    were (a masked write: the indices may live on the device).  Shards are
+    even (``launch.sharding.cache_specs`` shards only dims their axes
+    divide)."""
+    if not is_dtensor(dst):
+        dst.index_copy_(dim, index, src)
+        return
+    from torch.distributed.tensor import Replicate
+    mesh = dst.device_mesh
+    pl = [Replicate() if p.is_shard(dim) else p for p in dst.placements]
+    src = src.redistribute(mesh, pl).to_local() if is_dtensor(src) \
+        else src
+    index = index.to_local() if is_dtensor(index) else index
+    local = dst.to_local()
+    n = local.shape[dim]
+    coord, shard = mesh.get_coordinate(), 0
+    for i, p in enumerate(dst.placements):
+        if p.is_shard(dim):
+            shard = shard * mesh.size(i) + coord[i]
+    at = index - shard * n
+    inside = (at >= 0) & (at < n)
+    at = at.clamp(0, n - 1)
+    shape = [1] * local.dim()
+    shape[dim] = -1
+    keep = local.index_select(dim, at)
+    local.index_copy_(dim, at, torch.where(inside.reshape(shape), src, keep))
 
 
 def on_whole(fn, args, n_out: int):
@@ -209,7 +295,8 @@ def lookup(table, idx):
 def _register_strategies():
     """DTensor strategies this port's steps need that some PyTorch
     releases lack: ``roll`` (RoPE's rotate-half) keeps any shard off the
-    rolled dims."""
+    rolled dims, and so does ``flip`` (in ``cumsum``'s backward, which the
+    Mamba2 scan's training form runs)."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
 
@@ -221,6 +308,14 @@ def _register_strategies():
         return [([Replicate()], [Replicate(), None, None])] + [
             ([Shard(d)], [Shard(d), None, None])
             for d in range(nd) if d not in rolled]
+
+    @register_sharding(torch.ops.aten.flip.default)
+    def _flip(x, dims):
+        nd = len(x.shape)
+        flipped = {d % nd for d in dims}
+        return [([Replicate()], [Replicate(), None])] + [
+            ([Shard(d)], [Shard(d), None])
+            for d in range(nd) if d not in flipped]
 
 
 def replicated_ops():

@@ -54,7 +54,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.shard_ctx import lookup
+from repro_torch.models.shard_ctx import lookup, write_rows
 from repro_torch.models.attention import (NEG_INF, attention_block,
                                          attn_project_qkv, chunked_attention,
                                          decode_attention, gqa_expand)
@@ -485,14 +485,16 @@ def _cache_slot(pos, t: int, max_seq: int):
 
 def _cache_write(cache_k, cache_v, k, v, pos, slot):
     """Write a chunk's keys and values into ``(B, S, KV, hd)`` caches at
-    ``pos`` (at ``slot`` for a tensor ``pos``), in place."""
+    ``pos`` (at ``slot`` for a tensor ``pos``), in place; on a mesh that
+    shards the positions, each rank writes its own shard
+    (``write_rows``)."""
     if slot is None:
         t = k.shape[1]
         cache_k[:, pos:pos + t] = k.to(cache_k.dtype)
         cache_v[:, pos:pos + t] = v.to(cache_v.dtype)
     else:
-        cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
-        cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
+        write_rows(cache_k, 1, slot, k.to(cache_k.dtype))
+        write_rows(cache_v, 1, slot, v.to(cache_v.dtype))
 
 
 def _pos_arg(pos, t: int, device):
@@ -535,7 +537,7 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     and returns (logits (B, T, V) in the compute dtype, ``caches``)."""
     cdt = dtype_of(cfg.compute_dtype)
     if embeddings is None:
-        x = params["embed"][tokens].to(cdt)
+        x = lookup(params["embed"], tokens).to(cdt)
     else:
         x = embeddings.to(cdt)
     b, t = x.shape[:2]

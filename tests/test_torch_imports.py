@@ -39,6 +39,8 @@ def test_port_imports_with_jax_blocked():
         "        'repro_torch.launch.serve', 'repro_torch.launch.steps',\n"
         "        'repro_torch.launch.mesh', 'repro_torch.launch.sharding',\n"
         "        'repro_torch.launch.specs', 'repro_torch.configs.shapes',\n"
+        "        'repro_torch.launch.dryrun',\n"
+        "        'repro_torch.launch.hlo_analysis',\n"
         "        'repro_torch.configs.llama3_405b',\n"
         "        'repro_torch.configs.deepseek_67b',\n"
         "        'repro_torch.configs.arctic_480b',\n"
@@ -98,7 +100,7 @@ def _entry_points():
     from repro_torch.models import encdec, resnet, transformer
     from repro_torch.core.tree import tree_leaves
     from repro_torch.examples import dual_batch_spmd, quickstart, serve_decode
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import dryrun, serve, train
     from repro_torch.serve import ServeEngine
     from repro_torch import tune
     cfg = get_config("cifar-resnet18")
@@ -146,6 +148,9 @@ def _entry_points():
         "examples.dual_batch_spmd": lambda d: dual_batch_spmd.main(
             ["--ranks", "2", "--steps", "1"]
             + ([] if d is None else ["--device", d])),
+        "launch.dryrun.main": lambda d: dryrun.main(
+            ["--arch", "phi3-mini-3.8b", "--shape", "decode_32k", "--out",
+             ""] + ([] if d is None else ["--device", d])),
     }
 
 
