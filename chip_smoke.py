@@ -165,10 +165,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     written into its position tensor (bit-equal to eager launches);
     ``flash_attention`` (B4) with a query offset
     (offsets 0, 1, 17 and 512, chunks of 1, 5 and 64, with and without a
-    window, f32 and bf16; ``PF_F32_TOL``); each timed beside its plain
-    version, SDPA and its bound (B5 also at every cluster size); (b)
-    ``launch.serve.generate`` at full width in bf16, its one-token steps
-    at a position kept on the card: phi3-mini-3.8b on 4 x 512 prompt
+    window, f32 and bf16; ``PF_F32_TOL``), and on the layer cache's
+    ``transpose(1, 2)`` views at a 0-d int32 offset on the card
+    (``B4_CACHE_SHAPES``: a 64-token chunk at 512 and at the cache's
+    last chunk, phi3-mini's cache and gemma3-4b's with and without its
+    window), against its plain version and bit for bit against the
+    host-int route over a copy of the first pos + 64 keys that it
+    replaces; each timed beside its plain version, SDPA and its bound (B5
+    also at every cluster size); (b)
+    ``launch.serve.generate`` at full width in bf16, every call at a
+    position kept on the card: phi3-mini-3.8b on 4 x 512 prompt
     tokens + 64 generated (``max_seq`` 576) with exactly 32 B4 launches
     (the chunked prefill) and 32 x 63 B5 (one a layer a decode step), no
     plain attention; ms of
@@ -299,6 +305,20 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     ``step_time_s`` on one card and their ratio (printed, not gated);
     (c) ``engine.parity.check_parity`` on the card (reduced phi3-mini,
     its bit-for-bit checks in PyTorch's deterministic mode).
+27. rwkv6-7b LM training at 4,096 tokens: (a) one full-width layer's
+    training forward at 4,096 tokens with the chunked WKV scan, its
+    one-level form (one block a chunk) and the per-token form
+    (``ref.wkv6_ref``): the bytes autograd keeps for the backward (one
+    state a chunk against three a token), the scans' f32 outputs within
+    ``WKV_FORMS_BAND``; the chunked forms' forward and backward times
+    and peaks, their grads finite; (b) phase 18's path on
+    ``RWKV_TRAIN_ARGV`` (hybrid 2048 -> 4096, global batch 4, fused SGD)
+    at full width and ``RWKV_TRAIN_LAYERS`` of 32 layers: B1 at that
+    store's shape against its plain version, then one B1 launch a step
+    and no B4 / B7 / B8, finite losses, peak memory under 80 GB; ms and
+    tokens/s a step, one profiled step at 4,096 (idle share, kernels,
+    B1's share); (c) reduced f32 rwkv6 at seq 256 (four chunks), fused,
+    card vs CPU within ``TRAIN_PARITY_BAND``.
 
 The launch counts are set to 0 just before each path and read just
 after; the ``launches`` in the kernels line are those counts, summed
@@ -322,7 +342,9 @@ its four prefills (b) and the B5 launches of its decode_32k and
 long_500k steps (c, d), B4's rows at 32,768 tokens and B5's at those
 caches among their variants; phase 26 adds the B4 and B7 launches of
 its counted and timed zamba2 prefills (b) and the B1, B2 and B3
-launches of the parity module on the card (c)). Launches made to compare a kernel with its
+launches of the parity module on the card (c); phase 27 adds the B1
+launches of its training run and its card-vs-CPU steps, B1's
+rwkv6-store record among its variants). Launches made to compare a kernel with its
 plain version are not counted. B1's numbers in the line are its LM-store
 ones (phase 18), the shape this slice's main path gives it; the
 ResNet-store records stay among its variants.
@@ -2288,6 +2310,11 @@ LM_ARGV = ["--arch", LM_ARCH, "--full", "--optimizer", "sgd", "--scheme",
            "hybrid", "--seq", "128", "--global-batch", "16", "--lr", "5e-3",
            "--steps", "40"]
 LM_STEPS, LM_SEQS = 40, (64, 128)
+# a training run shorter than this need not lower its loss (granite's and
+# rwkv6's runs of 4 steps); phi3's must
+LOSS_FALL_STEPS = 10
+# the card's memory: a training run's peak must stay under it
+CARD_BYTES = 80e9
 # rows of the flat store a slice of B1's plain version covers (the plain
 # version's two store-sized temporaries would not fit beside the buffers)
 PLAIN_SLICE_ROWS = 1 << 20
@@ -2399,16 +2426,18 @@ class _CaptureRun:
         self.train.api_run = self.real
 
 
-def _step_profile(L, engine, fspec, p2, phase, batch):
+def _step_profile(L, engine, fspec, p2, phase, batch, runs=3):
     """One fused step of ``phase`` on the flat store ``p2``: CUDA-event ms
-    (median of 3, after a warm-up), then its kernels under the profiler —
+    (median of ``runs``, after a warm-up unless ``runs`` is 1: the
+    caller's own run warmed it), then its kernels under the profiler —
     device busy and idle share, top kernels, B1's share."""
     fn, _ = engine.phase_fn(phase, fspec)
     batches = {k: torch.as_tensor(v)[None].cuda() for k, v in batch.items()}
     step = lambda: fn(p2, None, batches, None)
-    step()
+    if runs > 1:                 # one run times a step its caller warmed
+        step()
     times = []
-    for _ in range(3):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -2431,18 +2460,63 @@ def _step_profile(L, engine, fspec, p2, phase, batch):
                              "share": us / 1e3 / busy} for n, us in top]}
 
 
-def lm_train_phase(L, rate, arch=LM_ARCH, argv=LM_ARGV, steps=LM_STEPS):
+def _profile_sub_stages(L, cfg, argv, res, engine, fspec, phases,
+                        which=None, runs=3):
+    """One profiled fused step per sub-stage (those whose indices are in
+    ``which``, every one when None; ``runs`` timed) on a training run's
+    final params (``_step_profile``), on the CLI's own data stream; the
+    run's params and optimizer state are dropped first.  Returns the
+    records."""
+    res.opt_state = None
+    p2 = fspec.ravel(res.params)
+    res.params = None
+    args = L.train.parser().parse_args(argv)
+    plane = L.DataPlane(L.SyntheticTokens(
+        vocab=min(cfg.vocab_size, 256), seed=args.seed,
+        n_examples=max(4096, args.global_batch * 64)), seed=args.seed)
+    plane.bind(phases)
+    profiles, g0 = [], 0
+    for i, ph in enumerate(phases):
+        g0 += ph.n_steps
+        if which is not None and i not in which:
+            continue
+        prof = _step_profile(L, engine, fspec, p2, ph,
+                             plane(ph, g0 - ph.n_steps), runs)
+        profiles.append(prof)
+        log(f"  profiled step at seq {prof['input_size']}: "
+            f"{prof['step_ms']:.1f} ms (CUDA events; runs "
+            f"{[round(t, 1) for t in prof['step_ms_runs']]}), device busy "
+            f"{prof['device_busy_ms']:.1f} ms (idle "
+            f"{prof['device_idle_share']:.1%}), {prof['kernel_launches']} "
+            f"kernels; B1 {prof['b1_ms']:.2f} ms ({prof['b1_share']:.1%})")
+        for k in prof["top_kernels"]:
+            log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
+    plane.close()
+    del p2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return profiles
+
+
+def lm_train_phase(L, rate, arch=LM_ARCH, argv=LM_ARGV, steps=LM_STEPS,
+                   seqs=LM_SEQS, layers=None, which=None, runs=3):
     """Phase 18: the LM training main path at full width.  B1 at the
     model's flat-store shape first (the store's geometry read from a
     model built and freed before), then ``launch.train.run`` on
-    ``LM_ARGV``: one B1 launch a step and no B4 / B7 / B8, both sequence
-    lengths, finite losses, the last below the first, params on the card;
-    per sub-stage ms per step, tokens/s, time to its first step, and a
-    profiled step; peak memory.  Phase 22 (e) runs it on granite
-    (``arch``, ``argv``, ``steps``): too few steps to ask the loss to
-    fall, the aux loss of the trained params finite and > 0 instead.
-    Returns (record, B1's store record)."""
+    ``LM_ARGV``: one B1 launch a step and no B4 / B7 / B8, the sequence
+    lengths ``seqs``, finite losses, the last below the first in a run of
+    LOSS_FALL_STEPS or more, peak memory under the card's, params on the
+    card; per sub-stage ms per step, tokens/s, time to its first step,
+    and a profiled step (``_profile_sub_stages``'s ``which`` and
+    ``runs``); peak memory.  Phase 22 (e) runs it on granite (``arch``,
+    ``argv``, ``steps``; the aux loss of the trained params finite and >
+    0), phase 27 (b) on rwkv6 with the config cut to ``layers``
+    (``train.get_config`` wrapped for the run).  Returns (record, B1's
+    store record)."""
+    from dataclasses import replace
     cfg = L.get_config(arch)
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers)
     params = L.models.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     fspec = L.flat_spec(params)
@@ -2452,39 +2526,48 @@ def lm_train_phase(L, rate, arch=LM_ARCH, argv=LM_ARGV, steps=LM_STEPS):
     torch.cuda.empty_cache()
     b1 = b1_store_check(L.K, rows, rate, arch)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_lm_counts(L)
-    t0 = time.perf_counter()
-    with _CaptureRun(L.train) as cap:
-        hist = L.train.run(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    real = L.train.get_config
+    if layers is not None:
+        L.train.get_config = lambda a: replace(real(a), n_layers=layers)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_lm_counts(L)
+        t0 = time.perf_counter()
+        with _CaptureRun(L.train) as cap:
+            hist = L.train.run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        L.train.get_config = real
     peak = torch.cuda.max_memory_allocated()
     got = _lm_counts(L)
     res, engine = cap.res, cap.engine
     losses = [h["loss"] for h in hist]
-    seqs = [h["seq"] for h in hist]
+    got_seqs = tuple(sorted({h["seq"] for h in hist}))
     b1_launches = got["dbl"]["dbl_apply_flat2d"]
     if b1_launches != steps or sum(got["dbl"].values()) != steps \
             or got["dbl_plain"] or got["prefill"]:
-        raise AssertionError(f"LM main path: launches {got}; expected one "
-                             "dbl_apply_flat2d launch a step and no B4 / B7 "
-                             "/ B8 call")
-    if len(losses) != steps or tuple(sorted(set(seqs))) != LM_SEQS:
-        raise AssertionError(f"LM main path: {len(losses)} steps at "
-                             f"sequence lengths {sorted(set(seqs))}")
+        raise AssertionError(f"{arch} training: launches {got}; expected "
+                             "one dbl_apply_flat2d launch a step and no B4 "
+                             "/ B7 / B8 call")
+    if len(losses) != steps or got_seqs != seqs:
+        raise AssertionError(f"{arch} training: {len(losses)} steps at "
+                             f"sequence lengths {got_seqs}")
     if not all(math.isfinite(x) for x in losses) or \
-            not (cfg.moe or losses[-1] < losses[0]):
-        raise AssertionError(f"LM main path losses: {losses}")
+            not (steps < LOSS_FALL_STEPS or losses[-1] < losses[0]):
+        raise AssertionError(f"{arch} training losses: {losses}")
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"{arch} training: peak {peak / 1e9:.1f} GB")
     if any(t.device.type != "cuda" for t in L.tree_leaves(res.params)) or \
             L.flat_spec(res.params).shape != fspec.shape:
-        raise AssertionError("LM params left the card or changed geometry")
+        raise AssertionError(f"{arch} params left the card or changed "
+                             "geometry")
     aux = None
     if cfg.moe:
         # the load-balance loss of the trained params on one sequence
         with torch.no_grad():
-            tok = torch.randint(0, cfg.vocab_size, (2, LM_SEQS[-1]),
+            tok = torch.randint(0, cfg.vocab_size, (2, seqs[-1]),
                                 generator=torch.Generator().manual_seed(5))
             aux = float(L.models.forward(res.params, cfg, tok.cuda(),
                                          return_aux=True)[1])
@@ -2503,8 +2586,10 @@ def lm_train_phase(L, rate, arch=LM_ARCH, argv=LM_ARGV, steps=LM_STEPS):
                     "ms_per_step": 1e3 * p["time"] / p["steps"],
                     "tokens_per_s": tokens * p["steps"] / p["time"],
                     "first_step_s": stall})
-    log(f"LM main path: {arch} full width ({n_live / 1e9:.3f} B params, "
-        f"bf16, remat {cfg.remat}), {steps} steps in {wall:.2f} s "
+    depth = "" if layers is None else \
+        f", {layers} of {real(arch).n_layers} layers"
+    log(f"LM main path: {arch} full width{depth} ({n_live / 1e9:.3f} B "
+        f"params, bf16, remat {cfg.remat}), {steps} steps in {wall:.2f} s "
         f"(model build included); peak memory {peak / 2**30:.2f} GiB; "
         f"{b1_launches} dbl_apply_flat2d launches, no B4 / B7 / B8")
     for s in sub:
@@ -2515,44 +2600,24 @@ def lm_train_phase(L, rate, arch=LM_ARCH, argv=LM_ARGV, steps=LM_STEPS):
     log(f"  losses: {losses}" + ("" if aux is None else
                                  f"; aux loss of the trained params {aux}"))
 
-    # one profiled step per sub-stage on the run's final params
-    res.opt_state = None
-    p2 = fspec.ravel(res.params)
-    res.params = None
-    args = L.train.parser().parse_args(argv)
-    plane = L.DataPlane(L.SyntheticTokens(
-        vocab=min(cfg.vocab_size, 256), seed=args.seed,
-        n_examples=max(4096, args.global_batch * 64)), seed=args.seed)
-    plane.bind(phases)
-    profiles, g0 = [], 0
-    for ph in phases:
-        prof = _step_profile(L, engine, fspec, p2, ph, plane(ph, g0))
-        g0 += ph.n_steps
-        profiles.append(prof)
-        log(f"  profiled step at seq {prof['input_size']}: "
-            f"{prof['step_ms']:.1f} ms (CUDA events; runs "
-            f"{[round(t, 1) for t in prof['step_ms_runs']]}), device busy "
-            f"{prof['device_busy_ms']:.1f} ms (idle "
-            f"{prof['device_idle_share']:.1%}), {prof['kernel_launches']} "
-            f"kernels; B1 {prof['b1_ms']:.2f} ms ({prof['b1_share']:.1%})")
-        for k in prof["top_kernels"]:
-            log(f"    {k['ms']:8.3f} ms {k['share']:6.1%}  {k['name']}")
-    plane.close()
-    del p2
+    profiles = _profile_sub_stages(L, cfg, argv, res, engine, fspec, phases,
+                                   which, runs)
+    del res, engine
+    cap.res = cap.engine = None
     gc.collect()
     torch.cuda.empty_cache()
-    return {"arch": arch, "argv": argv, "params": n_live,
-            "store_rows": rows, "wall_s": wall, "peak_bytes": peak,
-            "launches": got["dbl"], "losses": losses, "aux": aux,
-            "sub_stages": sub, "profiles": profiles}, b1
+    return {"arch": arch, "argv": argv, "layers": cfg.n_layers,
+            "params": n_live, "store_rows": rows, "wall_s": wall,
+            "peak_bytes": peak, "launches": got["dbl"], "losses": losses,
+            "aux": aux, "sub_stages": sub, "profiles": profiles}, b1
 
 
-def _train_run(L, cfg, params, form, device):
-    """A few dual-batch steps of ``TRAIN_PARITY_ARGS`` through ``api.run``
-    on ``device``: ``form`` "fused" (B1 a step), "per_step" (B2 a step) or
+def _train_run(L, cfg, params, form, device, args=TRAIN_PARITY_ARGS):
+    """A few dual-batch steps of ``args`` through ``api.run`` on
+    ``device``: ``form`` "fused" (B1 a step), "per_step" (B2 a step) or
     "adamw" (the weighted step).  Returns (RunResult, counts)."""
     import argparse
-    spec = L.train.build_spec(argparse.Namespace(**TRAIN_PARITY_ARGS))
+    spec = L.train.build_spec(argparse.Namespace(**args))
     if form == "adamw":
         engine = L.TrainEngine(cfg, L.make_optimizer("adamw",
                                                      weight_decay=0.01),
@@ -2725,6 +2790,198 @@ def lm_resume_phase(L):
                              "uninterrupted one")
     return {"equal": equal, "deterministic": deterministic,
             "leaves": n_leaves, "launches": n}
+
+
+# ----------------- phase 27: rwkv6-7b LM training at 4,096 -----------------
+# the RWKV-6 family's training path at full width (d_model 4096, 64 heads
+# of 64, d_ff 14336, vocab 65536) through the training CLI's run: hybrid
+# dual-batch x CPL (seq 2048 -> 4096), fused SGD, B1 on the f32 store, the
+# WKV scan in its chunked, checkpointed training form.  Depth is cut as
+# far as 80 GB forces: 0.218 G parameters a layer and 0.537 G of
+# embeddings and head, at about 15 bytes a parameter on this path (the
+# f32 store, bf16 weights and grads, the f32 gradient buffer; phase 18's
+# phi3 peaks there) plus the activations of 16,384 tokens a step, gives
+# 12 of 32 layers (3.16 G parameters).  The global batch is the smallest
+# the dual-batch layout takes at seq 4096 (4 workers, one row each; CPL
+# doubles it at 2048), cut from train_4k's 256.
+RWKV_ARCH = "rwkv6-7b"
+RWKV_TRAIN_LAYERS = 12
+RWKV_TRAIN_STEPS = 4
+RWKV_TRAIN_ARGV = ["--arch", RWKV_ARCH, "--full", "--optimizer", "sgd",
+                   "--scheme", "hybrid", "--seq", "4096", "--global-batch",
+                   "4", "--lr", "5e-3", "--steps", str(RWKV_TRAIN_STEPS)]
+RWKV_SEQS = (2048, 4096)
+# one full-width layer's training forward and backward at 4,096 tokens, one
+# row: the chunked scan (blocks of rwkv6.SUB inside each chunk), its
+# one-level form (one block a chunk: the (q, q, K) decay tensor of every
+# pair) and the per-token form (ref.wkv6_ref)
+RWKV_LAYER_SEQ = 4096
+RWKV_CHUNK = 64          # wkv6_scan's default chunk, the reference's
+# runs of each chunked form's forward + backward (the first warms it up)
+RWKV_LAYER_RUNS = 4
+# the forms' f32 scan outputs there, relative to the largest (on the CPU
+# each lies within about 1e-7 of it from a float64 recurrence,
+# tests/test_torch_wkv_train.py)
+WKV_FORMS_BAND = 1e-5
+# card vs CPU: phase 19's reduced rwkv6 setup at seq 256, four chunks of 64
+RWKV_PARITY_ARGS = dict(TRAIN_PARITY_ARGS, seq=256)
+
+
+def _wkv_layer_memory(L):
+    """One rwkv6-7b layer (full width, bf16, one row of RWKV_LAYER_SEQ
+    tokens): its training forward (``time_mix(train=True)``,
+    ``channel_mix``) with the chunked scan, its one-level form and the
+    per-token form: the bytes autograd keeps for the backward (allocated
+    after the forward less before it and the output), the scans' f32
+    outputs against the per-token one's; for the two chunked forms the
+    forward and backward seconds on the host clock, each ending in a
+    sync (median of RWKV_LAYER_RUNS - 1 after a warm-up), and the peak
+    (the per-token backward would take 8-9 s and teaches nothing
+    more)."""
+    from repro_torch.kernels.ref import wkv6_ref
+    from repro_torch.models import rwkv6
+    cfg = L.get_config(RWKV_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    p = rwkv6.init_rwkv6(lambda shape, sc, dt: (torch.randn(
+        shape, generator=gen, device="cuda") * sc).to(dt), cfg,
+        torch.bfloat16)
+    p = {k: t.requires_grad_() for k, t in p.items()}
+    x = (torch.randn(1, RWKV_LAYER_SEQ, cfg.d_model, generator=gen,
+                     device="cuda") * 0.5).bfloat16().requires_grad_()
+    real, sub = rwkv6.wkv6_scan, rwkv6.SUB
+    per_token = lambda r, k, v, w, u, state: wkv6_ref(
+        r, k, v, w, u, state=state, out_dtype=torch.float32)
+    out, ys = {}, {}
+
+    def keep(scan, form):
+        def run(*a):
+            y, st = scan(*a)
+            ys[form] = y.detach().clone()
+            return y, st
+        return run
+
+    def forward():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _, _ = rwkv6.time_mix(p, x, cfg, train=True)
+        y, _ = rwkv6.channel_mix(p, y, cfg)
+        torch.cuda.synchronize()
+        return y, time.perf_counter() - t0
+
+    forms = (("chunked", real, sub), ("one_level", real, RWKV_CHUNK),
+             ("per_token", per_token, sub))
+    for form, scan, block in forms:
+        rwkv6.wkv6_scan, rwkv6.SUB = keep(scan, form), block
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            m0 = torch.cuda.memory_allocated()
+            y, fwd = forward()
+            saved = torch.cuda.memory_allocated() - m0 - \
+                y.numel() * y.element_size()
+            out[form] = {"saved_bytes": saved, "forward_s": fwd}
+            if form != "per_token":
+                fwds, bwds = [], []
+                for i in range(RWKV_LAYER_RUNS):
+                    if i:
+                        y, fwd = forward()
+                    t1 = time.perf_counter()
+                    g = torch.autograd.grad(y.float().square().mean(),
+                                            [x, p["w0"]])
+                    torch.cuda.synchronize()
+                    if i:
+                        fwds.append(fwd)
+                        bwds.append(time.perf_counter() - t1)
+                    del y
+                out[form].update(
+                    forward_s=statistics.median(fwds),
+                    backward_s=statistics.median(bwds),
+                    forward_runs_s=fwds, backward_runs_s=bwds,
+                    peak_bytes=torch.cuda.max_memory_allocated() - m0,
+                    grads_finite=all(bool(t.isfinite().all()) for t in g))
+                del g
+            else:
+                del y
+        finally:
+            rwkv6.wkv6_scan, rwkv6.SUB = real, sub
+    scale = max(float(ys["per_token"].abs().max()), 1e-30)
+    for form in ("chunked", "one_level"):
+        out[form]["y_gap_relative"] = float(
+            (ys[form] - ys["per_token"]).abs().max()) / scale
+    del p, x, ys
+    gc.collect()
+    torch.cuda.empty_cache()
+    pt = out["per_token"]
+    log(f"  one {RWKV_ARCH} layer at {RWKV_LAYER_SEQ} tokens (one row): "
+        f"autograd keeps {pt['saved_bytes'] / 2**30:.2f} GiB for the "
+        f"backward per token, forward {pt['forward_s']:.2f} s")
+    for form, block in (("chunked", sub), ("one_level", RWKV_CHUNK)):
+        o = out[form]
+        log(f"    {form} (blocks of {block} in chunks of {RWKV_CHUNK}): "
+            f"keeps {o['saved_bytes'] / 2**30:.2f} GiB; forward "
+            f"{o['forward_s'] * 1e3:.1f} ms, backward "
+            f"{o['backward_s'] * 1e3:.1f} ms (medians of runs "
+            f"{[round(t * 1e3, 1) for t in o['forward_runs_s']]} / "
+            f"{[round(t * 1e3, 1) for t in o['backward_runs_s']]}), peak "
+            f"{o['peak_bytes'] / 2**30:.2f} GiB; f32 output "
+            f"{o['y_gap_relative']:.3g} from the per-token form's "
+            "(relative to the largest)")
+        if not (o["saved_bytes"] * 4 < pt["saved_bytes"]
+                and o["y_gap_relative"] <= WKV_FORMS_BAND
+                and o["grads_finite"]):
+            raise AssertionError(f"the chunked WKV scan's layer: {out}")
+    return out
+
+
+def rwkv_train_phase(L, rate):
+    """Phase 27: rwkv6-7b LM training at 4,096 tokens.  (a) One layer's
+    saved memory and times, the chunked scan against the per-token form
+    and its one-level form.  (b) The main path, phase 18's
+    ``lm_train_phase`` on RWKV_TRAIN_ARGV with the config cut to
+    RWKV_TRAIN_LAYERS: B1 at that store's shape against its plain
+    version, then the run (one B1 launch a step and no B4 / B7 / B8, both
+    sequence lengths, finite losses, peak memory under the card's 80 GB)
+    and the step at 4,096 tokens profiled once (idle share, kernel count,
+    B1's share).  (c) Phase 19's reduced rwkv6 at seq 256 (four chunks),
+    fused, card vs CPU within TRAIN_PARITY_BAND.  Returns (record, B1
+    launches of (b) and (c), B1's record at the rwkv6 store)."""
+    out = {"layer": _wkv_layer_memory(L)}
+    main, b1_store = lm_train_phase(
+        L, rate, RWKV_ARCH, RWKV_TRAIN_ARGV, RWKV_TRAIN_STEPS, RWKV_SEQS,
+        layers=RWKV_TRAIN_LAYERS, which=(len(RWKV_SEQS) - 1,), runs=1)
+    out.update(main)
+
+    # (c) card vs CPU on phase 19's reduced rwkv6, four chunks a sequence
+    small = L.reduced(L.get_config(RWKV_ARCH), layers=2)
+    p0 = L.models.init_params(small, torch.Generator().manual_seed(0),
+                              device="cpu")
+    card, cc = _train_run(L, small, p0, "fused", "cuda", RWKV_PARITY_ARGS)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu, _ = _train_run(L, small, p0, "fused", "cpu", RWKV_PARITY_ARGS)
+    finally:
+        torch.set_num_threads(threads)
+    steps = RWKV_PARITY_ARGS["steps"]
+    lc = [h["loss"] for h in card.history]
+    lp = [h["loss"] for h in cpu.history]
+    rec = {"loss_gap": max(abs(a - b) for a, b in zip(lc, lp)),
+           "param_gap": _leaf_gaps(L.tree_leaves(card.params),
+                                   L.tree_leaves(cpu.params)),
+           "losses": lc, "launches": cc["dbl"]["dbl_apply_flat2d"]}
+    log(f"  LM parity {RWKV_ARCH} reduced (2 layers, f32, seq "
+        f"{RWKV_PARITY_ARGS['seq']}: four chunks of 64) fused, card vs CPU "
+        f"over {steps} steps: loss gap {rec['loss_gap']:.3g}, param gap "
+        f"{rec['param_gap']:.3g}; {rec['launches']} dbl_apply_flat2d "
+        "launches")
+    if rec["launches"] != steps or cc["prefill"] or len(lc) != steps or \
+            rec["loss_gap"] > TRAIN_PARITY_BAND["loss"] or \
+            rec["param_gap"] > TRAIN_PARITY_BAND["params"]:
+        raise AssertionError(f"{RWKV_ARCH} at seq {RWKV_PARITY_ARGS['seq']}:"
+                             f" the card and the CPU port disagree beyond "
+                             f"{TRAIN_PARITY_BAND}: {rec}")
+    out["parity"] = rec
+    return out, out["launches"]["dbl_apply_flat2d"] + rec["launches"], \
+        b1_store
 
 
 # ------------------------------ phase 20: the autotuner ---------------------
@@ -3264,6 +3521,18 @@ B5_SHAPES = (("phi3-mini-3.8b static", 4, 32, 32, 96, 576, 0),
 # B4 with a query offset at phi3-mini's attention (4 rows, 32 heads, hd
 # 96): queries at offset..offset+T-1 over the first offset + T keys
 B4_OFFSETS, B4_CHUNKS, B4_WINDOWS = (0, 1, 17, 512), (1, 5, 64), (0, 100)
+# B4 on the (B, S, KV, hd) layer cache through its transpose(1, 2) view at
+# a device offset (the decode step's chunk route): (label, rows, heads, kv
+# heads, hd, max_seq, window, offsets) — phi3-mini's static cache (576: the
+# chunk at 512 is its last) and gemma3-4b's local layers (window 1024 over
+# 2048) and a global one, each with a 64-token chunk at 512 and at the
+# cache's last chunk
+B4_CACHE_CHUNK = 64
+B4_CACHE_SHAPES = (("phi3-mini-3.8b static", 4, 32, 32, 96, 576, 0, (512,)),
+                   ("gemma3-4b static", 4, 8, 4, 256, 2048, 1024,
+                    (512, 1984)),
+                   ("gemma3-4b static global", 4, 8, 4, 256, 2048, 0,
+                    (512, 1984)))
 # card vs CPU port on the reduced f32 configs (zamba2 at 6 layers so that
 # its shared block runs; gemma3's window 16 below prompt + generation):
 # greedy tokens identical, the generated tokens' logits (magnitude about
@@ -3494,6 +3763,89 @@ def b4_offset_phase(D, rate):
     log(f"  B4 with a query offset: {len(out)} cases within tolerance of the "
         f"plain version (worst {max(r['err_over_tol'] for r in out):.3g} x "
         "the tolerance)")
+    return out
+
+
+def b4_cache_phase(D, rate):
+    """Phase 21 (a), B4 on the layer cache: a chunk of B4_CACHE_CHUNK
+    queries at a 0-d int32 offset on the card over a whole ``(B, S, KV,
+    hd)`` cache read through its ``transpose(1, 2)`` view (the decode
+    step's route), against its plain version on the same views
+    (PF_F32_TOL; bf16 one ulp more) and bit for bit against the route it
+    replaces: a host-int offset over a contiguous copy of the first
+    ``pos + T`` keys (the same key tiles in the same order).  Each row
+    timed beside its bound (``flash_attention_work``: the keys the mask
+    keeps), its plain version, SDPA on the same keys and views, and the
+    replaced route with its copies."""
+    out = []
+    t = B4_CACHE_CHUNK
+    for label, b, h, kvh, hd, max_seq, w, offsets in B4_CACHE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for off in offsets:
+                gen = torch.Generator(device="cuda").manual_seed(
+                    500 + off + hd)
+                q = torch.randn(b, h, t, hd, generator=gen,
+                                device="cuda").to(dtype)
+                kc, vc = (torch.randn(b, max_seq, kvh, hd, generator=gen,
+                                      device="cuda").to(dtype) for _ in "kv")
+                k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+                pos = torch.tensor(off, dtype=torch.int32, device="cuda")
+                kern = lambda: D.FA.flash_attention(q, k, v, window=w,
+                                                    q_offset=pos)
+                plain = lambda: D.FA.flash_attention_plain(
+                    q, k, v, window=w, q_offset=pos)
+                n = off + t
+
+                def copied():
+                    kk, vv = (c[:, :n].transpose(1, 2).contiguous()
+                              for c in (kc, vc))
+                    return D.FA.flash_attention(q, kk, vv, window=w,
+                                                q_offset=off)
+                got = kern()
+                err, ratio = _pf_err("flash_attention", got, plain())
+                same = bool(torch.equal(got, copied()))
+                if not (ratio <= 1.0 and same):
+                    raise AssertionError(
+                        f"flash_attention on the {label} cache views at a "
+                        f"device offset {off}, {dtype}: {err} from its plain "
+                        f"version ({ratio:.3g} x the tolerance), "
+                        f"{'equal to' if same else 'not equal to'} the "
+                        "host-int route over a copy")
+                flops, nbytes = D.FA.flash_attention_work(
+                    q, k, v, window=w, q_offset=pos)
+                op_rate = BF16_RATE if dtype == torch.bfloat16 else F32_RATE
+                t_b, t_o = nbytes / rate, flops / op_rate
+                i = off + torch.arange(t, device="cuda")
+                j = torch.arange(max_seq, device="cuda")
+                mask = j[None, :] <= i[:, None]
+                if w > 0:
+                    mask &= i[:, None] - j[None, :] < w
+                rec = {"shape": f"{label} cache view", "dtype":
+                       str(dtype)[6:], "q_offset": off, "chunk": t,
+                       "window": w, "max_seq": max_seq,
+                       "q_offset_on": "device", "max_abs_err": err,
+                       "err_over_tol": ratio, "equals_host_int_copy": same,
+                       "ms": cuda_ms(kern), "device_ms": device_ms(kern),
+                       "plain_ms": cuda_ms(plain, per_group=3, groups=3,
+                                           warmup=1),
+                       "copy_route_ms": cuda_ms(copied),
+                       "bound_ms": 1e3 * max(t_b, t_o),
+                       "bound_by": "bytes" if t_b >= t_o else "operations",
+                       "flops": flops, "bytes": nbytes,
+                       "library_ms": cuda_ms(
+                           lambda: F.scaled_dot_product_attention(
+                               q, k, v, attn_mask=mask, enable_gqa=True))}
+                log(f"    flash_attention on the {label} cache view "
+                    f"({max_seq} keys, window {w}), T {t} at device offset "
+                    f"{off}, {rec['dtype']}: kernel {rec['ms'] * 1e3:.1f} us "
+                    f"(device {rec['device_ms'] * 1e3:.1f}), the replaced "
+                    f"copy route {rec['copy_route_ms'] * 1e3:.1f} us, plain "
+                    f"{rec['plain_ms'] * 1e3:.1f} us, SDPA "
+                    f"{rec['library_ms'] * 1e3:.1f} us, bound "
+                    f"{rec['bound_ms'] * 1e3:.1f} us by {rec['bound_by']}, "
+                    f"err {err:.3g}, bit-equal to the host-int copy route")
+                out.append(rec)
+                del q, kc, vc, k, v
     return out
 
 
@@ -3885,7 +4237,7 @@ def sampled_parity(D):
 # decode (4 x 512 + 64, as phase 21), the paged serving engine (phase 12's
 # 16 requests) and LM training through the CLI (phase 18's argv, cut from
 # 40 steps to 8)
-GRANITE_TRAIN_STEPS = 8
+GRANITE_TRAIN_STEPS = 4         # 8 until phase 27 needed the time
 GRANITE_TRAIN_ARGV = ["--arch", GRANITE, "--full", "--optimizer", "sgd",
                       "--scheme", "hybrid", "--seq", "128", "--global-batch",
                       "16", "--lr", "5e-3", "--steps", str(GRANITE_TRAIN_STEPS)]
@@ -4326,15 +4678,15 @@ def moe_phase(M, rate):
 
 # ------------------------------ phase 23: SPMD -------------------------------
 SPMD_ARCH = "phi3-mini-3.8b"
-SPMD_STEPS = 10                 # the example's schedule, fused SGD
+SPMD_STEPS = 6                  # fused SGD (10 until phase 27 needed the time)
 SPMD_WEIGHTED_STEPS = 4         # the example's own form
 # the weighted form (sgd_momentum's functional update holds params,
 # gradients, velocity and the new params and velocity at once: 5 x 15.3
 # GB at 32 layers) and the no-mesh per-step fused run (params, both
 # group gradients and their three raveled copies at its B2 launch: 6 x
-# 15.3 GB) fit the card only at cut depth; full width, 8 of 32 layers
-# (16 until phase 26 needed the time)
-SPMD_CUT_LAYERS = 8
+# 15.3 GB) fit the card only at cut depth; full width, 4 of 32 layers
+# (16 until phase 26 needed the time, 8 until phase 27 did)
+SPMD_CUT_LAYERS = 4
 SPMD_CPU_RANKS, SPMD_CPU_MESH = 4, (2, 2)
 SPMD_PARITY_STEPS = 4
 SPMD_TIMEOUT_S = 300
@@ -6418,7 +6770,7 @@ def main() -> int:
                         paged=paged,
                         repetitive_workload=S.repetitive_workload)
     b5_recs = b5_static_phase(D, rate)
-    b4_recs = b4_offset_phase(D, rate)
+    b4_recs = b4_offset_phase(D, rate) + b4_cache_phase(D, rate)
     log(f"[{time.perf_counter() - t_start:.0f} s] B5 strided / B4 offset "
         "checked")
     report["decode"], dec_launches = decode_phase(D)
@@ -6554,6 +6906,21 @@ def main() -> int:
     log(f"[{time.perf_counter() - t_start:.0f} s] dry run and counts done")
     for entry in line:
         entry["launches"] += dry_launches.get(entry["name"], 0)
+
+    # 27. rwkv6-7b LM training at 4,096 tokens: one layer's saved memory
+    # with the chunked WKV scan, the training main path at full width and
+    # cut depth, card vs CPU over four chunks
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["rwkv_train"], rwkv_b1, b1_rwkv = rwkv_train_phase(L, rate)
+    log(f"[{time.perf_counter() - t_start:.0f} s] rwkv6 training done")
+    line[0]["launches"] += rwkv_b1
+    line[0]["variants"][0]["launches"] += rwkv_b1
+    b1_rwkv["launches"] = \
+        report["rwkv_train"]["launches"]["dbl_apply_flat2d"]
+    line[0]["variants"].append(b1_rwkv)
+    line[0]["max_abs_err"] = max(line[0]["max_abs_err"],
+                                 b1_rwkv["max_abs_err"])
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:

@@ -7,14 +7,19 @@
 //     o_i = Σ_j softmax_j(q_i·k_j · hd^-0.5) · v_j
 // over the keys j < sk with, when causal, j <= p_i and (window > 0) p_i − j
 // < window, where query i sits at position p_i = q_offset + i and keys
-// count from 0 (q_offset 0, Sq = Sk: the prefill; q_offset = pos over the
-// first pos + Sq keys: a chunk behind a KV cache).  q (B, H, Sq, hd),
-// k and v (B, KV, Sk, hd), all one dtype (f32 or bf16); scores, softmax and
-// the product with v in f32; the output (B, H, Sq, hd) in q's dtype,
-// rounded once.  Masked scores are −1e30, as the TPU kernel's, so a row
+// count from 0 (q_offset 0, Sq = Sk: the prefill; q_offset = pos over a
+// whole KV cache: a chunk behind it).  q_offset is a host int, or an int32
+// the kernel reads in device memory (a decode step's position, which never
+// reaches the host; the grid depends on the shapes only).  q (B, H, Sq,
+// hd) contiguous; k and v (B, KV, Sk, hd) through their own element
+// strides (the last dimension contiguous), so the (B, S, KV, hd) layer
+// cache is read in place through its transpose(1, 2) view; all one dtype
+// (f32 or bf16); scores, softmax and the product with v in f32; the
+// output (B, H, Sq, hd) in q's dtype, rounded once.  Masked scores are −1e30, as the TPU kernel's, so a row
 // whose keys in a visited tile are all masked behaves as there; keys past
 // sk (a ragged last tile) are −inf and never count.  Key tiles wholly
-// above the diagonal or before the window are never loaded.  Head dims
+// above the diagonal or before the window are never loaded: over a whole
+// cache, a chunk at pos reads the tiles up to pos + Sq only.  Head dims
 // 32, 64, 80, 96, 128 and 256; any Sq and Sk.
 //
 // bf16 — every full-width path — runs on the tensor cores
@@ -69,6 +74,11 @@ namespace {
 
 constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
 
+// element strides of k and v over (batch, KV head, key)
+struct KvStrides {
+  int64_t kb, kh, ks, vb, vh, vs;
+};
+
 // ---- f32: CUDA cores ---------------------------------------------------------
 constexpr int kBq = 64, kBk = 64;   // query rows and keys of a tile
 constexpr int kThreads = 256;       // 16 × 16: ty over rows, tx over keys
@@ -91,7 +101,8 @@ __global__ void __launch_bounds__(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int n_heads,
                  int kv_heads, int sq, int sk, int causal, int window,
-                 int q_offset, float scale) {
+                 int host_offset, const int* __restrict__ dev_offset,
+                 KvStrides st, float scale) {
   static_assert(HD % 16 == 0, "a thread owns hd/16 output columns");
   constexpr int kCols = HD / 16;
   extern __shared__ __align__(16) float smem[];
@@ -105,9 +116,10 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = qi * kBq;
   const T* qb = q + (static_cast<int64_t>(b) * n_heads + h) * sq * HD;
-  const T* kb = k + (static_cast<int64_t>(b) * kv_heads + g) * sk * HD;
-  const T* vb = v + (static_cast<int64_t>(b) * kv_heads + g) * sk * HD;
+  const T* kb = k + b * st.kb + g * st.kh;
+  const T* vb = v + b * st.vb + g * st.vh;
   T* ob = out + (static_cast<int64_t>(b) * n_heads + h) * sq * HD;
+  const int q_offset = dev_offset ? __ldg(dev_offset) : host_offset;
 
   for (int e = tid; e < kBq * HD; e += kThreads) {
     const int r = e / HD, d = e % HD, row = q0 + r;
@@ -140,7 +152,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBk * HD; e += kThreads) {
       const int r = e / HD, d = e % HD, key = k0 + r;
       kv[d * kLd + r] =
-          key < sk ? load_f32(kb, static_cast<int64_t>(key) * HD + d) : 0.f;
+          key < sk ? load_f32(kb, key * st.ks + d) : 0.f;
     }
     __syncthreads();
 
@@ -202,8 +214,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     for (int e = tid; e < kBk * HD; e += kThreads) {
       const int key = k0 + e / HD;
-      kv[e] = key < sk ? load_f32(vb, static_cast<int64_t>(k0) * HD + e)
-                       : 0.f;
+      kv[e] = key < sk ? load_f32(vb, key * st.vs + e % HD) : 0.f;
     }
     __syncthreads();
 
@@ -267,6 +278,18 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* map,
     hopper::tma_load_3d(dst + c * Rows * 32, map, bar, 16 * c, r0, mat);
 }
 
+// the same for K or V rows [k0, k0 + Rows) of (KV head g, batch row b),
+// through a 4-D map over the tensor's own strides
+template <int Chunks, int Rows>
+__device__ __forceinline__ void load_kv_tile(const CUtensorMap* map,
+                                             uint32_t dst, uint32_t bar,
+                                             int k0, int g, int b) {
+  hopper::mbar_expect_tx(bar, Chunks * Rows * 32);
+#pragma unroll
+  for (int c = 0; c < Chunks; ++c)
+    hopper::tma_load_4d(dst + c * Rows * 32, map, bar, 16 * c, k0, g, b);
+}
+
 __device__ __forceinline__ uint32_t bits(const __nv_bfloat162& x) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
@@ -278,7 +301,8 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ out, int n_heads,
                        int kv_heads, int sq, int sk, int causal, int window,
-                       int q_offset, float scale) {
+                       int host_offset, const int* __restrict__ dev_offset,
+                       float scale) {
   using hopper::desc_sw32;
   using W = Tile<HD>;
   constexpr int kChunks = W::kChunks;
@@ -293,7 +317,8 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.y, b = blockIdx.z;
   const int g = h / (n_heads / kv_heads);
   const int q0 = qi * kBq;
-  const int qmat = b * n_heads + h, kmat = b * kv_heads + g;
+  const int qmat = b * n_heads + h;
+  const int q_offset = dev_offset ? __ldg(dev_offset) : host_offset;
 
   // the key tiles some row of this query tile attends to (row r sits at
   // position q_offset + r)
@@ -323,10 +348,10 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       load_tile<kChunks, kBq>(&tq, s_q, bar_q, q0, qmat);
       for (int t = 0; t < 2 && t < n_tiles; ++t) {
         const int k0 = (kt_lo + t) * kBk;
-        load_tile<kChunks, kBk>(&tk, s_k + t * W::kKvBytes, bar_q + 8 + 8 * t,
-                                k0, kmat);
-        load_tile<kChunks, kBk>(&tv, s_v + t * W::kKvBytes,
-                                bar_q + 24 + 8 * t, k0, kmat);
+        load_kv_tile<kChunks, kBk>(&tk, s_k + t * W::kKvBytes,
+                                   bar_q + 8 + 8 * t, k0, g, b);
+        load_kv_tile<kChunks, kBk>(&tv, s_v + t * W::kKvBytes,
+                                   bar_q + 24 + 8 * t, k0, g, b);
       }
     }
     __syncwarp();
@@ -420,8 +445,9 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       __syncthreads();   // every warp is done with stage st: refill it
       if (tid == 0 && t + 2 < n_tiles) {
         const int kn = (kt_lo + t + 2) * kBk;
-        load_tile<kChunks, kBk>(&tk, k_st, bar_q + 8 + 8 * st, kn, kmat);
-        load_tile<kChunks, kBk>(&tv, v_st, bar_q + 24 + 8 * st, kn, kmat);
+        load_kv_tile<kChunks, kBk>(&tk, k_st, bar_q + 8 + 8 * st, kn, g, b);
+        load_kv_tile<kChunks, kBk>(&tv, v_st, bar_q + 24 + 8 * st, kn, g,
+                                   b);
       }
       __syncwarp();
     }
@@ -451,8 +477,8 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int HD>
 int launch_f32_hd(const void* q, const void* k, const void* v, void* out,
                   int b, int h, int kv, int sq, int sk, int causal,
-                  int window, int q_offset, float scale,
-                  cudaStream_t stream) {
+                  int window, int q_offset, const int* dev_offset,
+                  const KvStrides& st, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   // above 48 KB a block's dynamic shared memory needs this opt-in (it
   // holds for the current device, so it is set at every launch)
@@ -464,20 +490,33 @@ int launch_f32_hd(const void* q, const void* k, const void* v, void* out,
   attention_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), h, kv, sq, sk,
-      causal, window, q_offset, scale);
+      causal, window, q_offset, dev_offset, st, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_bf16_hd(const void* q, const void* k, const void* v, void* out,
                    int b, int h, int kv, int sq, int sk, int causal,
-                   int window, int q_offset, float scale,
-                   cudaStream_t stream) {
+                   int window, int q_offset, const int* dev_offset,
+                   const KvStrides& st, float scale, cudaStream_t stream) {
   using W = tc::Tile<HD>;
+  // K and V as (hd, Sk, KV, B) on their own byte strides, whatever their
+  // order (the layer cache's KV-head stride is below its key stride); keys
+  // past sk read as zeros
+  const uint64_t dims[4] = {HD, static_cast<uint64_t>(sk),
+                            static_cast<uint64_t>(kv),
+                            static_cast<uint64_t>(b)};
+  const uint64_t kstr[3] = {static_cast<uint64_t>(st.ks) * 2,
+                            static_cast<uint64_t>(st.kh) * 2,
+                            static_cast<uint64_t>(st.kb) * 2};
+  const uint64_t vstr[3] = {static_cast<uint64_t>(st.vs) * 2,
+                            static_cast<uint64_t>(st.vh) * 2,
+                            static_cast<uint64_t>(st.vb) * 2};
+  const uint32_t box[4] = {16, tc::kBk, 1, 1};
   CUtensorMap tq, tk, tv;
   if (!hopper_host::bf16_map_sw32(&tq, q, b * h, sq, HD, tc::kBq) ||
-      !hopper_host::bf16_map_sw32(&tk, k, b * kv, sk, HD, tc::kBk) ||
-      !hopper_host::bf16_map_sw32(&tv, v, b * kv, sk, HD, tc::kBk))
+      !hopper_host::bf16_map_sw32_strided(&tk, k, 4, dims, kstr, box) ||
+      !hopper_host::bf16_map_sw32_strided(&tv, v, 4, dims, vstr, box))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       tc::attention_wgmma_kernel<HD>,
@@ -487,34 +526,42 @@ int launch_bf16_hd(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((sq + tc::kBq - 1) / tc::kBq, h, b);
   tc::attention_wgmma_kernel<HD><<<grid, tc::kThreads, W::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), h, kv, sq, sk, causal,
-      window, q_offset, scale);
+      window, q_offset, dev_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q and out (b, h, sq, hd), k and v (b, kv, sk, hd), one dtype (1 = bf16,
-// 0 = f32); bf16 pointers 16-byte aligned.  hd in {32, 64, 80, 96, 128,
-// 256}; h a multiple of kv.  Query i sits at position q_offset + i (keys
-// count from 0): q_offset 0 with sq == sk is the prefill, q_offset = pos
-// over the first pos + sq keys a chunk behind a cache.  Returns
-// cudaGetLastError() (or cudaErrorInvalidValue for arguments it does not
-// take).
+// q and out (b, h, sq, hd) contiguous, k and v (b, kv, sk, hd) on the six
+// element strides of `strides` (k's batch, head, key, then v's; the last
+// dimension contiguous), one dtype (1 = bf16, 0 = f32); bf16 pointers and
+// byte strides multiples of 16.  hd in {32, 64, 80, 96, 128, 256}; h a
+// multiple of kv.  Query i sits at position q_offset + i (keys count from
+// 0), q_offset read from `dev_offset` (an int32 in device memory) when it
+// is not null: q_offset 0 with sq == sk is the prefill, q_offset = pos over
+// a whole cache a chunk behind it.  Returns cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments it does not take).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int b, int h,
                                      int kv, int sq, int sk, int hd,
                                      int causal, int window, int q_offset,
-                                     float scale, int bf16, void* stream) {
+                                     const int* dev_offset,
+                                     const int64_t* strides, float scale,
+                                     int bf16, void* stream) {
   if (b < 1 || b > 65535 || h < 1 || h > 65535 || kv < 1 || h % kv != 0 ||
       sq < 1 || sk < 1 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const KvStrides st{strides[0], strides[1], strides[2],
+                     strides[3], strides[4], strides[5]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_ATTN(HH)                                                      \
   case HH:                                                                  \
     return bf16 ? launch_bf16_hd<HH>(q, k, v, out, b, h, kv, sq, sk,        \
-                                     causal, window, q_offset, scale, s)    \
+                                     causal, window, q_offset, dev_offset,  \
+                                     st, scale, s)                          \
                 : launch_f32_hd<HH>(q, k, v, out, b, h, kv, sq, sk, causal, \
-                                    window, q_offset, scale, s)
+                                    window, q_offset, dev_offset, st,       \
+                                    scale, s)
   switch (hd) {
     REPRO_ATTN(32);
     REPRO_ATTN(64);

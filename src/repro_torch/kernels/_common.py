@@ -130,12 +130,18 @@ def strides_of(t: torch.Tensor, dims) -> list:
     return [st[d] for d in dims]
 
 
-def check_tma(name: str, label: str, t: torch.Tensor) -> None:
-    """What a TMA load needs of ``t``: a 16-byte-aligned base and outer
-    strides of whole 16-byte units (the last dimension contiguous is
-    checked by the caller).  Anything else is refused."""
+def tma_readable(t: torch.Tensor) -> bool:
+    """Whether a TMA load reads ``t`` as it lies: a 16-byte-aligned base
+    and outer strides of whole 16-byte units (the last dimension
+    contiguous is checked apart)."""
     outer = strides_of(t, range(t.dim() - 1))
-    if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in outer):
+    return t.data_ptr() % 16 == 0 and \
+        all(s * t.element_size() % 16 == 0 for s in outer)
+
+
+def check_tma(name: str, label: str, t: torch.Tensor) -> None:
+    """Refuse a ``t`` that a TMA load cannot read (``tma_readable``)."""
+    if not tma_readable(t):
         raise ValueError(f"{name}: the kernel loads {label} by TMA, which "
                          "needs a 16-byte-aligned base and strides of whole "
                          f"16 bytes; got strides {t.stride()} and base "
@@ -148,6 +154,23 @@ def check_last_contiguous(name: str, label: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: {label} must have a contiguous last "
                          f"dimension; got strides {t.stride()} for shape "
                          f"{tuple(t.shape)}")
+
+
+def position(name: str, label: str, value, device):
+    """A position argument as a kernel takes it: a host int >= 0, or a 0-d
+    int32 tensor on ``device``, which the kernel reads there (its value
+    never reaches the host: the caller keeps it >= 0)."""
+    if isinstance(value, torch.Tensor):
+        if value.dim() != 0 or value.dtype != torch.int32 \
+                or value.device != device:
+            raise ValueError(f"{name}: a tensor {label} must be 0-d int32 "
+                             f"on {device}, got {tuple(value.shape)} "
+                             f"{value.dtype} on {value.device}")
+        return value
+    if isinstance(value, bool) or int(value) != value or value < 0:
+        raise ValueError(f"{name}: {label} must be an int >= 0 or a 0-d "
+                         f"int32 tensor, got {value!r}")
+    return int(value)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

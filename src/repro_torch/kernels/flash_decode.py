@@ -297,23 +297,6 @@ def _is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
-def _check_pos(name, pos, device):
-    """``pos`` as the kernel takes it: a host int >= 0, or a 0-d int32
-    tensor on ``device`` (its value stays on the device: the caller keeps
-    it in ``[0, S)``; a negative one gives zeros on the card)."""
-    if isinstance(pos, torch.Tensor):
-        if pos.dim() != 0 or pos.dtype != torch.int32 \
-                or pos.device != device:
-            raise ValueError(f"{name}: a tensor pos must be 0-d int32 on "
-                             f"{device}, got {tuple(pos.shape)} {pos.dtype} "
-                             f"on {pos.device}")
-        return pos
-    if isinstance(pos, bool) or int(pos) != pos or pos < 0:
-        raise ValueError(f"{name}: pos must be an int >= 0 or a 0-d int32 "
-                         f"tensor, got {pos!r}")
-    return int(pos)
-
-
 # -- wrappers ----------------------------------------------------------------
 def flash_decode(q, k_cache, v_cache, pos, *, window: int = 0, split=None):
     """q: (B, H, 1, hd); k_cache/v_cache: (B, KV, S, hd), one layout (the
@@ -339,7 +322,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: int = 0, split=None):
     if k_cache.dim() != 4 or k_cache.shape[0] != q.shape[0]:
         raise ValueError(f"{name}: caches must be (B, KV, S, hd) with q's "
                          f"B, got {tuple(k_cache.shape)}")
-    pos = _check_pos(name, pos, q.device)
+    pos = _c.position(name, "pos", pos, q.device)
     window = int(window)
     variant = _c.variant_of(k_cache)
     if q.device.type == "cpu":

@@ -73,15 +73,15 @@ def generate(cfg, params, prompts, *, gen: int, max_seq: int, greedy=True,
     gen) tokens in the prompts' dtype (and, with ``return_logits``, the
     (B, gen, V) logits each generated token was chosen from).
 
-    Attention archs prefill in ONE chunked decode call (at the host
-    position 0); recurrent archs and the encoder-decoder — or
-    ``stepped_prefill=True`` — step token by token (the encoder-decoder
-    over the zero ``enc_out`` of a fresh cache, as the reference's).
-    Every one-token step, the stepped prefill's too, takes its position
-    from one int32 tensor on the prompts' device,
-    advanced in place after the step, as the reference passes a traced
-    ``jnp.int32(t)``: B5 reads it there, so each step launches its
-    kernels with the same arguments.
+    Attention archs prefill in ONE chunked decode call; recurrent archs
+    and the encoder-decoder — or ``stepped_prefill=True`` — step token by
+    token (the encoder-decoder over the zero ``enc_out`` of a fresh cache,
+    as the reference's).  Every call, the chunked prefill's too, takes its
+    position from one int32 tensor on the prompts' device (0 for the
+    prefill, as the reference's ``jnp.int32(0)``), advanced in place after
+    the call, as the reference passes a traced ``jnp.int32(t)``: B4 and
+    B5 read it there, so each step launches its kernels with the same
+    arguments.
 
     ``greedy=False`` samples token ``t`` (its absolute position) with
     ``categorical(fold_in(rng, t), logits)`` (``core.prng``), one key over
@@ -99,15 +99,15 @@ def generate(cfg, params, prompts, *, gen: int, max_seq: int, greedy=True,
             p, p + gen, device=prompts.device))
     cache = models.init_cache(cfg, b, max_seq, device=prompts.device)
     decode = make_decode_step(cfg)
+    pos = torch.zeros((), dtype=torch.int32, device=prompts.device)
     if stepped_prefill or not chunkable(cfg):
         # prefill by stepping (the only correct path for recurrent state)
-        pos = torch.zeros((), dtype=torch.int32, device=prompts.device)
         for t in range(p):
             logits, cache = decode(params, cache, prompts[:, t:t + 1], pos)
             pos.add_(1)
     else:
-        logits, cache = decode(params, cache, prompts, 0)
-        pos = torch.full((), p, dtype=torch.int32, device=prompts.device)
+        logits, cache = decode(params, cache, prompts, pos)
+        pos.add_(p)
     out, seen = [prompts], []
     for i, t in enumerate(range(p, p + gen)):
         seen.append(logits)

@@ -83,7 +83,8 @@ def chunked_attention(q, k, v, *, window: int = 0, causal: bool = True,
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.
     window: 0 (global) or a sliding window (applies when causal).
-    q_offset: the position of query 0 (keys count from 0).
+    q_offset: the position of query 0 (keys count from 0), a host int or,
+    off the CPU, a 0-d int32 tensor on q's device that B4 reads there.
     Returns (B, Sq, H, hd) in q's dtype.  Off the CPU this is B4, unless
     ``train`` asks for the differentiable scan (see the module
     docstring)."""
@@ -97,9 +98,13 @@ def chunked_attention(q, k, v, *, window: int = 0, causal: bool = True,
                               (q, k, v), ("b.h.",) * 3, "b.h.")
     window = int(window)
     if q.device.type != "cpu" and not train:
-        t = lambda a: a.transpose(1, 2).contiguous()
-        o = _fa.flash_attention(t(q), t(k), t(v), causal=causal,
-                                window=window, q_offset=q_offset)
+        # B4 reads k and v through their (B, KV, Sk, hd) views as they lie
+        # (a layer cache, the projections), q and its output contiguous
+        kv = (a.transpose(1, 2) for a in (k, v))
+        kv = [a if _fa.readable(a) else a.contiguous() for a in kv]
+        o = _fa.flash_attention(q.transpose(1, 2).contiguous(), *kv,
+                                causal=causal, window=window,
+                                q_offset=q_offset)
         return o.transpose(1, 2)
     # B4's work in its plain form: a cost count keeps the scan's scores
     # and probabilities out of its device-memory bytes

@@ -194,7 +194,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
         raise ValueError(f"an encoder-decoder decode step takes one token, "
                          f"as the reference's (its output reshape is "
                          f"(B, 1, ·)); got a chunk of {t}")
-    pos = _pos_arg(pos, t, x.device)
+    pos = _pos_arg(pos, x.device)
     slot = _cache_slot(pos, t, cache["k"].shape[2])
     positions = torch.zeros((b, 1), dtype=torch.int32, device=x.device) + pos
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)

@@ -405,40 +405,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     return caches
 
 
-def _refuse_device_chunk(pos, t: int):
-    if isinstance(pos, torch.Tensor) and t > 1:
-        raise ValueError(
-            f"a chunk of {t} tokens takes a host int pos: B4's offset form "
-            "copies the first pos + T keys, a host length, until it reads "
-            "the layer cache through its strides (ROADMAP B4 (c))")
-
-
 def decode_attention_dyn(q, k_cache, v_cache, pos, window: int):
     """Attention of a chunk of T >= 1 query tokens at positions
     pos..pos+T-1 over a ``(B, S, KV, hd)`` cache that already holds them
     (T = 1 is the classic single-token decode; T > 1 the chunked prefill
     — causality within the chunk falls out of the same position mask).
     ``window``: this layer's sliding window (0 = global).  ``pos``: a host
-    int, or for T = 1 a 0-d int32 tensor on q's device.
+    int, or a 0-d int32 tensor on q's device (the reference's traced
+    position).
 
     On the CPU the reference's einsum form, line for line (f32 scores,
-    softmax and product).  On the card T = 1 is B5 over the cache as it
-    lies, and T > 1 B4 with ``q_offset = pos`` over the first ``pos + T``
-    keys, which ``chunked_attention`` copies into B4's ``(B, KV, Sk, hd)``
-    form (one copy of those keys per layer per chunk)."""
+    softmax and product).  On the card T = 1 is B5 and T > 1 B4 with
+    ``q_offset = pos``, each over the whole cache as it lies (its
+    ``transpose(1, 2)`` view, no slice and no copy) with ``pos`` read
+    where it is: the causal mask drops the keys past ``pos + T - 1``, and
+    the kernels load no tile it would drop."""
     b, t, h, hd = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
-    _refuse_device_chunk(pos, t)
     if q.device.type != "cpu":
         if t == 1:
             return decode_attention(q, k_cache, v_cache, pos, window=window)
-        n = pos + t
-        k, v = k_cache[:, :n], v_cache[:, :n]
-        if k.dtype != q.dtype:                 # B4 takes one dtype
-            return chunked_attention(q.float(), k.float(), v.float(),
-                                     window=window,
+        if k_cache.dtype != q.dtype:
+            # B4 takes one dtype: a cache kept in another (an f32 cache
+            # behind a bf16 model) is cast, as the reference reads it in
+            # f32, and q with it; at a host pos only the first pos + T
+            # keys, at a tensor pos the whole cache
+            n = s if isinstance(pos, torch.Tensor) else pos + t
+            return chunked_attention(q.float(), k_cache[:, :n].float(),
+                                     v_cache[:, :n].float(), window=window,
                                      q_offset=pos).to(q.dtype)
-        return chunked_attention(q, k, v, window=window, q_offset=pos)
+        return chunked_attention(q, k_cache, v_cache, window=window,
+                                 q_offset=pos)
     n_rep = h // kvh
     k = gqa_expand(k_cache, n_rep).float()
     v = gqa_expand(v_cache, n_rep).float()
@@ -471,12 +468,17 @@ def _decode_attn_layer(p, x, cfg, cache_k, cache_v, window, pos, rope,
 
 
 def _cache_slot(pos, t: int, max_seq: int):
-    """The cache write's index for a tensor ``pos`` (int64, on its
-    device, clamped to the cache as the reference's
-    ``dynamic_update_slice`` clamps its start); None for a host int, which
-    must fit the chunk in the cache."""
+    """The cache write's T indices for a tensor ``pos`` (int64, on its
+    device: the start clamped to ``[0, max_seq - T]`` as the reference's
+    ``dynamic_update_slice`` clamps it, while RoPE and the mask read the
+    unclamped ``pos``); None for a host int, which must fit the chunk in
+    the cache."""
+    if t > max_seq:
+        raise ValueError(f"a chunk of {t} does not fit a cache of {max_seq} "
+                         "positions")
     if isinstance(pos, torch.Tensor):
-        return pos.clamp(0, max_seq - 1).long().reshape(1)
+        return pos.clamp(0, max_seq - t).long() + torch.arange(
+            t, device=pos.device)
     if pos + t > max_seq:
         raise ValueError(f"a chunk of {t} at position {pos} does not fit "
                          f"a cache of {max_seq} positions")
@@ -497,9 +499,9 @@ def _cache_write(cache_k, cache_v, k, v, pos, slot):
         write_rows(cache_v, 1, slot, v.to(cache_v.dtype))
 
 
-def _pos_arg(pos, t: int, device):
-    """``decode_step``'s ``pos``: a host int >= 0, or (T = 1 only) a 0-d
-    integer tensor on ``device``, returned as int32 (B5 reads int32)."""
+def _pos_arg(pos, device):
+    """``decode_step``'s ``pos``: a host int >= 0, or a 0-d integer tensor
+    on ``device``, returned as int32 (B4 and B5 read int32)."""
     if isinstance(pos, torch.Tensor):
         if pos.dim() != 0 or pos.dtype.is_floating_point or \
                 pos.dtype.is_complex or pos.dtype == torch.bool or \
@@ -507,7 +509,6 @@ def _pos_arg(pos, t: int, device):
             raise ValueError(f"a tensor pos must be a 0-d integer tensor on "
                              f"{device}, got {tuple(pos.shape)} {pos.dtype} "
                              f"on {pos.device}")
-        _refuse_device_chunk(pos, t)
         return pos.to(torch.int32)
     if isinstance(pos, bool) or int(pos) != pos or pos < 0:
         raise ValueError(f"pos must be an int >= 0 or a 0-d integer tensor, "
@@ -521,14 +522,14 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     """Decode a chunk of T >= 1 tokens against the cache.
 
     tokens: (B, T) int; pos: the cache position of the FIRST new token
-    (the chunk occupies pos..pos+T-1), a host int, or for T = 1 a 0-d
-    integer tensor on the tokens' device — the reference's traced
-    ``jnp.int32(pos)``: the cache write, RoPE and B5 then read it on the
-    device, with no copy to the host, so the caller keeps ``0 <= pos <
-    max_seq`` (the write index is clamped to the cache, as the
-    reference's ``dynamic_update_slice`` clamps its start; a host int
-    past the cache raises).  A tensor ``pos`` with T > 1 raises (ROADMAP
-    B4 (c)).  T = 1 is the classic one-token decode step; T > 1 is the
+    (the chunk occupies pos..pos+T-1), a host int, or a 0-d integer
+    tensor on the tokens' device — the reference's traced
+    ``jnp.int32(pos)``: the cache write, RoPE, B4 and B5 then read it on
+    the device, with no copy to the host, so the caller keeps ``pos >= 0``
+    (the write's start is clamped to ``[0, max_seq - T]``, as the
+    reference's ``dynamic_update_slice`` clamps it, while RoPE and the
+    mask take ``pos`` as it is; a host int past the cache raises).  T = 1
+    is the classic one-token decode step; T > 1 is the
     batched or chunked prefill of attention stacks.  Recurrent segments
     (mamba2 / rwkv6) accept only T = 1, as the reference's do.
     embeddings: optional (B, T, D) in place of the token embedding.
@@ -541,7 +542,7 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     else:
         x = embeddings.to(cdt)
     b, t = x.shape[:2]
-    pos = _pos_arg(pos, t, x.device)
+    pos = _pos_arg(pos, x.device)
     segs = layout(cfg)
     rope = slot = None
     if any(seg.kind in (ATTN, SHARED_ATTN) for seg in segs):

@@ -570,6 +570,97 @@ def test_flash_attention_with_a_query_offset(cuda, dtype):
     assert fa.launch_count() == n and fa.plain_count() == 0
 
 
+# B4 over a whole (B, S, KV, hd) layer cache through its transpose(1, 2)
+# view at a device offset: (hd, window, T, offset) — phi3's hd 96, gemma3's
+# hd 256 with a window of no multiple of a key tile, a ragged chunk, the
+# cache's last chunk
+B4_CACHE_CASES = [(96, 0, 64, 512), (96, 0, 17, 40), (256, 24, 64, 448),
+                  (64, 0, 64, 0), (64, 16, 5, 507)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,window,t,off", B4_CACHE_CASES)
+def test_flash_attention_reads_the_cache_at_a_device_offset(cuda, dtype, hd,
+                                                            window, t, off):
+    """B4 on the layer cache's strided views with q_offset a 0-d int32 on
+    the card: against its plain version on the same views, and bit-equal
+    to the host-int launch (the same tiles in the same order)."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(hd + t + off)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(dtype)
+    b, h, kv, max_seq = 2, 8, 2, 512 + 64
+    q = rn(b, h, t, hd)
+    kc, vc = rn(b, max_seq, kv, hd), rn(b, max_seq, kv, hd)
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    assert not k.is_contiguous() and fa.readable(k)
+    pos = torch.tensor(off, dtype=torch.int32, device=cuda)
+    fa.reset_counts()
+    got = fa.flash_attention(q, k, v, window=window, q_offset=pos)
+    host = fa.flash_attention(q, k, v, window=window, q_offset=off)
+    assert fa.launch_count() == 2 and fa.plain_count() == 0
+    assert torch.equal(got, host)
+    _close_decode(got, fa.flash_attention_plain(q, k, v, window=window,
+                                                q_offset=pos), dtype)
+
+
+def test_flash_attention_refuses_views_it_cannot_read(cuda):
+    """A bf16 key stride of no whole 16 bytes, a last dimension that is not
+    contiguous, a q that is not contiguous, and an offset that is not a
+    0-d int32 on the card are refused; nothing is copied quietly, and
+    ``readable`` says which views a caller must copy."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(1, 4, 8, 64, generator=gen, device=cuda).bfloat16()
+    pad = torch.randn(1, 32, 2, 68, generator=gen, device=cuda).bfloat16()
+    odd = pad[..., :64].transpose(1, 2)           # 136-byte key rows
+    assert not fa.readable(odd) and fa.readable(odd.float())
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention(q, odd, odd, q_offset=8)
+    cols = torch.randn(1, 2, 64, 32, generator=gen, device=cuda).bfloat16() \
+        .transpose(2, 3)
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention(q, cols, cols)
+    k = torch.randn(1, 2, 32, 64, generator=gen, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="contiguous q"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           k, k)
+    for bad in (torch.tensor(8, device=cuda), torch.tensor(8, dtype=torch.int32),
+                torch.tensor([8], dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError, match="0-d int32"):
+            fa.flash_attention(q, k, k, q_offset=bad)
+
+
+def test_decode_chunk_at_a_device_pos_card_vs_cpu(cuda):
+    """``decode_step`` with a chunk at a 0-d int32 ``pos`` on the card (B4
+    on the cache views, no slice) against the CPU port at the same
+    tensor pos, reduced f32 phi3-mini, a write the cache clamps
+    included: logits within 1e-4, the same cache rows written."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_flatten, tree_map
+    from repro_torch.kernels import flash_attention as fa
+    cfg = reduced(get_config("phi3-mini-3.8b"))
+    params = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    cards = tree_map(lambda t: t.cuda(), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17),
+                         generator=torch.Generator().manual_seed(1))
+    for pos in (5, 40):                      # 40 + 17 > 48: clamped to 31
+        caches = {d: models.init_cache(cfg, 2, 48, device=d)
+                  for d in ("cpu", "cuda")}
+        fa.reset_counts()
+        got, _ = models.decode_step(
+            cards, cfg, caches["cuda"], toks.cuda(),
+            torch.tensor(pos, dtype=torch.int32, device=cuda))
+        assert fa.launch_count() == cfg.n_layers
+        want, _ = models.decode_step(params, cfg, caches["cpu"], toks,
+                                     torch.tensor(pos, dtype=torch.int32))
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+        for a, b in zip(tree_flatten(caches["cuda"])[0],
+                        tree_flatten(caches["cpu"])[0]):
+            assert torch.equal(a.cpu() != 0, b != 0)
+
+
 def test_static_generate_launches_the_kernels(cuda):
     """``launch.serve.generate`` on reduced f32 phi3-mini on the card: one
     B4 launch a layer for the chunked prefill, one B5 launch a layer a

@@ -35,11 +35,14 @@ the card ``chip_smoke.py`` phase 21 holds the kernels against these plain
 forms and runs the path at full width.
 
 A device ``pos`` (a 0-d integer tensor, the reference's traced
-``jnp.int32(pos)``) through ``decode_step``, ``make_decode_step`` and B5's
-wrapper gives the host int's logits and caches bit for bit (and stays
-within BAND of the reference's jitted step); ``generate`` steps on one
-such tensor; a tensor ``pos`` with a chunk (T > 1), or of another dtype,
-shape or device, is refused.
+``jnp.int32(pos)``) through ``decode_step``, ``make_decode_step`` and the
+B4 / B5 wrappers gives the host int's logits and caches bit for bit (and
+stays within BAND of the reference's jitted step), for one token and for
+chunks of 2, 17 and 64 — at a ``pos`` whose chunk the reference's
+``dynamic_update_slice`` clamps too: the same rows written, RoPE and the
+mask at the unclamped ``pos``; ``generate`` prefills and steps on one such
+tensor; a tensor ``pos`` of another dtype, shape or device is refused.
+B4's plain form reads the cache through its ``transpose(1, 2)`` view.
 """
 import jax
 import jax.numpy as jnp
@@ -462,24 +465,37 @@ def test_make_decode_step_tensor_pos_matches_host_int(arch, layers):
 
 
 def test_tensor_pos_refusals():
-    """A tensor ``pos`` must be a 0-d integer on the tokens' device, and
-    only for T = 1 (a chunk copies the first pos + T keys for B4, a host
-    length: ROADMAP B4 (c)); B5's wrapper takes a 0-d int32 on q's
-    device; on the CPU a tensor pos gives B5's plain form the host int's
-    bits."""
+    """A tensor ``pos`` must be a 0-d integer on the tokens' device (a
+    chunk of any length takes one, with the host int's bits); B4's and
+    B5's wrappers take a 0-d int32 on q's device and refuse anything else;
+    on the CPU a tensor pos gives their plain forms the host int's bits."""
     cfg, _, _, tp, tok = _setup("phi3-mini-3.8b", 2)
-    cache = models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu")
     one, chunk = (torch.from_numpy(tok[:, :n]).long() for n in (1, 3))
-    with pytest.raises(ValueError, match=r"B4 \(c\)"):
-        models.decode_step(tp, cfg, cache, chunk, _pos(0))
+    caches = [models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu")
+              for _ in range(2)]
+    li, _ = models.decode_step(tp, cfg, caches[0], chunk, 4)
+    lt, _ = models.decode_step(tp, cfg, caches[1], chunk, _pos(4))
+    assert torch.equal(lt, li)
+    for a, b in zip(tree_flatten(caches[0])[0], tree_flatten(caches[1])[0]):
+        assert torch.equal(a, b)
     for bad in (torch.tensor(2.0), torch.tensor([2]), _pos(2).to("meta"),
                 torch.tensor(True)):
         with pytest.raises(ValueError, match="0-d integer"):
-            models.decode_step(tp, cfg, cache, one, bad)
-    q, k, v = _attn_inputs(7, t=3)
-    with pytest.raises(ValueError, match=r"B4 \(c\)"):
-        transformer.decode_attention_dyn(*map(torch.from_numpy, (q, k, v)),
-                                         _pos(2), 0)
+            models.decode_step(tp, cfg, caches[0], one, bad)
+    q, k, v = (torch.from_numpy(a) for a in _attn_inputs(7, t=3))
+    tq, tk, tv = q.transpose(1, 2).contiguous(), k.transpose(1, 2), \
+        v.transpose(1, 2)
+    for pos, w in ((0, 0), (5, 0), (13, 4)):
+        assert torch.equal(
+            transformer.decode_attention_dyn(q, k, v, _pos(pos), w),
+            transformer.decode_attention_dyn(q, k, v, pos, w))
+        assert torch.equal(
+            fa.flash_attention(tq, tk, tv, window=w, q_offset=_pos(pos)),
+            fa.flash_attention(tq, tk, tv, window=w, q_offset=pos))
+    for bad in (torch.tensor(3.0), torch.tensor([3], dtype=torch.int32),
+                torch.tensor(3), _pos(3).to("meta")):
+        with pytest.raises(ValueError, match="0-d int32"):
+            fa.flash_attention(tq, tk, tv, q_offset=bad)
     rng = np.random.default_rng(8)
     q = torch.from_numpy(rng.standard_normal((2, 4, 1, 80)).astype(
         np.float32))
@@ -495,9 +511,10 @@ def test_tensor_pos_refusals():
 
 
 def test_generate_steps_on_a_device_pos(monkeypatch):
-    """``generate`` prefills in one chunk at the host 0 and takes every
-    one-token step's position from one int32 tensor on the prompts'
-    device, advanced in place; the stepped prefill steps on it from 0."""
+    """``generate`` takes every call's position from one int32 tensor on
+    the prompts' device, advanced in place: the chunked prefill at 0 (the
+    reference's ``jnp.int32(0)``), then each one-token step; the stepped
+    prefill steps on it from 0.  No call takes a host int."""
     cfg, _, _, tp, tok = _setup("phi3-mini-3.8b", 2)
     seen = []
     inner = serve.make_decode_step
@@ -515,13 +532,125 @@ def test_generate_steps_on_a_device_pos(monkeypatch):
         seen.clear()
         serve.generate(cfg, tp, torch.from_numpy(tok).long(), gen=3,
                        max_seq=PROMPT + 3, stepped_prefill=stepped)
-        steps = [p for t, p in seen if not isinstance(p, int)]
-        first = 0 if stepped else PROMPT
-        assert [p[2] for p in steps] == list(range(first, PROMPT + 2))
-        assert {p[:2] for p in steps} == {(torch.int32, ())}
-        assert len({p[3] for p in steps}) == 1          # one tensor
-        assert [p for t, p in seen if isinstance(p, int)] == \
-            ([] if stepped else [0])
+        assert not [p for _, p in seen if isinstance(p, int)]
+        want = (list(range(PROMPT + 2)) if stepped
+                else [0, PROMPT, PROMPT + 1])
+        assert [p[2] for _, p in seen] == want
+        assert [t for t, _ in seen] == ([1] * (PROMPT + 2) if stepped
+                                        else [PROMPT, 1, 1])
+        assert {p[:2] for _, p in seen} == {(torch.int32, ())}
+        assert len({p[3] for _, p in seen}) == 1        # one tensor
+
+
+# chunks at a device pos: the cache holds CHUNK_SEQ positions filled with
+# noise, so that every key the mask keeps carries a value; "inside" puts
+# the chunk within the cache, "clamped" past its end, where the reference's
+# dynamic_update_slice moves the write back to CHUNK_SEQ - T
+CHUNK_SEQ = 80
+CHUNK_POS = {2: (40, CHUNK_SEQ - 2 + 5), 17: (40, CHUNK_SEQ - 17 + 6),
+             64: (9, CHUNK_SEQ - 64 + 7)}
+
+
+def _filled_caches(arch, layers, seed):
+    """The reference's cache tree of CHUNK_SEQ positions filled with
+    numpy noise, and the port's copy of it."""
+    cfg, jcfg, _, _, _ = _setup(arch, layers)
+    rng = np.random.default_rng(seed)
+    fill = jax.tree_util.tree_map(
+        lambda a: rng.standard_normal(a.shape).astype(a.dtype),
+        _np(jmodels.init_cache(jcfg, BATCH, CHUNK_SEQ)))
+    return fill, cache_from_numpy(jax.tree_util.tree_map(np.copy, fill),
+                                  cfg, "cpu")
+
+
+def _jstep(jcfg, t):
+    key = ("jstep", jcfg.name, jcfg.n_layers, t)
+    if key not in _CACHE:
+        _CACHE[key] = jax.jit(jmake_decode_step(jcfg))
+    return _CACHE[key]
+
+
+@pytest.mark.parametrize("where", ["inside", "clamped"])
+@pytest.mark.parametrize("t", [2, 17, 64])
+@pytest.mark.parametrize("arch,layers,window", [("phi3-mini-3.8b", 2, 0),
+                                                ("gemma3-4b", 2, 16)])
+def test_device_pos_chunks_match_reference(arch, layers, window, t, where):
+    """A chunk of T tokens at a 0-d int32 ``pos`` through
+    ``make_decode_step`` against the reference's jitted step at
+    ``jnp.int32(pos)`` (gemma3's local layers with their window of 16):
+    logits and caches within BAND; the cache rows written are the
+    reference's (``[min(pos, S - T), + T)``, clamped as its
+    ``dynamic_update_slice`` clamps) and every other row keeps its bits.
+    Inside the cache, the host int gives the same bits; past it, a host
+    int is refused (the port's one difference: it cannot clamp a host
+    value quietly).  ``decode_step``'s (B, T, V) logits end in the step's."""
+    cfg, jcfg, jp, tp, _ = _setup(arch, layers)
+    assert max(cfg.attn_window, 0) in (0, window)
+    pos = CHUNK_POS[t][where == "clamped"]
+    toks = np.random.default_rng(t).integers(
+        0, cfg.vocab_size, (BATCH, t)).astype(np.int32)
+    fill, tc = _filled_caches(arch, layers, seed=t)
+    jl, jc = _jstep(jcfg, t)(jp, jax.tree_util.tree_map(jnp.asarray, fill),
+                             jnp.asarray(toks), jnp.int32(pos))
+    tl, tc = make_decode_step(cfg)(tp, tc, torch.from_numpy(toks).long(),
+                                   _pos(pos))
+    assert tl.shape == (BATCH, cfg.vocab_size)
+    assert _gap(tl, jl) <= BAND
+    assert _cache_gap(tc, jc) <= BAND
+    start = min(pos, CHUNK_SEQ - t)
+    rows = np.zeros(CHUNK_SEQ, bool)
+    rows[start:start + t] = True
+    for got, want, before in zip(tree_flatten(cache_to_numpy(tc))[0],
+                                 tree_flatten(_np(jc))[0],
+                                 tree_flatten(fill)[0]):
+        # (layers, B, S, KV, hd): the positions on axis 2
+        np.testing.assert_array_equal(got[:, :, ~rows], before[:, :, ~rows])
+        assert (got[:, :, rows] != before[:, :, rows]).any(axis=(0, 1, 3, 4)) \
+            .all()
+        assert (want[:, :, rows] != before[:, :, rows]).any(
+            axis=(0, 1, 3, 4)).all()
+    full, tc2 = models.decode_step(tp, cfg, _filled_caches(arch, layers, t)[1],
+                                   torch.from_numpy(toks).long(), _pos(pos))
+    assert torch.equal(full[:, -1], tl)
+    if where == "inside":
+        li, tc3 = make_decode_step(cfg)(tp, _filled_caches(arch, layers,
+                                                           t)[1],
+                                        torch.from_numpy(toks).long(), pos)
+        assert torch.equal(li, tl)
+        for a, b in zip(tree_flatten(tc3)[0], tree_flatten(tc)[0]):
+            assert torch.equal(a, b)
+    else:
+        with pytest.raises(ValueError, match="does not fit"):
+            models.decode_step(tp, cfg, tc2, torch.from_numpy(toks).long(),
+                               pos)
+
+
+@pytest.mark.parametrize("t,pos,window", [(2, 40, 0), (17, 40, 16),
+                                          (64, 9, 0), (64, 23, 16),
+                                          (17, 69, 0)])
+def test_decode_attention_dyn_device_pos_matches_reference(t, pos, window):
+    """``decode_attention_dyn`` over a whole cache at a 0-d int32 ``pos``
+    (past the cache's end too) against the reference's at
+    ``jnp.int32(pos)`` within FN_ATOL, bit-equal to the host int; B4's
+    plain form on the cache's ``transpose(1, 2)`` views at that tensor
+    offset, bit-equal to the host int, within FN_ATOL of the same."""
+    q, k, v = _attn_inputs(1000 + t + pos, t=t, s=CHUNK_SEQ)
+    want = jtransformer.decode_attention_dyn(*map(jnp.asarray, (q, k, v)),
+                                             jnp.int32(pos), window)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = transformer.decode_attention_dyn(tq, tk, tv, _pos(pos), window)
+    assert torch.equal(got, transformer.decode_attention_dyn(
+        tq, tk, tv, pos, window))
+    assert _gap(got, want) <= FN_ATOL
+    views = (tq.transpose(1, 2).contiguous(), tk.transpose(1, 2),
+             tv.transpose(1, 2))
+    assert not views[1].is_contiguous()
+    fa.reset_counts()
+    b4 = fa.flash_attention(*views, window=window, q_offset=_pos(pos))
+    assert torch.equal(b4, fa.flash_attention(*views, window=window,
+                                              q_offset=pos))
+    assert fa.plain_count() == 2 and fa.launch_count() == 0
+    assert _gap(b4.transpose(1, 2), want) <= FN_ATOL
 
 
 # --------------------------------- generate ----------------------------------
