@@ -70,20 +70,22 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     of ``SERVE_WORKLOAD``: one B6 launch per layer per decode tick and no
     plain attention at T = 1, tokens in the vocabulary, finite logits,
     the schedule ``run_serve_loop`` gives with stub hooks; tok/s, TTFT,
-    TPOT, ms per decode tick, a profile of ``PROFILE_TICKS`` (B6's share,
-    device idle share, top kernels) and peak memory; the contiguous
-    backend on the same requests (token agreement reported, not
-    asserted: bf16 logits can tie); (a) the same requests sampled
+    TPOT, ms per decode tick, a profile of ``PROFILE_TICKS`` in the run
+    that records the logits (B6's share, device idle share, top kernels;
+    the copies of the logits to the host left out) and peak memory; the
+    contiguous backend on the same requests (token agreement reported,
+    not asserted: bf16 logits can tie); (a) the same requests sampled
     (``SAMPLE_KW``: T 0.8, top-k 40, seed 7, logits recorded): the greedy
     leg's schedule and B6 count, tokens in the vocabulary, the threefry
     keys of its (rid, step) pairs drawn on the card equal the CPU's bit
     for bit, the card's noise on the recorded logits gives the engine's
-    tokens, and the CPU port's sampler on them picks the same tokens or
-    lies within ``GUMBEL_CARD_BAND`` of them (near-ties and the smallest
-    top-two gap printed); a second sampled run without recorded logits
-    (the same tokens), its ms a tick against the timed greedy run's, the
-    draw alone (``paged.sample_tokens`` at 8 rows) in device ms and
-    launches;
+    tokens, and the CPU port's noise on them (drawn at each row's top-k
+    columns alone, which a draw can pick; bit-equal to whole rows' on 8
+    rows) picks the same tokens or lies within ``GUMBEL_CARD_BAND`` of
+    them (near-ties and the smallest top-two gap printed); a second
+    sampled run without recorded logits (the same tokens), its ms a tick
+    against the timed greedy run's, the draw alone
+    (``paged.sample_tokens`` at 8 rows) in device ms and launches;
 13. serving parity: reduced gemma3-4b (window 16) and phi3-mini in f32 on
     the card against the CPU port on the churn workload, tokens identical
     and logits within ``SERVE_PARITY_BAND``; on the card, speculative
@@ -121,7 +123,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     bit-equal to its plain version (run a slice at a time) and timed
     beside ``add_`` and its bytes bound; then ``launch.train.run`` on
     ``LM_ARGV`` (full width, bf16 params, block remat, hybrid dual-batch x
-    CPL at seq 64 -> 128, fused SGD, 40 steps; logged every step rather
+    CPL at seq 64 -> 128, fused SGD, 24 steps; logged every step rather
     than every 20th): one B1 launch a step and no B4 / B7 / B8 (the
     training forward runs the differentiable scans), both sequence
     lengths, finite losses, the last below the first, params on the card;
@@ -204,9 +206,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     router, routing, dispatch / combine einsums and expert einsums
     (``record_function`` ranges under ``torch.profiler``), (c) the static
     decode (4 x 512 + 64: 32 B4 and 32 x 63 B5 launches), (d) the paged
-    engine on phase 12's requests (32 B6 launches a tick), (e) LM training
-    through the CLI (``GRANITE_TRAIN_ARGV``, phase 18's cut to 8 steps: one
-    B1 launch a step at granite's store, finite loss, aux > 0), each path
+    engine on phase 12's requests at 8 of 32 layers (8 B6 launches a
+    tick), (e) LM training through the CLI (``GRANITE_TRAIN_ARGV``, phase
+    18's cut to 4 steps: one B1 launch a step at granite's store, finite
+    loss, aux > 0), each path
     with phase 15 / 21 / 12 / 18's records; (f) reduced f32 granite (6 / 2
     heads of 64) on the card against the CPU port: prefill, ``generate``,
     the paged engine and 4 training steps within phases 16 / 21 / 13 /
@@ -287,8 +290,19 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     ``PREFILL_PARITY_BAND``, ``generate`` tokens identical and logits
     within ``DECODE_PARITY_BAND``, a long_500k-named shape of 64 positions
     at window 16 through ``make_decode_step(cfg, shape)`` within
-    ``DECODE_PARITY_BAND`` (arctic's CPU legs on the card's expert
-    choices).
+    ``DECODE_PARITY_BAND``, and (not chameleon) phase 13's churn workload
+    through the paged engine, tokens and schedule identical and logits
+    within ``SERVE_PARITY_BAND`` (arctic's CPU legs on the card's expert
+    choices); (f) llama3-405b, deepseek-67b and arctic-480b (not
+    chameleon-34b: deepseek's n_rep and hd) through the paged engine on
+    (b)-(d)'s params, phase 12's requests on bf16 pages: first B6 at the
+    first full tick's geometry (its page table and lengths, 8 rows, bf16
+    q and pages) against its plain version within phase 11's tolerance
+    plus one bf16 ulp at every cluster size, timed beside its bound and
+    gather + SDPA; then a greedy run (logits recorded, 10 full ticks
+    profiled), a timed greedy run with the same tokens and the sampled
+    leg of phase 12 (a); one B6 launch (its kRep-8 form) a layer a decode
+    tick and no plain run.
 26. the dry run and cost analysis (``launch/dryrun.py``,
     ``launch/hlo_analysis.py``): (a) ``python -m
     repro_torch.launch.dryrun --arch granite-moe-3b-a800m --shape
@@ -1025,7 +1039,7 @@ SAMPLE_KW = dict(temperature=0.8, top_k=40, sample_seed=7)
 # two devices' noise picks differently has its top-two gap of
 # ``lo / T + g`` within twice that plus an ulp of z (the sum's rounding)
 GUMBEL_CARD_BAND = 2 * 2.0 ** -20 + 2.0 ** -22
-REDRAW_ROWS = 64                 # CPU re-draw rows at a time
+REDRAW_ROWS = 64                 # rows of the card's noise drawn at a time
 # card vs CPU on the reduced configs, f32, the churn workload of
 # tests/test_serve.py: greedy tokens identical, logits within this band
 # (measured 4.9e-6 / 5.1e-6 for gemma3 / phi3 on NVIDIA H100 80GB HBM3,
@@ -1349,9 +1363,12 @@ def _timed_decode(engine, profile_ticks=None):
         if prof is not None:
             torch.cuda.synchronize()
             prof.__exit__(None, None, None)
+            # device work only: a recorded run's logits copied to the host
+            # (and the tick's tokens) are not counted
             kern = {}
             for ev in prof.events():
-                if ev.device_type == torch.autograd.DeviceType.CUDA:
+                if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                        not ev.name.startswith("Memcpy DtoH"):
                     kern[ev.name] = kern.get(ev.name, 0.0) + \
                         ev.time_range.elapsed_us()
             rec["profiled"].append({"rows": len(slots), "wall_s": wall,
@@ -1392,12 +1409,12 @@ def _profile_share(profiled, timed):
                              "share": us / busy} for k, us in top]}
 
 
-def serve_run(S, cfg, params, reqs, *, backend="paged", record=False,
+def serve_run(S, cfg, params, reqs, spec, *, backend="paged", record=False,
               profile_ticks=None, sample=None):
     """One ``ServeEngine.serve`` on the card with the launch counts set to
     0 just before it (``sample``: the engine's sampling arguments);
     returns what the run shows."""
-    engine = S.ServeEngine(cfg, params, spec=S.PageSpec(**SERVE_SPEC),
+    engine = S.ServeEngine(cfg, params, spec=spec,
                            backend=backend, prefill_chunk=SERVE_CHUNK,
                            record_logits=record, **(sample or {}))
     ticks = _timed_decode(engine, profile_ticks)
@@ -1424,43 +1441,48 @@ def serve_run(S, cfg, params, reqs, *, backend="paged", record=False,
     return out
 
 
-SERVE_LEGS = ("paged_recorded", "paged", "paged_profiled", "paged_sampled",
+SERVE_LEGS = ("paged_recorded", "paged", "paged_sampled",
               "paged_sampled_timed", "contig")
 
 
-def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS):
+def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS, *, cfg=None,
+                  params=None, store=torch.float32):
     """Phase 12: the paged ServeEngine at the full width of phi3-mini
     (all 32 layers, bf16 params and compute, f32 pages), B6 in every layer
     of every decode tick; (a) the same requests sampled (``SAMPLE_KW``,
     ``sampled_leg``); then the contiguous backend on the same requests
-    (phase 22 (d): ``arch`` granite, the greedy paged legs only)."""
+    (phase 22 (d): ``arch`` granite, the greedy paged legs only, ``cfg``
+    cut in depth; phase 25 (f): the wide-GQA configs at cut depth on the
+    ``params`` phase 25 drew, bf16 pages)."""
     import numpy as np
-    cfg = S.get_config(arch)
-    params = S.models.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    if params is None:
+        cfg = cfg or S.get_config(arch)
+        params = S.models.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
     n_params = sum(t.numel() for t in S.tree_leaves(params))
     reqs = S.synthetic_workload(0, SERVE_REQUESTS, vocab=cfg.vocab_size,
                                 **SERVE_WORKLOAD)
-    spec = S.PageSpec(**SERVE_SPEC)
+    spec = S.PageSpec(**SERVE_SPEC, store_dtype=store)
     want_log = S.run_serve_loop(reqs, spec, _StubHooks(),
                                 prefill_chunk=SERVE_CHUNK)
     n_layers = cfg.n_layers
     runs = {}
     # the recorded run comes first and warms the card up (cuBLAS handles
-    # and heuristics); the timed run has nothing else in it, the profiled
-    # one runs the first PROFILE_TICKS decode ticks with every slot busy
-    # under torch.profiler
+    # and heuristics), and runs the first PROFILE_TICKS decode ticks with
+    # every slot busy under torch.profiler (a run of its own until phase
+    # 25 needed the time); the timed run has nothing else in it
     full = [i for i, e in enumerate(x for x in want_log if x[0] == "decode")
             if len(e[2]) == spec.n_slots][:PROFILE_TICKS]
-    for leg, kw in (("paged_recorded", {"record": True}),
+    for leg, kw in (("paged_recorded", {"record": True,
+                                        "profile_ticks": set(full)}),
                     ("paged", {}),
-                    ("paged_profiled", {"profile_ticks": set(full)}),
                     ("paged_sampled", {"record": True, "sample": SAMPLE_KW}),
                     ("paged_sampled_timed", {"sample": SAMPLE_KW}),
                     ("contig", {"backend": "contig", "record": True})):
         if leg not in legs:
             continue
-        r = serve_run(S, cfg, params, reqs, **kw)
+        r = serve_run(S, cfg, params, reqs, spec, **kw)
         calls = r["stats"]["decode_calls"]
         if r["log"] != want_log:
             raise AssertionError(f"{leg}: the engine's schedule differs from "
@@ -1489,7 +1511,7 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS):
     recs = main["recs"]
     n_tok = sum(len(x.tokens) for x in recs)
     ticks = main["ticks"]
-    prof = _profile_share(runs["paged_profiled"]["ticks"]["profiled"],
+    prof = _profile_share(runs["paged_recorded"]["ticks"]["profiled"],
                           ticks)
     out = {"arch": arch, "params": n_params,
            "pool_bytes": spec.pool_bytes(cfg), "requests": len(reqs),
@@ -1516,8 +1538,10 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS):
         out.update(contig_wall_s=runs["contig"]["wall_s"],
                    contig_tok_per_s=n_tok / runs["contig"]["wall_s"],
                    paged_contig_token_agreement=sum(agree) / len(agree))
-    log(f"serving main path: {arch} full width ({n_params / 1e9:.2f} B "
-        f"params, bf16), {len(reqs)} requests, {n_tok} tokens in "
+    log(f"serving main path: {arch} full width, {n_layers} layers "
+        f"({n_params / 1e9:.2f} B params, bf16; {str(store)[6:]} pages, "
+        f"{spec.pool_bytes(cfg) / 2**20:.1f} MiB), {len(reqs)} requests, "
+        f"{n_tok} tokens in "
         f"{out['wall_s']:.2f} s: {out['tok_per_s']:.1f} tok/s, mean TTFT "
         f"{out['mean_ttft_s'] * 1e3:.1f} ms, mean TPOT "
         f"{out['mean_tpot_s'] * 1e3:.2f} ms; {out['decode_calls']} decode "
@@ -1546,7 +1570,7 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS):
     if "paged_sampled" in runs:
         out["sampled"] = sampled_leg(S, cfg, runs)
         for leg in ("paged_sampled", "paged_sampled_timed"):
-            for k, v in runs[leg]["launches"].items():
+            for k, v in runs.get(leg, {"launches": {}})["launches"].items():
                 for var, n in v.items():
                     path[k][var] += n
     del runs, params, main
@@ -1554,11 +1578,21 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS):
     return out, path
 
 
-def _noise(S, keys, v):
-    """f32 Gumbel noise (N, v) for keys (N, 2) on their device, REDRAW_ROWS
-    rows at a time, returned on the CPU."""
-    return torch.cat([S.prng.gumbel(keys[i:i + REDRAW_ROWS], (v,)).cpu()
-                      for i in range(0, keys.shape[0], REDRAW_ROWS)])
+def _kept_noise(S, keys, cols):
+    """f32 Gumbel noise of each key (N, 2) at its row's columns ``cols``
+    (N, k) alone, op for op as ``prng.gumbel`` draws whole rows: the
+    partitionable threefry counts a row's draws by column, so column j's
+    bits are those of counter (0, j); then ``prng.uniform``'s f32 form on
+    [tiny, 1) and ``-log(-log(u))``."""
+    x = cols.to(torch.int64)
+    b1, b2 = S.prng.threefry2x32(keys[:, :1], keys[:, 1:],
+                                 torch.zeros_like(x), x)
+    floats = (((b1 ^ b2) >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - torch.ones((), dtype=torch.float32)
+    lo = torch.full((), torch.finfo(torch.float32).tiny)
+    hi = torch.full((), 1.0)
+    u = torch.maximum(lo, floats * (hi - lo) + lo)
+    return u.log().neg().log().neg()
 
 
 def sampled_leg(S, cfg, runs):
@@ -1567,16 +1601,18 @@ def sampled_leg(S, cfg, runs):
     B6 count are the greedy run's (checked with the other legs); every
     token is in the vocabulary.  The keys of its (rid, step) pairs drawn on
     the card equal the CPU's bit for bit; the card's noise on the recorded
-    logits reproduces the engine's tokens; the CPU's noise picks the same
-    tokens, or the two picks lie within the Gumbel band of each other
-    (``GUMBEL_CARD_BAND``; near-ties counted, the smallest top-two gap
-    reported).  Times: ms a tick of a second sampled run that records no
-    logits (its tokens the recorded run's) against the timed greedy run,
-    which records none either; the draw alone (``paged.sample_tokens`` at
-    8 rows) in device ms and the launches it adds."""
+    logits reproduces the engine's tokens; the CPU's noise (at each row's
+    top-k columns, ``_kept_noise``) picks the same tokens, or the two picks
+    lie within the Gumbel band of each other (``GUMBEL_CARD_BAND``;
+    near-ties counted, the smallest top-two gap reported).  Times: ms a
+    tick of a second sampled run that records no logits (its tokens the
+    recorded run's; phase 25 (f) has none and reads the recorded run's)
+    against the timed greedy run, which records none either; the draw
+    alone (``paged.sample_tokens`` at 8 rows) in device ms and the
+    launches it adds."""
     import numpy as np
-    r, timed, greedy = (runs[k] for k in ("paged_sampled",
-                                          "paged_sampled_timed", "paged"))
+    r, greedy = runs["paged_sampled"], runs["paged"]
+    timed = runs.get("paged_sampled_timed", r)
     if r["b6"] != greedy["b6"] or timed["b6"] != greedy["b6"]:
         raise AssertionError(f"sampled leg: {r['b6']} / {timed['b6']} B6 "
                              f"launches, the greedy leg {greedy['b6']}")
@@ -1598,11 +1634,29 @@ def sampled_leg(S, cfg, runs):
                              "from the CPU's")
     scale = torch.ones(()) / torch.tensor(temp)
     kth = torch.topk(lo, top_k, dim=-1).values[..., -1:]
-    cut = torch.where(lo >= kth, lo, S.paged.NEG_INF) * scale
-    g, g_card = _noise(S, keys, lo.shape[1]), _noise(S, keys_card, lo.shape[1])
+    # a draw picks a kept column (the others sit at NEG_INF / T, far below
+    # any noise), so the noise is compared there alone: each row's kept
+    # columns in order, padded with its first at NEG_INF
+    v = lo.shape[1]
+    kept = lo >= kth
+    cols = torch.sort(torch.where(kept, torch.arange(v), v), dim=-1).values
+    cols = cols[:, :int(kept.sum(-1).max())]
+    pad = cols == v
+    cols = torch.where(pad, cols[:, :1], cols)
+    cut = torch.where(pad, S.paged.NEG_INF, lo.gather(1, cols)) * scale
+    g = _kept_noise(S, keys, cols)
+    g_card = torch.cat([
+        S.prng.gumbel(keys_card[i:i + REDRAW_ROWS], (v,)).gather(
+            1, cols[i:i + REDRAW_ROWS].cuda()).cpu()
+        for i in range(0, len(pairs), REDRAW_ROWS)])
+    if not torch.equal(S.prng.gumbel(keys[:8], (v,)).gather(1, cols[:8]),
+                       g[:8]):
+        raise AssertionError("sampled leg: the CPU's noise at the kept "
+                             "columns differs from its whole rows' there")
     z = cut + g
-    picks = z.argmax(-1)
-    if not torch.equal((cut + g_card).argmax(-1), want):
+    at = lambda j: cols.gather(1, j[:, None])[:, 0]
+    picks = at(z.argmax(-1))
+    if not torch.equal(at((cut + g_card).argmax(-1)), want):
         raise AssertionError("sampled leg: the card's noise on the recorded "
                              "logits does not give the engine's tokens")
     dg = (g_card.double() - g.double()).abs()
@@ -1614,9 +1668,10 @@ def sampled_leg(S, cfg, runs):
     gaps = (top2[:, 0] - top2[:, 1]).double()
     near, worst = 0, 0.0
     for i in torch.nonzero(picks != want).flatten().tolist():
-        gap = float(z[i, picks[i]]) - float(z[i, want[i]])
+        zi = dict(zip(cols[i].tolist(), z[i].tolist()))
+        gap = zi[int(picks[i])] - zi[int(want[i])]
         band = 2 * (GUMBEL_CARD_BAND + float(np.spacing(np.float32(
-            abs(float(z[i, picks[i]]))))))
+            abs(zi[int(picks[i])])))))
         if not 0 <= gap <= band:
             raise AssertionError(f"sampled leg rid/step {pairs[i]}: the CPU "
                                  f"picks {int(picks[i])}, the card "
@@ -1651,9 +1706,11 @@ def sampled_leg(S, cfg, runs):
     log(f"  (a) sampled leg (T {temp}, top-k {top_k}, seed {seed}): "
         f"{len(pairs)} tokens, {out['tok_per_s']:.1f} tok/s; "
         f"{out['ms_per_tick']:.2f} ms a tick (greedy "
-        f"{out['greedy_ms_per_tick']:.2f}; neither records logits; the "
-        f"recorded sampled run {out['recorded_ms_per_tick']:.2f}, its "
-        f"tokens the same); {r['b6']} B6 launches a run as the "
+        f"{out['greedy_ms_per_tick']:.2f}; "
+        + ("neither records logits; the recorded sampled run "
+           f"{out['recorded_ms_per_tick']:.2f}, its tokens the same"
+           if timed is not r else "the sampled run records its logits")
+        + f"); {r['b6']} B6 launches a run as the "
         f"greedy leg's; keys card = CPU bit for bit; CPU re-draw on the "
         f"card's logits: {near} near-ties (worst {worst:.3g}), smallest "
         f"top-two gap {out['smallest_top2_gap']:.3g}; f32 noise card vs "
@@ -2308,8 +2365,8 @@ def ops_phase(P):
 LM_ARCH = "phi3-mini-3.8b"
 LM_ARGV = ["--arch", LM_ARCH, "--full", "--optimizer", "sgd", "--scheme",
            "hybrid", "--seq", "128", "--global-batch", "16", "--lr", "5e-3",
-           "--steps", "40"]
-LM_STEPS, LM_SEQS = 40, (64, 128)
+           "--steps", "24"]
+LM_STEPS, LM_SEQS = 24, (64, 128)     # 40 steps until phase 25's serving
 # a training run shorter than this need not lower its loss (granite's and
 # rwkv6's runs of 4 steps); phi3's must
 LOSS_FALL_STEPS = 10
@@ -4241,7 +4298,8 @@ GRANITE_TRAIN_STEPS = 4         # 8 until phase 27 needed the time
 GRANITE_TRAIN_ARGV = ["--arch", GRANITE, "--full", "--optimizer", "sgd",
                       "--scheme", "hybrid", "--seq", "128", "--global-batch",
                       "16", "--lr", "5e-3", "--steps", str(GRANITE_TRAIN_STEPS)]
-GRANITE_SERVE_LEGS = ("paged_recorded", "paged", "paged_profiled")
+GRANITE_SERVE_LEGS = ("paged_recorded", "paged")
+GRANITE_SERVE_LAYERS = 8        # of 32: all 32 until phase 25's serving
 # card vs CPU: reduced granite that keeps n_rep 3 at hd 64 (6 / 2 heads),
 # 4 experts, top-2, f32
 GRANITE_REDUCED = dict(d_model=384, n_heads=6)
@@ -4654,6 +4712,7 @@ def moe_phase(M, rate):
     paged serving engine, (e) LM training through the CLI; then (f) card
     vs CPU.  Returns (records, launches per kernel on the four paths, B1's
     record at granite's store)."""
+    from dataclasses import replace
     out, launches = {}, {}
     gc.collect()
     torch.cuda.empty_cache()
@@ -4662,7 +4721,9 @@ def moe_phase(M, rate):
     launches["flash_attention"] = pf["flash_attention"] + \
         dl["flash_attention"]
     launches["flash_decode"] = dl["flash_decode"]
-    out["serving"], sl = serving_phase(M, GRANITE, legs=GRANITE_SERVE_LEGS)
+    out["serving"], sl = serving_phase(
+        M, GRANITE, legs=GRANITE_SERVE_LEGS,
+        cfg=replace(M.get_config(GRANITE), n_layers=GRANITE_SERVE_LAYERS))
     launches["flash_decode_paged"] = sum(sl["flash_decode_paged"].values())
     gc.collect()
     torch.cuda.empty_cache()
@@ -4882,10 +4943,10 @@ def _spmd_profile(Z, cfg, mesh, params):
                              "share": us / 1e3 / busy} for k, us in top]}
 
 
-def _gloo_rank(rank, world, init, work, fault):
+def _gloo_rank(rank, world, init, work):
     """One CPU rank of phase 23 (d): the example's fused schedule on a
-    gloo mesh, ``fault`` planting per-rank denominators in the weighted
-    loss.  Rank 0 saves the losses and the full params."""
+    gloo mesh, run free and then with per-rank denominators planted in
+    the weighted loss.  Rank 0 saves each run's losses and full params."""
     import datetime
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -4898,19 +4959,24 @@ def _gloo_rank(rank, world, init, work, fault):
         from repro_torch.examples import dual_batch_spmd as ex
         from repro_torch.models import transformer
         from repro_torch.optim import sgd_momentum
-        inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
         mesh = init_device_mesh("cpu", SPMD_CPU_MESH,
                                 mesh_dim_names=("data", "model"))
-        if fault:
-            transformer.loss_fn = _per_rank_denominators(transformer.loss_fn)
-        res = ex.run_example(inp["cfg"], mesh, params=inp["params"],
-                             optimizer=sgd_momentum(0.0), fused_merge=True,
-                             n_steps=SPMD_PARITY_STEPS, log_every=1)
-        full = [t.full_tensor() for t in tree_leaves(res.params)]
-        if rank == 0:
-            torch.save({"losses": [h["loss"] for h in res.history],
-                        "params": full},
-                       os.path.join(work, f"cpu_{int(fault)}.pt"))
+        free = transformer.loss_fn
+        for fault in (False, True):
+            inp = torch.load(os.path.join(work, "inputs.pt"),
+                             weights_only=False)
+            transformer.loss_fn = _per_rank_denominators(free) if fault \
+                else free
+            res = ex.run_example(inp["cfg"], mesh, params=inp["params"],
+                                 optimizer=sgd_momentum(0.0),
+                                 fused_merge=True,
+                                 n_steps=SPMD_PARITY_STEPS, log_every=1)
+            full = [t.full_tensor() for t in tree_leaves(res.params)]
+            if rank == 0:
+                torch.save({"losses": [h["loss"] for h in res.history],
+                            "params": full},
+                           os.path.join(work, f"cpu_{int(fault)}.pt"))
+        transformer.loss_fn = free
     finally:
         dist.destroy_process_group()
 
@@ -4930,33 +4996,32 @@ def _per_rank_denominators(loss_fn):
 
 
 def _cpu_mesh_runs(cfg, params):
-    """Phase 23 (d)'s CPU legs: the gloo ranks spawned twice (free, then
-    with the planted fault), each with a timeout."""
+    """Phase 23 (d)'s CPU legs: the gloo ranks spawned once (two spawns,
+    free and then with the planted fault, until phase 25's serving needed
+    the time), with a timeout."""
     import tempfile
     import torch.multiprocessing as mp
-    out = {}
     with tempfile.TemporaryDirectory() as work:
         torch.save({"cfg": cfg, "params": params},
                    os.path.join(work, "inputs.pt"))
-        for fault in (False, True):
-            init = "file://" + os.path.join(work, f"pg{int(fault)}")
-            ctx = mp.start_processes(
-                _gloo_rank, args=(SPMD_CPU_RANKS, init, work, fault),
-                nprocs=SPMD_CPU_RANKS, start_method="spawn", join=False)
-            deadline = time.time() + SPMD_TIMEOUT_S
-            try:
-                while not ctx.join(timeout=5):
-                    if time.time() > deadline:
-                        raise TimeoutError("gloo ranks of phase 23 (d) "
-                                           "outlived their timeout")
-            finally:
-                for p in ctx.processes:
-                    if p.is_alive():
-                        p.kill()
-                    p.join()
-            out[fault] = torch.load(os.path.join(work, f"cpu_{int(fault)}.pt"),
-                                    weights_only=False)
-    return out
+        init = "file://" + os.path.join(work, "pg")
+        ctx = mp.start_processes(
+            _gloo_rank, args=(SPMD_CPU_RANKS, init, work),
+            nprocs=SPMD_CPU_RANKS, start_method="spawn", join=False)
+        deadline = time.time() + SPMD_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1):
+                if time.time() > deadline:
+                    raise TimeoutError("gloo ranks of phase 23 (d) "
+                                       "outlived their timeout")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return {fault: torch.load(os.path.join(work, f"cpu_{int(fault)}.pt"),
+                                  weights_only=False)
+                for fault in (False, True)}
 
 
 def _spmd_names():
@@ -5575,6 +5640,14 @@ BIG_REDUCED = {"llama3-405b": dict(n_heads=16, d_model=2048),
                "chameleon-34b": dict(n_heads=8, d_model=1024)}
 BIG_LONG = dict(name="long_500k", seq_len=64, global_batch=2, kind="decode")
 BIG_LONG_WINDOW, BIG_LONG_PROMPT = 16, 40
+# (f) the paged serving engine on the BIG_ROWS configs at full width and
+# BIG_LAYERS depth, on the params (b)-(d) ran: phase 12's requests, pages
+# and chunk with bf16 pages (the cache dtype a deployment of these sizes
+# keeps), greedy and sampled; B6 runs its kRep-8 form in every layer of
+# every one-token tick (n_rep 16: two groups a KV head, the pages read
+# twice; 8: one group; 7: one of 7 in 8).  Chameleon-34b shares
+# deepseek's n_rep and hd, so it would run the same form: it is left out.
+BIG_SERVE_LEGS = ("paged_recorded", "paged", "paged_sampled")
 
 
 def _fill_kv(cache, gen):
@@ -5626,10 +5699,10 @@ def big_abstract(G):
     return out
 
 
-def _big_want(b4=0, b5=0):
-    """The counts (``_dec_counts``) a phase-25 run must read: ``b4`` B4
-    and ``b5`` B5 launches and nothing else."""
-    return {"flash_decode": b5, "flash_decode_paged": 0,
+def _big_want(b4=0, b5=0, b6=0):
+    """The counts (``_dec_counts``) a phase-25 run must read: ``b4`` B4,
+    ``b5`` B5 and ``b6`` B6 launches and nothing else."""
+    return {"flash_decode": b5, "flash_decode_paged": b6,
             "flash_attention": b4, "mamba_ssd_scan": 0, "wkv6_chunked": 0,
             "plain_attention": 0}
 
@@ -5940,6 +6013,153 @@ def big_decode(G, arch, cfg, params, shape_name, rate):
     return rec, got
 
 
+class _TickHooks(_StubHooks):
+    """Stub hooks that mirror the paged engine's page table and lengths
+    and keep those of the first decode tick with every slot busy: B6's
+    table rows and lengths at that tick, in the tick's row order."""
+
+    def __init__(self, spec):
+        import numpy as np
+        self.sentinel, self.n_slots = spec.n_pages, spec.n_slots
+        self.table = np.full((spec.n_slots, spec.pages_per_slot),
+                             spec.n_pages, np.int32)
+        self.lengths = np.zeros((spec.n_slots,), np.int32)
+        self.full = None
+
+    def admit(self, slot, req, pages, *, start=0, **kw):
+        self.table[slot] = self.sentinel
+        self.table[slot, :len(pages)] = pages
+        self.lengths[slot] = start
+
+    def prefill(self, slot, req, chunk, pos, last):
+        self.lengths[slot] = pos + len(chunk)
+
+    def decode(self, slots):
+        rows = list(slots)
+        if self.full is None and len(rows) == self.n_slots:
+            self.full = (self.table[rows].copy(), self.lengths[rows].copy())
+        self.lengths[rows] += 1
+
+    def evict(self, slot, req):
+        self.table[slot] = self.sentinel
+
+
+def _b6_path_row(G, label, cfg, spec, table, lengths, rate):
+    """B6 at a serving path's geometry: the page table and lengths of its
+    first full decode tick (``_TickHooks``), a pool of the path's bf16
+    pages drawn N(0, 1) on the card and a bf16 q, against its plain
+    version within phase 11's tolerance plus one bf16 ulp (``_fd_err``)
+    at the size the wrapper chooses and at every cluster size; timed
+    (events, device time) beside its bound, the plain version and gather
+    + SDPA (``_fd_times``)."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    rows, h, kvh, hd = table.shape[0], cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+    draw = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q = draw(rows, h, 1, hd)
+    kp = draw(spec.n_pages, spec.page_len, kvh, hd)
+    vp = draw(spec.n_pages, spec.page_len, kvh, hd)
+    tbl, lens = torch.from_numpy(table).cuda(), torch.from_numpy(
+        lengths).cuda()
+    got = G.FD.flash_decode_paged(q, kp, vp, tbl, lens)
+    want = G.FD.paged_decode_ref(q, kp, vp, tbl, lens)
+    torch.cuda.synchronize()
+    err, ok, worst = _fd_err(got, want)
+    if not ok:
+        raise AssertionError(f"flash_decode_paged {label}: kernel differs "
+                             f"from its plain version by {err}; worst "
+                             f"{worst}")
+    rec = {"shape": label, "q": "bfloat16", "cache": "bfloat16", "window": 0,
+           "rows": rows, "heads": (h, kvh), "hd": hd,
+           "pages": (spec.n_pages, spec.page_len),
+           "lengths": [int(x) for x in lengths], "max_abs_err": err}
+    rec.update(_fd_splits(G.FD, q, kp, vp, tbl, lens, 0, want, label,
+                          timed=False))
+    rec.update(_fd_times(G.FD, "flash_decode_paged", q, kp, vp, tbl, lens,
+                         None, None, None, 0, lengths, spec.slot_tokens,
+                         rate))
+    log(f"    B6 {label} ({rows} rows, {h} / {kvh} heads of {hd}, bf16 "
+        f"pages of {spec.page_len}, lengths {rec['lengths']}; cluster "
+        f"{rec['split']}): {rec['ms'] * 1e3:.1f} us, device "
+        f"{rec['device_ms'] * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.1f}"
+        f" us by {rec['bound_by']} ({rec['bytes'] / 1e6:.1f} MB; "
+        f"{rec['bound_ms'] / rec['device_ms']:.0%} of device time), plain "
+        f"{rec['plain_ms'] * 1e3:.1f} us, gather + SDPA "
+        f"{rec['gather_sdpa_ms'] * 1e3:.1f} us, err {err:.3g}")
+    del q, kp, vp
+    return rec
+
+
+def big_serving(G, arch, cfg, params, rate):
+    """Phase 25 (f): B6 at the serving path's geometry (``_b6_path_row``
+    on the first full tick of the schedule), then phase 12's legs
+    (BIG_SERVE_LEGS) through ``serving_phase`` on the params phase 25
+    drew, bf16 pages: one B6 launch a layer a decode tick and no plain
+    run, the greedy run's tokens those of the first greedy run, the
+    sampled leg re-drawn on the CPU.  Returns (records, the legs'
+    launches, B6's record)."""
+    t0 = time.perf_counter()
+    spec = G.PageSpec(**SERVE_SPEC, store_dtype=torch.bfloat16)
+    reqs = G.synthetic_workload(0, SERVE_REQUESTS, vocab=cfg.vocab_size,
+                                **SERVE_WORKLOAD)
+    hooks = _TickHooks(spec)
+    G.run_serve_loop(reqs, spec, hooks, prefill_chunk=SERVE_CHUNK)
+    row = _b6_path_row(G, f"{arch} serving tick", cfg, spec, *hooks.full,
+                       rate)
+    rec, path = serving_phase(G, arch, BIG_SERVE_LEGS, cfg=cfg,
+                              params=params, store=torch.bfloat16)
+    if not rec["paged_repeats_itself"]:
+        raise AssertionError(f"{arch} serving: the second greedy run gives "
+                             "other tokens than the first")
+    rec["wall_s_legs"] = time.perf_counter() - t0
+    log(f"  (f) {arch} serving: B6 path row and {len(BIG_SERVE_LEGS)} runs "
+        f"in {rec['wall_s_legs']:.1f} s")
+    return rec, path, row
+
+
+def _big_serve_parity(G, cfg, p_card, p_cpu, pair, counted, arch):
+    """Phase 25 (e)'s paged-engine leg: phase 13's churn workload (f32
+    pages) through the paged engine on the card and on the CPU port, the
+    CPU run on the card's expert choices where the model routes
+    (``big_parity``'s ``pair``): greedy tokens and schedules identical,
+    logits within SERVE_PARITY_BAND, one B6 launch a layer a decode tick
+    on the card and nothing else."""
+    import numpy as np
+    t0 = time.perf_counter()
+    spec = G.PageSpec(page_len=16, pages_per_slot=4, n_slots=2)
+    reqs = G.synthetic_workload(1, 8, vocab=cfg.vocab_size,
+                                prompt_lens=(3, 20), gen_short=(3, 8),
+                                gen_long=(12, 20), p_long=0.3)
+
+    def serve(p, device):
+        eng = G.ServeEngine(cfg, p, spec=spec, prefill_chunk=8,
+                            record_logits=True, device=device)
+        return eng.serve(reqs), eng.log, eng.stats["decode_calls"]
+    ((rc, clog, calls), n), (rp, plog, _), flips = pair(
+        counted(lambda: serve(p_card, "cuda")),
+        lambda: serve(p_cpu, "cpu"), f"{arch} reduced paged engine")
+    rec = {"tokens_equal": all(a.tokens == b.tokens for a, b in zip(rc, rp)),
+           "schedule_equal": clog == plog,
+           "logit_gap": max(float(np.abs(x - y).max()) for a, b in
+                            zip(rc, rp) for x, y in zip(a.logits, b.logits)),
+           "min_margin": min(float(np.diff(np.sort(y)[-2:])[0]) for b in rp
+                             for y in b.logits),
+           "decode_calls": calls, "launches": n, "routes": flips}
+    rec["ok"] = rec["tokens_equal"] and rec["schedule_equal"] and \
+        rec["logit_gap"] <= SERVE_PARITY_BAND and \
+        n == _big_want(b6=cfg.n_layers * calls)
+    log(f"  card vs CPU, reduced paged engine (f32 pages, churn workload): "
+        f"tokens identical {rec['tokens_equal']}, schedule identical "
+        f"{rec['schedule_equal']}, logit gap {rec['logit_gap']:.3g} (band "
+        f"{SERVE_PARITY_BAND:g}), smallest top-2 margin "
+        f"{rec['min_margin']:.3g}; {n['flash_decode_paged']} B6 launches "
+        f"({cfg.n_layers} x {calls} decode ticks); "
+        f"{time.perf_counter() - t0:.1f} s"
+        + (f"; routes {flips}" if flips else ""))
+    return rec
+
+
 def big_parity(G, arch):
     """Phase 25 (e): the reduced f32 model (BIG_REDUCED) on the card
     against the CPU port: prefill logits within PREFILL_PARITY_BAND;
@@ -6013,6 +6233,9 @@ def big_parity(G, arch):
                         "without_override_gap": float((free - lc).abs()
                                                       .max()),
                         "launches": ln, "routes": lflips}
+    if arch in BIG_ROWS:
+        out["serve"] = _big_serve_parity(G, cfg, p_card, p_cpu, pair,
+                                         counted, arch)
     log(f"  card vs CPU, reduced f32 ({cfg.n_heads} / {cfg.n_kv_heads} heads "
         f"of {cfg.head_dim}, d_model {cfg.d_model}, {cfg.n_layers} layers"
         + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
@@ -6033,7 +6256,7 @@ def big_parity(G, arch):
             not out["long_500k"]["logit_gap"] <= DECODE_PARITY_BAND or \
             ln != _big_want(b4=cfg.n_layers, b5=4 * cfg.n_layers) or \
             not out["long_500k"]["without_override_gap"] > \
-            DECODE_PARITY_BAND:
+            DECODE_PARITY_BAND or not out.get("serve", {"ok": True})["ok"]:
         raise AssertionError(f"{arch} reduced: the card and the CPU port "
                              f"disagree, or the kernels did not run: {out}")
     return out
@@ -6042,13 +6265,16 @@ def big_parity(G, arch):
 def big_phase(G, rate):
     """Phase 25: the abstract trees of every config (a), then each of
     llama3-405b, deepseek-67b, arctic-480b and chameleon-34b at full width
-    and BIG_LAYERS depth: the prefill (b), decode_32k (c) and long_500k
-    (d); then the reduced four card vs CPU (e).  Returns (records, B4 and
-    B5 launches of (b)-(d), B4's and B5's rows at the BIG_ROWS geometries
-    by kernel)."""
+    and BIG_LAYERS depth: the prefill (b), decode_32k (c), long_500k (d)
+    and, for the BIG_ROWS three, the paged serving engine (f); then the
+    reduced four card vs CPU (e), the three through the paged engine too.
+    Returns (records, B4, B5 and B6 launches of (b)-(d) and (f), B4's,
+    B5's and B6's rows at the BIG_ROWS geometries by kernel)."""
     out = {"abstract": big_abstract(G)}
-    launches = {"flash_attention": 0, "flash_decode": 0}
-    rows = {"flash_attention": [], "flash_decode": []}
+    launches = {"flash_attention": 0, "flash_decode": 0,
+                "flash_decode_paged": 0}
+    rows = {"flash_attention": [], "flash_decode": [],
+            "flash_decode_paged": []}
     for arch in BIG_LAYERS:
         cfg = G.replace(G.get_config(arch), n_layers=BIG_LAYERS[arch])
         t0 = time.perf_counter()
@@ -6080,6 +6306,12 @@ def big_phase(G, rate):
             launches["flash_decode"] += n["flash_decode"]
             if "b5" in rec[shape_name]:
                 rows["flash_decode"].append(rec[shape_name]["b5"])
+        if arch in BIG_ROWS:
+            rec["serving"], path, b6 = big_serving(G, arch, cfg, params,
+                                                   rate)
+            launches["flash_decode_paged"] += sum(
+                path["flash_decode_paged"].values())
+            rows["flash_decode_paged"].append(b6)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -6716,7 +6948,9 @@ def main() -> int:
                         make_optimizer=make_optimizer)
     gc.collect()
     torch.cuda.empty_cache()
-    report["lm_train"], b1_store = lm_train_phase(L, rate)
+    # one timed step a sub-stage (3 until phase 25's serving needed the
+    # time)
+    report["lm_train"], b1_store = lm_train_phase(L, rate, runs=1)
     log(f"[{time.perf_counter() - t_start:.0f} s] LM training main path "
         "done")
     report["lm_parity"], lm_launches = lm_parity_phase(L)
@@ -6869,7 +7103,8 @@ def main() -> int:
     from repro_torch.configs import ARCH_IDS, SHAPES
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import specs as specs_mod
-    G = SimpleNamespace(**vars(E), ARCH_IDS=ARCH_IDS, SHAPES=SHAPES,
+    G = SimpleNamespace(**{**vars(S), **vars(E)}, ARCH_IDS=ARCH_IDS,
+                        SHAPES=SHAPES,
                         InputShape=InputShape, specs=specs_mod,
                         replace=replace, moe=moe_mod, transformer=tf_mod)
     report["big"], big_launches, big_rows = big_phase(G, rate)

@@ -5,7 +5,10 @@ Inputs are drawn from a numpy seed and handed to both packages.  Cases:
 MHA and GQA (``n_rep`` 2), windows 0, 8 and 64, f32 and bf16 caches, q in
 f32 and bf16, page tables that are random permutations of the pool, and a
 dead row (every table entry the sentinel ``n_pages``, length 0) that must
-equal the JAX gather's clamped read of page ``n_pages - 1``.
+equal the JAX gather's clamped read of page ``n_pages - 1``.  The wide-GQA
+cases hold the same at hd 128 and ``n_rep`` 7, 8 and 16 (arctic-480b,
+deepseek-67b, llama3-405b), with two KV heads, three rows and two pages a
+row.
 
 Tolerances, each beside the gap it measured:
 
@@ -47,6 +50,14 @@ INTERPRET_ATOL = 2e-5
 # (n_rep, window)
 CASES = [(1, 0), (1, 8), (2, 0), (2, 64)]
 DTYPES = [("f32", "f32"), ("f32", "bf16"), ("bf16", "f32"), ("bf16", "bf16")]
+# the wide-GQA forms (the kernels' kRep-8 blocks) at hd 128: n_rep 7
+# (arctic-480b, one group of 7 in 8), 8 (deepseek-67b) and 16 (llama3-405b,
+# two groups a KV head), two KV heads, a few rows and two pages a row;
+# (n_rep, window)
+WIDE_CASES = [(7, 0), (8, 16), (16, 0)]
+WIDE_PAGED = dict(ns=3, kv=2, hd=128, pp=2, n_pages=8)
+WIDE_CONTIG = dict(b=2, kv=2, hd=128, s=32)
+WIDE_POS = 29
 
 
 def _np_dtype(name):
@@ -155,6 +166,57 @@ def test_contig_wrapper_matches_interpreted_kernel(n_rep, window):
     got = fd.flash_decode(_t(q), _t(k), _t(v), 170, window=window)
     ok, err = _close(got, want, INTERPRET_ATOL)
     assert ok, err
+    assert fd.plain_count("flash_decode") == 1 and fd.launch_count() == 0
+
+
+@pytest.mark.parametrize("dts", DTYPES, ids=lambda d: f"q{d[0]}-kv{d[1]}")
+@pytest.mark.parametrize("n_rep,window", WIDE_CASES)
+def test_wide_gqa_plain_matches_reference(n_rep, window, dts):
+    """B6's and B5's plain versions at the wide configs' group widths and
+    hd 128 against the reference's XLA forms and oracle."""
+    q, kp, vp, table, lengths = _paged_inputs(7, n_rep, *dts, **WIDE_PAGED)
+    want = jfd.paged_decode_ref(*[jnp.asarray(x) for x in
+                                  (q, kp, vp, table, lengths)], window=window)
+    got = fd.paged_decode_ref(*[_t(x) for x in (q, kp, vp, table, lengths)],
+                              window=window)
+    ok, err = _close(got, want, REF_ATOL)
+    assert ok, err
+    q, k, v = _contig_inputs(8, n_rep, *dts, **WIDE_CONTIG)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    for want, got in (
+            (jfd._xla_decode(jq, jk, jv, WIDE_POS, window=window),
+             fd._xla_decode(_t(q), _t(k), _t(v), WIDE_POS, window=window)),
+            (jref.flash_decode_ref(jq, jk, jv, WIDE_POS, window=window),
+             tref.flash_decode_ref(_t(q), _t(k), _t(v), WIDE_POS,
+                                   window=window))):
+        ok, err = _close(got, want, REF_ATOL)
+        assert ok, err
+
+
+@pytest.mark.parametrize("kv_dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n_rep,window", WIDE_CASES)
+def test_wide_gqa_wrappers_match_interpreted_kernels(n_rep, window, kv_dt):
+    """B6's and B5's wrappers on CPU tensors at the wide group widths and
+    hd 128 against the Pallas kernels in interpret mode (B6's dead row
+    included), each a plain run and no launch."""
+    q, kp, vp, table, lengths = _paged_inputs(9, n_rep, "f32", kv_dt,
+                                              **WIDE_PAGED)
+    want = jfd.flash_decode_paged(*[jnp.asarray(x) for x in
+                                    (q, kp, vp, table, lengths)],
+                                  window=window, interpret=True)
+    fd.reset_counts()
+    got = fd.flash_decode_paged(*[_t(x) for x in
+                                  (q, kp, vp, table, lengths)],
+                                window=window)
+    ok, err = _close(got, want, INTERPRET_ATOL)
+    assert ok, err
+    q, k, v = _contig_inputs(10, n_rep, "f32", kv_dt, **WIDE_CONTIG)
+    want = jfd.flash_decode(*[jnp.asarray(x) for x in (q, k, v)], WIDE_POS,
+                            window=window, interpret=True)
+    got = fd.flash_decode(_t(q), _t(k), _t(v), WIDE_POS, window=window)
+    ok, err = _close(got, want, INTERPRET_ATOL)
+    assert ok, err
+    assert fd.plain_count("flash_decode_paged", kv_dt) == 1
     assert fd.plain_count("flash_decode") == 1 and fd.launch_count() == 0
 
 

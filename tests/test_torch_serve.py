@@ -1,9 +1,13 @@
 """The port's paged serving engine against the JAX package, on the CPU.
 
 Both packages run reduced ``gemma3-4b`` (two layers with a uniform window
-of 16, GQA n_rep 2; the fixture of the reference's serving tests) and
-reduced ``phi3-mini-3.8b`` (two global layers, MHA), in f32, with the
-reference's parameters carried over by ``convert.lm_params_from_numpy``.
+of 16, GQA n_rep 2; the fixture of the reference's serving tests), reduced
+``phi3-mini-3.8b`` (two global layers, MHA) and the wide-GQA configs
+reduced to keep their group widths: ``llama3-405b`` (16 query heads over
+one KV head, RoPE theta 500,000), ``deepseek-67b`` (8 over 1) and
+``arctic-480b`` (7 over 1; 4 experts, top-2, the dense residual, served
+with ``moe_ffn(dropless=True)``), in f32, with the reference's parameters
+carried over by ``convert.lm_params_from_numpy``.
 
 * Layers: ``rms_norm``, ``apply_rope`` and ``swiglu`` within ``LAYER_TOL``
   (measured 4.8e-7 for the first two; swiglu 1.3e-5 on outputs of
@@ -21,8 +25,11 @@ reference's parameters carried over by ``convert.lm_params_from_numpy``.
   measured gap (the smallest margin is 3.1e-3), so the identity is not
   luck; the same schedule, ``compile_log`` and counters.
 * Within the port: paged and contiguous f32 (and bf16-page) logits bit
-  for bit under churn; speculative decode and prefix sharing
-  token-identical to one-token decode, with the reference's skip fraction.
+  for bit under churn, for the MoE config within
+  ``MOE_PAGED_CONTIG_BAND`` with identical tokens (the reference's own two
+  backends differ there too; ROADMAP C19); speculative decode and prefix
+  sharing token-identical to one-token decode, with the reference's skip
+  fraction.
 * Planted faults (the RoPE sign flipped; a window of 8 for 16) break the
   step and serve bands.
 """
@@ -55,10 +62,22 @@ from repro_torch.serve import paged as pg
 
 torch.set_num_threads(1)
 
-ARCHS = ("gemma3-4b", "phi3-mini-3.8b")
+ARCHS = ("gemma3-4b", "phi3-mini-3.8b", "llama3-405b", "deepseek-67b",
+         "arctic-480b")
+# the wide-GQA configs reduced to keep their group width: 16 query heads
+# over one KV head (llama3), 8 over 1 (deepseek), 7 over 1 (arctic, 4
+# experts, top-2, the dense residual)
+GEOMETRY = {"llama3-405b": dict(n_heads=16, d_model=256),
+            "deepseek-67b": dict(n_heads=8, d_model=256),
+            "arctic-480b": dict(n_heads=7, d_model=224)}
 LAYER_TOL = 2e-6
 STEP_TOL = 2e-5
 SERVE_BAND = 5e-5
+# paged against contiguous in an MoE model (ROADMAP C19): not bit for bit
+# in either package; the reference's own gap on the churn workload is
+# 1.7e-6 on reduced arctic (1.9e-6 on reduced granite), with identical
+# tokens
+MOE_PAGED_CONTIG_BAND = 1e-5
 CHURN_SPEC = dict(page_len=16, pages_per_slot=4, n_slots=2)
 
 
@@ -66,8 +85,8 @@ CHURN_SPEC = dict(page_len=16, pages_per_slot=4, n_slots=2)
 def model(request):
     """(arch, reference cfg, reference params, port cfg, port params)."""
     arch = request.param
-    jcfg = jreduced(jget_config(arch))
-    cfg = reduced(get_config(arch))
+    jcfg = jreduced(jget_config(arch), **GEOMETRY.get(arch, {}))
+    cfg = reduced(get_config(arch), **GEOMETRY.get(arch, {}))
     jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = convert.lm_params_from_numpy(
         jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
@@ -327,7 +346,10 @@ def test_paged_contig_bit_parity_under_churn(model, store):
         assert a.tokens == b.tokens
         assert len(a.logits) == len(b.logits) > 0
         for la, lb in zip(a.logits, b.logits):
-            assert np.array_equal(la, lb)
+            if cfg.moe:
+                assert np.abs(la - lb).max() <= MOE_PAGED_CONTIG_BAND
+            else:
+                assert np.array_equal(la, lb)
 
 
 @pytest.mark.parametrize("backend", ["paged", "contig"])
