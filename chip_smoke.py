@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --b5-times SRC    # B5's times alone, from SRC
-    python3 chip_smoke.py --spmd-only       # the build and phase 23 alone;
-                                            # its last line says "phases": [1, 23]
+    python3 chip_smoke.py --phases 1,28     # the build and the listed
+                                            # phases that stand alone (23,
+                                            # 25-28); the last line says
+                                            # "phases": [1, 28]
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -86,10 +88,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     sampled run without recorded logits (the same tokens), its ms a tick
     against the timed greedy run's, the draw alone
     (``paged.sample_tokens`` at 8 rows) in device ms and launches;
-13. serving parity: reduced gemma3-4b (window 16) and phi3-mini in f32 on
-    the card against the CPU port on the churn workload, tokens identical
-    and logits within ``SERVE_PARITY_BAND``; on the card, speculative
-    decode (k = 3) and prefix sharing token-identical to one-token decode;
+13. serving parity: reduced gemma3-4b (two layers of window 16: the only
+    card path that runs B6 with a window) and phi3-mini in f32 on the
+    card against the CPU port on the churn workload, tokens identical and
+    logits within ``SERVE_PARITY_BAND``; on the card, speculative decode
+    (k = 3) and prefix sharing token-identical to one-token decode;
 14. attention and scan kernels: ``flash_attention`` (B4),
     ``mamba_ssd_scan`` (B7) and ``wkv6_chunked`` (B8) against their plain
     versions (``PF_F32_TOL``; bf16 outputs one bf16 ulp more) in f32 and
@@ -112,8 +115,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     rwkv6-7b (32 B8), no plain runs, finite (2, vocab) logits; ms per
     prefill, tokens/s, a profile of one prefill (device idle share, top
     kernels, B4 / B7 / B8 shares, the copy kernels' time) and peak memory;
-16. prefill parity: reduced f32 zamba2-2.7b (6 layers), rwkv6-7b,
-    gemma3-4b (window 16) and phi3-mini-3.8b on the card (B4 / B7 / B8)
+16. prefill parity: reduced f32 zamba2-2.7b (6 layers), rwkv6-7b and
+    phi3-mini-3.8b (gemma3-4b in phase 28 (d)) on the card (B4 / B7 / B8)
     against the CPU port (the reference's scans), within
     ``PREFILL_PARITY_BAND``;
 17. ``kernels/ops.py``: each front end once on the card, one launch of its
@@ -123,7 +126,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     bit-equal to its plain version (run a slice at a time) and timed
     beside ``add_`` and its bytes bound; then ``launch.train.run`` on
     ``LM_ARGV`` (full width, bf16 params, block remat, hybrid dual-batch x
-    CPL at seq 64 -> 128, fused SGD, 24 steps; logged every step rather
+    CPL at seq 64 -> 128, fused SGD, 12 steps; logged every step rather
     than every 20th): one B1 launch a step and no B4 / B7 / B8 (the
     training forward runs the differentiable scans), both sequence
     lengths, finite losses, the last below the first, params on the card;
@@ -189,7 +192,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     values of its uniform) card = CPU bit for bit, the CPU's draw on the
     card's logits the card's tokens exactly, ms a step against greedy;
     (c) reduced f32 phi3-mini,
-    gemma3-4b (window 16), zamba2-2.7b (6 layers) and rwkv6-7b,
+    zamba2-2.7b (6 layers) and rwkv6-7b (gemma3-4b in phase 28 (d)),
     ``generate`` on the card against the CPU port: identical greedy tokens,
     logits within ``DECODE_PARITY_BAND``, the stepped prefill against the
     chunked one; the static path's tokens against ``ServeEngine(backend=
@@ -333,6 +336,33 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     tokens/s a step, one profiled step at 4,096 (idle share, kernels,
     B1's share); (c) reduced f32 rwkv6 at seq 256 (four chunks), fused,
     card vs CPU within ``TRAIN_PARITY_BAND``.
+28. gemma3-4b at full width (34 layers in one attention segment: window
+    1,024 but on the global layers 5, 11, 17, 23 and 29; 8 / 4 heads of
+    256), bf16: first B4 and B5 at the path's own geometry against their
+    plain versions (``PF_F32_TOL`` / ``FD_F32_TOL`` plus one bf16 ulp),
+    window 1,024 and global, each timed beside its bound, its plain
+    version and SDPA: B4 on (a)'s 2 x 2048 and on (b)'s 1,984-token chunk
+    at a device offset of 0 over the 2,048-key cache views, B5 at (b)'s
+    positions 1,984, 2,016 and 2,046 on the card; then one draw of
+    weights on the card for (a) phase 15's prefill on 2 x 2048 tokens (34
+    B4 launches a forward, no plain attention, finite (2, vocab) logits,
+    ms, tokens/s, peak memory and a profile), (b) phase 21 (b)'s
+    ``generate`` on 4 x 1,984 + 64 (max_seq 2,048; 34 B4 in the chunked
+    prefill and 34 x 63 B5, ``pos`` on the card; ms of the prefill and a
+    step, a profiled step) and (c) phase 12's greedy paged legs on 8
+    requests of 1,100-1,400 prompt tokens and 32 new (bf16 pages of 16, 8
+    slots x 96 pages, chunks of 128): every layer through the plain route
+    (``paged._slot_attention``) at its own window in every prefill call
+    and decode tick, no B6, the schedule of ``run_serve_loop`` with stub
+    hooks, tok/s, TTFT, TPOT, the plain route's share of profiled ticks,
+    and token agreement with (b)'s path on the same prompts (reported);
+    (d) reduced f32 gemma3 at 6 layers (five local of window 16, the
+    global one) on the card against the CPU port through phases 16, 21
+    (c) and 13's legs: prefill within ``PREFILL_PARITY_BAND``,
+    ``generate`` on a prompt longer than the window with identical tokens
+    and logits within ``DECODE_PARITY_BAND``, the paged engine on the
+    churn workload (the mixed segment's plain route, no B6) with
+    identical tokens and logits within ``SERVE_PARITY_BAND``.
 
 The launch counts are set to 0 just before each path and read just
 after; the ``launches`` in the kernels line are those counts, summed
@@ -358,7 +388,9 @@ caches among their variants; phase 26 adds the B4 and B7 launches of
 its counted and timed zamba2 prefills (b) and the B1, B2 and B3
 launches of the parity module on the card (c); phase 27 adds the B1
 launches of its training run and its card-vs-CPU steps, B1's
-rwkv6-store record among its variants). Launches made to compare a kernel with its
+rwkv6-store record among its variants; phase 28 adds gemma3's B4
+launches of (a) and (b) and its B5 launches of (b), the rows at its
+path's geometry among their variants). Launches made to compare a kernel with its
 plain version are not counted. B1's numbers in the line are its LM-store
 ones (phase 18), the shape this slice's main path gives it; the
 ResNet-store records stay among its variants.
@@ -374,6 +406,7 @@ records.  Alternating two trees in one call (parent, change, change,
 parent) compares them on one card and host.
 """
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -1029,6 +1062,9 @@ SERVE_WORKLOAD = dict(prompt_lens=(16, 256), gen_short=(16, 32),
                       gen_long=(96, 128), p_long=0.25)
 SERVE_REQUESTS = 16
 PROFILE_TICKS = 10               # full (8-row) decode ticks profiled
+# the range the serve runs put around the step's plain attention route
+# (``paged._slot_attention``), whose device time the profiled ticks read
+SLOT_RANGE = "slot_attention"
 # phase 12 (a), the sampled leg: phase 12's requests at the serving
 # example's settings (T 0.8, top-k 40, sample seed 7), logits recorded
 SAMPLE_KW = dict(temperature=0.8, top_k=40, sample_seed=7)
@@ -1341,7 +1377,8 @@ def _timed_decode(engine, profile_ticks=None):
     """Wrap ``engine.decode`` to record each tick's host time (a tick ends
     in the sync that pulls its tokens) and, for the decode ticks whose
     index is in ``profile_ticks``, each one's device kernels under its own
-    ``torch.profiler`` window (prefill calls between them stay outside).
+    ``torch.profiler`` window (prefill calls between them stay outside)
+    and the device time of the kernels launched under ``SLOT_RANGE``.
     Returns the record dict the wrapper fills."""
     from torch.profiler import ProfilerActivity, profile
     inner = engine.decode
@@ -1351,9 +1388,10 @@ def _timed_decode(engine, profile_ticks=None):
         i = len(rec["tick_s"])
         prof = None
         if profile_ticks and i in profile_ticks:
-            # device activity only: recording every host op slows the
-            # eager host loop several times over
-            prof = profile(activities=[ProfilerActivity.CUDA])
+            # host activity too, for the range's device time: the profiled
+            # ticks' wall time is not the timed run's
+            prof = profile(activities=[ProfilerActivity.CUDA,
+                                       ProfilerActivity.CPU])
             prof.__enter__()
         t0 = time.perf_counter()
         out = inner(slots)
@@ -1365,14 +1403,20 @@ def _timed_decode(engine, profile_ticks=None):
             prof.__exit__(None, None, None)
             # device work only: a recorded run's logits copied to the host
             # (and the tick's tokens) are not counted
-            kern = {}
+            kern, in_range = {}, 0.0
             for ev in prof.events():
-                if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                        not ev.name.startswith("Memcpy DtoH"):
-                    kern[ev.name] = kern.get(ev.name, 0.0) + \
-                        ev.time_range.elapsed_us()
+                if ev.device_type == torch.autograd.DeviceType.CUDA:
+                    # the range's own device-side span is no kernel
+                    if not ev.name.startswith("Memcpy DtoH") and \
+                            ev.name != SLOT_RANGE:
+                        kern[ev.name] = kern.get(ev.name, 0.0) + \
+                            ev.time_range.elapsed_us()
+                elif ev.name == SLOT_RANGE:
+                    dev = getattr(ev, "device_time_total", None)
+                    in_range += ev.cuda_time_total if dev is None else dev
             rec["profiled"].append({"rows": len(slots), "wall_s": wall,
-                                    "kernels_us": kern})
+                                    "kernels_us": kern,
+                                    "slot_attention_us": in_range})
         return out
     engine.decode = decode
     return rec
@@ -1396,7 +1440,10 @@ def _profile_share(profiled, timed):
     plain_us = sum(1e6 * sum(mean_at[t["rows"]]) / len(mean_at[t["rows"]])
                    for t in profiled)
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:12]
+    slot = sum(t["slot_attention_us"] for t in profiled)
     return {"ticks": n, "rows": [t["rows"] for t in profiled],
+            "slot_attention_ms_per_tick": slot / 1e3 / n,
+            "slot_attention_share_of_device": slot / busy if busy else 0.0,
             "ms_per_tick": wall_us / 1e3 / n,
             "device_busy_ms_per_tick": busy / 1e3 / n,
             "b6_ms_per_tick": b6 / 1e3 / n,
@@ -1409,23 +1456,44 @@ def _profile_share(profiled, timed):
                              "share": us / busy} for k, us in top]}
 
 
+@contextlib.contextmanager
+def _plain_route(S):
+    """Count the serve step's calls of its plain attention route
+    (``paged._slot_attention``) by window, each under ``SLOT_RANGE`` for
+    a profiler; yields the counts."""
+    route, inner = {}, S.paged._slot_attention
+
+    def slot_attention(q, k, v, positions, window):
+        route[window] = route.get(window, 0) + 1
+        with torch.profiler.record_function(SLOT_RANGE):
+            return inner(q, k, v, positions, window)
+    S.paged._slot_attention = slot_attention
+    try:
+        yield route
+    finally:
+        S.paged._slot_attention = inner
+
+
 def serve_run(S, cfg, params, reqs, spec, *, backend="paged", record=False,
-              profile_ticks=None, sample=None):
+              profile_ticks=None, sample=None, chunk=SERVE_CHUNK):
     """One ``ServeEngine.serve`` on the card with the launch counts set to
     0 just before it (``sample``: the engine's sampling arguments);
-    returns what the run shows."""
+    returns what the run shows, with the windows of the step's calls of
+    the plain attention route (``paged._slot_attention``, under
+    ``SLOT_RANGE``; ``route``: calls by window)."""
     engine = S.ServeEngine(cfg, params, spec=spec,
-                           backend=backend, prefill_chunk=SERVE_CHUNK,
+                           backend=backend, prefill_chunk=chunk,
                            record_logits=record, **(sample or {}))
     ticks = _timed_decode(engine, profile_ticks)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     S.FD.reset_counts()
-    t0 = time.perf_counter()
-    recs = engine.serve(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    out = {"recs": recs, "wall_s": wall, "log": engine.log,
+    with _plain_route(S) as route:
+        t0 = time.perf_counter()
+        recs = engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"recs": recs, "wall_s": wall, "log": engine.log, "route": route,
            "stats": dict(engine.stats),
            "compile_log": list(engine.compile_log),
            "launches": {k: {v: S.FD.launch_count(k, v) for v in vs}
@@ -1445,15 +1513,35 @@ SERVE_LEGS = ("paged_recorded", "paged", "paged_sampled",
               "paged_sampled_timed", "contig")
 
 
+def _want_route(S, cfg, stats, paged=True):
+    """The step's calls of the plain attention route by window over a
+    serve run: every layer at its own window in each prefill call, and in
+    each decode tick too, but for the layers of a uniform-window segment
+    on the paged backend (B6 on the card); and the B6 launches a tick."""
+    segs = S.paged.attention_segments(cfg)
+    route = {}
+    for seg in segs:
+        uniform = paged and len(set(seg.windows)) == 1
+        calls = stats["prefill_calls"] + (0 if uniform
+                                          else stats["decode_calls"])
+        for w in seg.windows:
+            route[w] = route.get(w, 0) + calls
+    b6 = sum(seg.count for seg in segs if len(set(seg.windows)) == 1)
+    return {w: n for w, n in route.items() if n}, b6 if paged else 0
+
+
 def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS, *, cfg=None,
-                  params=None, store=torch.float32):
+                  params=None, store=torch.float32, reqs=None, spec=None,
+                  chunk=SERVE_CHUNK):
     """Phase 12: the paged ServeEngine at the full width of phi3-mini
     (all 32 layers, bf16 params and compute, f32 pages), B6 in every layer
     of every decode tick; (a) the same requests sampled (``SAMPLE_KW``,
     ``sampled_leg``); then the contiguous backend on the same requests
     (phase 22 (d): ``arch`` granite, the greedy paged legs only, ``cfg``
     cut in depth; phase 25 (f): the wide-GQA configs at cut depth on the
-    ``params`` phase 25 drew, bf16 pages)."""
+    ``params`` phase 25 drew, bf16 pages; phase 28 (c): gemma3-4b's
+    ``reqs`` on its ``spec`` in prefill chunks of ``chunk``, its mixed
+    segment through the plain route, no B6)."""
     import numpy as np
     if params is None:
         cfg = cfg or S.get_config(arch)
@@ -1461,19 +1549,23 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS, *, cfg=None,
             cfg, torch.Generator(device="cuda").manual_seed(0),
             device="cuda")
     n_params = sum(t.numel() for t in S.tree_leaves(params))
-    reqs = S.synthetic_workload(0, SERVE_REQUESTS, vocab=cfg.vocab_size,
-                                **SERVE_WORKLOAD)
-    spec = S.PageSpec(**SERVE_SPEC, store_dtype=store)
+    if reqs is None:
+        reqs = S.synthetic_workload(0, SERVE_REQUESTS, vocab=cfg.vocab_size,
+                                    **SERVE_WORKLOAD)
+    spec = spec or S.PageSpec(**SERVE_SPEC, store_dtype=store)
     want_log = S.run_serve_loop(reqs, spec, _StubHooks(),
-                                prefill_chunk=SERVE_CHUNK)
+                                prefill_chunk=chunk)
     n_layers = cfg.n_layers
     runs = {}
     # the recorded run comes first and warms the card up (cuBLAS handles
     # and heuristics), and runs the first PROFILE_TICKS decode ticks with
-    # every slot busy under torch.profiler (a run of its own until phase
-    # 25 needed the time); the timed run has nothing else in it
-    full = [i for i, e in enumerate(x for x in want_log if x[0] == "decode")
-            if len(e[2]) == spec.n_slots][:PROFILE_TICKS]
+    # the most slots busy (every slot, but for phase 28 (c)'s long
+    # prompts, one prefill chunk a tick) under torch.profiler (a run of
+    # its own until phase 25 needed the time); the timed run has nothing
+    # else in it
+    ticks_rows = [len(e[2]) for e in want_log if e[0] == "decode"]
+    most = max(ticks_rows)
+    full = [i for i, m in enumerate(ticks_rows) if m == most][:PROFILE_TICKS]
     for leg, kw in (("paged_recorded", {"record": True,
                                         "profile_ticks": set(full)}),
                     ("paged", {}),
@@ -1482,21 +1574,24 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS, *, cfg=None,
                     ("contig", {"backend": "contig", "record": True})):
         if leg not in legs:
             continue
-        r = serve_run(S, cfg, params, reqs, spec, **kw)
+        r = serve_run(S, cfg, params, reqs, spec, chunk=chunk, **kw)
         calls = r["stats"]["decode_calls"]
         if r["log"] != want_log:
             raise AssertionError(f"{leg}: the engine's schedule differs from "
                                  "run_serve_loop's with stub hooks")
-        want_b6 = n_layers * calls if kw.get("backend", "paged") == "paged" \
-            else 0
-        if r["b6"] != want_b6 or r["plain"] or \
+        route, b6_layers = _want_route(
+            S, cfg, r["stats"], kw.get("backend", "paged") == "paged")
+        want_b6 = b6_layers * calls
+        if r["b6"] != want_b6 or r["plain"] or r["route"] != route or \
                 r["launches"]["flash_decode"]["f32"] + \
                 r["launches"]["flash_decode"]["bf16"]:
             raise AssertionError(f"{leg}: launches {r['launches']}, plain "
-                                 f"runs {r['plain']}: expected {want_b6} "
+                                 f"runs {r['plain']}, plain-route calls by "
+                                 f"window {r['route']}: expected {want_b6} "
                                  "flash_decode_paged launches "
-                                 f"({n_layers} layers x {calls} decode "
-                                 "calls) and nothing else")
+                                 f"({b6_layers} layers x {calls} decode "
+                                 f"calls), plain-route calls {route} and "
+                                 "nothing else")
         for rec, q in zip(r["recs"], sorted(reqs, key=lambda x: x.rid)):
             if len(rec.tokens) != q.max_new or not all(
                     0 <= t < cfg.vocab_size for t in rec.tokens):
@@ -1525,7 +1620,10 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS, *, cfg=None,
            "ms_per_decode_tick_8_rows": 1e3 * float(np.mean(
                [t for t, m in zip(ticks["tick_s"], ticks["rows"])
                 if m == SERVE_SPEC["n_slots"]] or [float("nan")])),
-           "b6_launches": main["b6"], "profile": prof,
+           "prefill_chunk": chunk, "b6_launches": main["b6"],
+           "slot_attention_calls": main["route"],
+           "tokens": {x.rid: list(x.tokens) for x in recs},
+           "profile": prof,
            "peak_bytes": main["peak"],
            "compile_log": [list(k) for k in main["compile_log"]]}
     repeat = [ra.tokens == rb.tokens for ra, rb in
@@ -1539,7 +1637,8 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS, *, cfg=None,
                    contig_tok_per_s=n_tok / runs["contig"]["wall_s"],
                    paged_contig_token_agreement=sum(agree) / len(agree))
     log(f"serving main path: {arch} full width, {n_layers} layers "
-        f"({n_params / 1e9:.2f} B params, bf16; {str(store)[6:]} pages, "
+        f"({n_params / 1e9:.2f} B params, bf16; "
+        f"{str(spec.store_dtype)[6:]} pages, "
         f"{spec.pool_bytes(cfg) / 2**20:.1f} MiB), {len(reqs)} requests, "
         f"{n_tok} tokens in "
         f"{out['wall_s']:.2f} s: {out['tok_per_s']:.1f} tok/s, mean TTFT "
@@ -1547,8 +1646,8 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS, *, cfg=None,
         f"{out['mean_tpot_s'] * 1e3:.2f} ms; {out['decode_calls']} decode "
         f"ticks ({out['ms_per_decode_tick']:.2f} ms each, "
         f"{out['ms_per_decode_tick_8_rows']:.2f} ms at 8 rows), "
-        f"{out['prefill_calls']} prefill calls; {main['b6']} B6 launches "
-        f"= {n_layers} x {out['decode_calls']}; peak "
+        f"{out['prefill_calls']} prefill calls; {main['b6']} B6 launches, "
+        f"plain-route calls by window {main['route']}; peak "
         f"{main['peak'] / 2**30:.2f} GiB")
     log(f"  profiled decode ticks {full} (rows {prof['rows']}): "
         f"{prof['ms_per_tick']:.2f} ms/tick under the "
@@ -1557,7 +1656,10 @@ def serving_phase(S, arch=SERVE_ARCH, legs=SERVE_LEGS, *, cfg=None,
         f"{prof['device_idle_share_unprofiled']:.0%} of the timed tick), B6 "
         f"{prof['b6_ms_per_tick']:.3f} ms/tick "
         f"({prof['b6_share_of_tick']:.1%} of the tick, "
-        f"{prof['b6_share_of_device']:.1%} of device time)")
+        f"{prof['b6_share_of_device']:.1%} of device time), the plain "
+        f"route ({SLOT_RANGE}) {prof['slot_attention_ms_per_tick']:.3f} "
+        f"ms/tick ({prof['slot_attention_share_of_device']:.1%} of device "
+        "time)")
     for k in prof["top_kernels"]:
         log(f"    {k['ms_per_tick']:7.3f} ms/tick {k['share']:6.1%}  "
             f"{k['name']}")
@@ -1721,18 +1823,23 @@ def sampled_leg(S, cfg, runs):
     return out
 
 
-def serve_parity_phase(S):
+SERVE_PARITY_ARCHS = (("gemma3-4b", 2), ("phi3-mini-3.8b", 2))
+
+
+def serve_parity_phase(S, archs=SERVE_PARITY_ARCHS, card_features=True):
     """Phase 13: the reduced gemma3-4b (uniform window 16) and phi3-mini
     in f32 on the card against the CPU port, on the churn workload:
-    greedy tokens identical, logits within SERVE_PARITY_BAND; then on the
-    card spec_k=3 and prefix sharing token-identical to one-token
-    decode."""
+    greedy tokens identical, logits within SERVE_PARITY_BAND, B6 a layer
+    a decode tick; then (``card_features``) on the card spec_k=3 and
+    prefix sharing token-identical to one-token decode (phase 28 (d):
+    gemma3 at 6 layers, its mixed segment through the plain route at
+    each layer's window, no B6)."""
     import numpy as np
     out = {}
     spec = S.PageSpec(page_len=16, pages_per_slot=4, n_slots=2)
     threads = torch.get_num_threads()
-    for arch in ("gemma3-4b", "phi3-mini-3.8b"):
-        cfg = S.reduced(S.get_config(arch))
+    for arch, layers in archs:
+        cfg = S.reduced(S.get_config(arch), layers=layers)
         p_cpu = S.models.init_params(cfg, torch.Generator().manual_seed(0),
                                      device="cpu")
         p_card = S.tree_map(lambda t: t.cuda(), p_cpu)
@@ -1745,12 +1852,16 @@ def serve_parity_phase(S):
                              record_logits=True)
         if torch.backends.cuda.matmul.allow_tf32:
             raise AssertionError("the serving engine left TF32 on")
-        rc = card.serve(reqs)
+        with _plain_route(S) as route:
+            rc = card.serve(reqs)
         b6 = S.FD.launch_count("flash_decode_paged")
-        if b6 != cfg.n_layers * card.stats["decode_calls"] or \
-                S.FD.plain_count():
-            raise AssertionError(f"{arch} reduced: {b6} B6 launches for "
-                                 f"{card.stats['decode_calls']} decode calls")
+        want_route, b6_layers = _want_route(S, cfg, card.stats)
+        if b6 != b6_layers * card.stats["decode_calls"] or \
+                S.FD.plain_count() or route != want_route:
+            raise AssertionError(f"{arch} reduced ({layers} layers): {b6} B6 "
+                                 f"launches for {card.stats['decode_calls']} "
+                                 f"decode calls, plain-route calls by window "
+                                 f"{route} (expected {want_route})")
         torch.set_num_threads(1)
         try:
             cpu = S.ServeEngine(cfg, p_cpu, spec=spec, prefill_chunk=8,
@@ -1763,13 +1874,20 @@ def serve_parity_phase(S):
                   for x, y in zip(a.logits, b.logits))
         margin = min(float(np.diff(np.sort(y)[-2:])[0]) for b in rp
                      for y in b.logits)
-        log(f"serve parity {arch} reduced (f32, window "
-            f"{cfg.attn_window}), card vs CPU: tokens identical {same}, "
-            f"logit gap {gap:.3g} (band {SERVE_PARITY_BAND:g}), smallest "
-            f"top-2 margin {margin:.3g}; {b6} B6 launches")
+        log(f"serve parity {arch} reduced ({layers} layers, f32, windows "
+            f"{S.paged.attention_segments(cfg)[0].windows}), card vs CPU: "
+            f"tokens identical {same}, logit gap {gap:.3g} (band "
+            f"{SERVE_PARITY_BAND:g}), smallest top-2 margin {margin:.3g}; "
+            f"{b6} B6 launches, plain-route calls by window {route}")
         if not same or gap > SERVE_PARITY_BAND or card.log != cpu.log:
             raise AssertionError(f"{arch} reduced: the card and the CPU "
                                  "port disagree")
+        key = arch if layers == 2 else f"{arch} {layers} layers"
+        out[key] = {
+            "tokens_identical": same, "logit_gap": gap, "min_margin": margin,
+            "b6_launches": b6, "slot_attention_calls": route}
+        if not card_features:
+            continue
         # speculative decode and prefix sharing on the card
         sspec = S.PageSpec(page_len=8, pages_per_slot=10, n_slots=2)
         rep = S.repetitive_workload(3, 6, vocab=cfg.vocab_size, prompt_len=12,
@@ -1804,11 +1922,9 @@ def serve_parity_phase(S):
             raise AssertionError(f"{arch} reduced on the card: speculative "
                                  "decode or prefix sharing changed the "
                                  "tokens")
-        out[arch] = {"tokens_identical": same, "logit_gap": gap,
-                     "min_margin": margin, "b6_launches": b6,
-                     "spec_accept_rate": fast.accept_rate,
-                     "spec_margin": base_margin,
-                     "prefix_skip_frac": share.prefill_skip_frac}
+        out[key].update(spec_accept_rate=fast.accept_rate,
+                        spec_margin=base_margin,
+                        prefix_skip_frac=share.prefill_skip_frac)
     return out
 
 
@@ -1903,11 +2019,12 @@ PREFILL_ARCHS = ("zamba2-2.7b", "rwkv6-7b")
 PREFILL_BATCH, PREFILL_SEQ = 2, 2048
 PREFILL_TIMED = 3
 # card vs CPU port on the reduced configs in f32 at a ragged S (45 tokens;
-# zamba2 at 6 layers so that its shared block runs), last-position logits
+# zamba2 at 6 layers so that its shared block runs; gemma3 at 6 layers, its
+# global layer among them, in phase 28 (d)), last-position logits
 # of magnitude about 4: the kernels sum in other orders than the CPU's
 # scans (B7 step by step where the CPU runs the chunked form)
 PREFILL_PARITY_ARCHS = (("zamba2-2.7b", 6), ("rwkv6-7b", 2),
-                        ("gemma3-4b", 2), ("phi3-mini-3.8b", 2))
+                        ("phi3-mini-3.8b", 2))
 PREFILL_PARITY_SEQ = 45
 PREFILL_PARITY_BAND = 1e-4
 
@@ -2174,12 +2291,13 @@ def _prefill_profile(prefill, params, tokens, launches):
                              "share": us / busy} for n, us in top]}
 
 
-def prefill_phase(P, archs=PREFILL_ARCHS):
+def prefill_phase(P, archs=PREFILL_ARCHS, params=None):
     """Phase 15: ``make_prefill_step`` at full width in bf16 on 2 x 2048
     random tokens: zamba2-2.7b (45 B7 and 9 B4 launches a forward) and
     rwkv6-7b (32 B8), no plain runs, finite last-position logits; ms per
     prefill, tokens/s, a profile of one prefill and peak memory (phase 22
-    (b): ``archs`` granite, 32 B4, with the MoE layer's split).  Returns
+    (b): ``archs`` granite, 32 B4, with the MoE layer's split; phase 28
+    (a): gemma3-4b on the ``params`` the phase drew, 34 B4).  Returns
     (records, launches per kernel of one forward)."""
     import numpy as np
     out, launches = {}, {k: 0 for k in PF_REFERENCE}
@@ -2194,21 +2312,21 @@ def prefill_phase(P, archs=PREFILL_ARCHS):
                                     if s.kind == "rwkv6")}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        params = P.models.init_params(
+        weights = params or P.models.init_params(
             cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        n_params = sum(t.numel() for t in P.tree_leaves(params))
+        n_params = sum(t.numel() for t in P.tree_leaves(weights))
         weight_bytes = sum(t.numel() * t.element_size()
-                           for t in P.tree_leaves(params))
+                           for t in P.tree_leaves(weights))
         tokens = torch.from_numpy(np.random.default_rng(7).integers(
             0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))).cuda()
         prefill = P.make_prefill_step(cfg)
-        prefill(params, tokens)                      # warm-up
+        prefill(weights, tokens)                      # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         P.reset_counts()
-        logits = prefill(params, tokens)
+        logits = prefill(weights, tokens)
         torch.cuda.synchronize()
         got = P.counts()
         peak = torch.cuda.max_memory_allocated()
@@ -2226,11 +2344,11 @@ def prefill_phase(P, archs=PREFILL_ARCHS):
         times = []
         for _ in range(PREFILL_TIMED):
             t0 = time.perf_counter()
-            prefill(params, tokens)
+            prefill(weights, tokens)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         ms = 1e3 * statistics.median(times)
-        prof = _prefill_profile(prefill, params, tokens, got["launches"])
+        prof = _prefill_profile(prefill, weights, tokens, got["launches"])
         n_tok = PREFILL_BATCH * PREFILL_SEQ
         out[arch] = {"params": n_params, "weight_bytes": weight_bytes,
                      "init_s": init_s, "tokens": n_tok,
@@ -2260,21 +2378,21 @@ def prefill_phase(P, archs=PREFILL_ARCHS):
             raise AssertionError(f"{arch} prefill launched B4 but the "
                                  "profile finds no time under its names")
         if cfg.moe:
-            out[arch]["moe_split"] = _moe_split(P, prefill, params, tokens)
-        del params, logits, prefill
+            out[arch]["moe_split"] = _moe_split(P, prefill, weights, tokens)
+        del weights, logits, prefill
         gc.collect()
         torch.cuda.empty_cache()
     return out, launches
 
 
-def prefill_parity_phase(P):
+def prefill_parity_phase(P, archs=PREFILL_PARITY_ARCHS):
     """Phase 16: reduced f32 models on the card (B4 / B7 / B8) against the
     CPU port (the XLA-scan ports) on the same params and tokens, within
-    PREFILL_PARITY_BAND."""
+    PREFILL_PARITY_BAND (phase 28 (d): gemma3-4b at 6 layers)."""
     import numpy as np
     out = {}
     threads = torch.get_num_threads()
-    for arch, layers in PREFILL_PARITY_ARCHS:
+    for arch, layers in archs:
         cfg = P.reduced(P.get_config(arch), layers=layers)
         p_cpu = P.models.init_params(cfg, torch.Generator().manual_seed(3),
                                      device="cpu")
@@ -2365,8 +2483,9 @@ def ops_phase(P):
 LM_ARCH = "phi3-mini-3.8b"
 LM_ARGV = ["--arch", LM_ARCH, "--full", "--optimizer", "sgd", "--scheme",
            "hybrid", "--seq", "128", "--global-batch", "16", "--lr", "5e-3",
-           "--steps", "24"]
-LM_STEPS, LM_SEQS = 24, (64, 128)     # 40 steps until phase 25's serving
+           "--steps", "12"]
+# 24 steps until phase 28 needed the time, 40 until phase 25's serving did
+LM_STEPS, LM_SEQS = 12, (64, 128)
 # a training run shorter than this need not lower its loss (granite's and
 # rwkv6's runs of 4 steps); phi3's must
 LOSS_FALL_STEPS = 10
@@ -3550,7 +3669,6 @@ def tune_parity_phase(m, small):
 # steps, B5 in every layer), the cache 576 positions
 DEC_ARCH = "phi3-mini-3.8b"
 DEC_BATCH, DEC_PROMPT, DEC_GEN = 4, 512, 64
-DEC_MAX_SEQ = DEC_PROMPT + DEC_GEN
 # the recurrent and hybrid stacks at full width: 4 x 32 prompt tokens
 # stepped, 32 generated (zamba2-2.7b: B5 in its 9 shared-block calls a step)
 DEC_SHORT_ARCHS = ("zamba2-2.7b", "rwkv6-7b")
@@ -3591,11 +3709,12 @@ B4_CACHE_SHAPES = (("phi3-mini-3.8b static", 4, 32, 32, 96, 576, 0, (512,)),
                    ("gemma3-4b static global", 4, 8, 4, 256, 2048, 0,
                     (512, 1984)))
 # card vs CPU port on the reduced f32 configs (zamba2 at 6 layers so that
-# its shared block runs; gemma3's window 16 below prompt + generation):
+# its shared block runs; gemma3 in phase 28 (d), at 6 layers, its window 16
+# below prompt + generation):
 # greedy tokens identical, the generated tokens' logits (magnitude about
 # 4) within this band, as the prefill parity's
-DECODE_PARITY_ARCHS = (("phi3-mini-3.8b", 2), ("gemma3-4b", 2),
-                       ("zamba2-2.7b", 6), ("rwkv6-7b", 2))
+DECODE_PARITY_ARCHS = (("phi3-mini-3.8b", 2), ("zamba2-2.7b", 6),
+                       ("rwkv6-7b", 2))
 DECODE_PARITY_PROMPT, DECODE_PARITY_GEN = 20, 8
 DECODE_PARITY_BAND = 1e-4
 PAGED_DRAWS = 4          # prompt draws of the static-vs-paged comparison
@@ -3969,17 +4088,18 @@ def _check_tokens(arch, toks, logits, cfg, b, n):
                              f"{bool(torch.isfinite(logits).all())}")
 
 
-def _decode_profile(D, cfg, params, prompts):
-    """One one-token decode step at position DEC_PROMPT (after a chunked
-    prefill of the prompts; the position a 0-d int32 tensor on the card,
-    as ``generate`` passes it) under torch.profiler: device busy ms, idle
-    share, B5's share and the top kernels."""
+def _decode_profile(D, cfg, params, prompts, max_seq):
+    """One one-token decode step at the position after the prompts (after
+    a chunked prefill of them; the position a 0-d int32 tensor on the
+    card, as ``generate`` passes it) under torch.profiler: device busy ms,
+    idle share, B5's share and the top kernels."""
     decode = D.serve.make_decode_step(cfg)
-    cache = D.models.init_cache(cfg, prompts.shape[0], DEC_MAX_SEQ,
+    cache = D.models.init_cache(cfg, prompts.shape[0], max_seq,
                                 device="cuda")
     logits, cache = decode(params, cache, prompts, 0)
     nxt = logits.argmax(-1)[:, None]
-    pos = torch.tensor(DEC_PROMPT, dtype=torch.int32, device="cuda")
+    del logits
+    pos = torch.tensor(prompts.shape[1], dtype=torch.int32, device="cuda")
     kern, count, wall = traced_kernels(
         lambda: decode(params, cache, nxt, pos), ("decode_kernel",),
         cfg.n_layers)
@@ -4057,39 +4177,41 @@ def sampled_generate(D, cfg, params, prompts, n_attn, want, greedy):
     return out
 
 
-def decode_phase(D, archs=(DEC_ARCH,) + DEC_SHORT_ARCHS):
+def decode_phase(D, archs=(DEC_ARCH,) + DEC_SHORT_ARCHS, params=None,
+                 prompt=DEC_PROMPT, gen_full=DEC_GEN):
     """Phase 21 (b): ``launch.serve.generate`` at full width in bf16
     (weights from a seeded generator on the card): phi3-mini-3.8b on
     4 x 512 + 64 — exactly 32 B4 launches (the chunked prefill) and 32 x
     63 B5, no plain attention — then zamba2-2.7b (9 B5 launches a step,
     hd 80) and rwkv6-7b (no kernel, no plain attention) on 4 x 32 + 32;
     tokens in the vocabulary and finite logits (phase 22 (c): ``archs``
-    granite, on phi3's 4 x 512 + 64).  Returns (records, launches per
-    kernel)."""
+    granite, on phi3's 4 x 512 + 64; phase 28 (b): gemma3-4b on the
+    ``params`` the phase drew, 4 x ``prompt`` + ``gen_full``).  Returns
+    (records, launches per kernel)."""
     import numpy as np
     out, launches = {}, {"flash_decode": 0, "flash_attention": 0}
     for arch in archs:
         full = arch not in DEC_SHORT_ARCHS
-        plen, gen = (DEC_PROMPT, DEC_GEN) if full else (DEC_SHORT_PROMPT,
-                                                        DEC_SHORT_GEN)
+        plen, gen = (prompt, gen_full) if full else (DEC_SHORT_PROMPT,
+                                                     DEC_SHORT_GEN)
         cfg = D.get_config(arch)
         segs = D.layout(cfg)
         n_attn = sum(s.count for s in segs if s.kind in ("attn",
                                                          "shared_attn"))
         t0 = time.perf_counter()
-        params = D.models.init_params(
+        weights = params or D.models.init_params(
             cfg, torch.Generator(device="cuda").manual_seed(0),
             device="cuda")
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         prompts = torch.from_numpy(np.random.default_rng(11).integers(
             0, cfg.vocab_size, (DEC_BATCH, plen))).cuda()
-        D.serve.generate(cfg, params, prompts[:, :8], gen=2, max_seq=10)
+        D.serve.generate(cfg, weights, prompts[:, :8], gen=2, max_seq=10)
         torch.cuda.synchronize()                            # warm-up
         torch.cuda.reset_peak_memory_stats()
         _reset_dec_counts(D)
         toks, logits, wall, steps = _timed_generate(
-            D, cfg, params, prompts, gen, plen + gen)
+            D, cfg, weights, prompts, gen, plen + gen)
         got = _dec_counts(D)
         peak = torch.cuda.max_memory_allocated()
         n_steps = gen - 1                    # one-token decode steps
@@ -4108,7 +4230,7 @@ def decode_phase(D, archs=(DEC_ARCH,) + DEC_SHORT_ARCHS):
             launches[k] += got[k]
         step_ms = [ms for t, ms in steps[-n_steps:]]
         med = statistics.median(step_ms)
-        rec = {"params": sum(t.numel() for t in D.tree_leaves(params)),
+        rec = {"params": sum(t.numel() for t in D.tree_leaves(weights)),
                "init_s": init_s, "batch": DEC_BATCH, "prompt": plen,
                "generated": gen, "max_seq": plen + gen,
                "prefill": "chunked" if full else "stepped",
@@ -4119,7 +4241,8 @@ def decode_phase(D, archs=(DEC_ARCH,) + DEC_SHORT_ARCHS):
                "launches": got, "peak_bytes": peak}
         if full:
             rec["prefill_ms"] = steps[0][1]
-            rec["profile"] = _decode_profile(D, cfg, params, prompts)
+            rec["profile"] = _decode_profile(D, cfg, weights, prompts,
+                                             plen + gen)
         else:
             rec["stepped_prefill_ms"] = sum(ms for _, ms in steps[:plen])
         out[arch] = rec
@@ -4135,7 +4258,7 @@ def decode_phase(D, archs=(DEC_ARCH,) + DEC_SHORT_ARCHS):
             f"{peak / 2**30:.2f} GiB")
         if full:
             p = rec["profile"]
-            log(f"  profiled decode step at position {DEC_PROMPT}: "
+            log(f"  profiled decode step at position {plen}: "
                 f"{p['wall_ms']:.2f} ms, device busy "
                 f"{p['device_busy_ms']:.2f} ms (idle "
                 f"{p['device_idle_share']:.1%}), {p['kernel_launches']} "
@@ -4147,28 +4270,29 @@ def decode_phase(D, archs=(DEC_ARCH,) + DEC_SHORT_ARCHS):
                 raise AssertionError("the profiled decode step finds no "
                                      "time under B5's name")
         if arch == DEC_ARCH:
-            rec["sampled"] = sampled_generate(D, cfg, params, prompts,
+            rec["sampled"] = sampled_generate(D, cfg, weights, prompts,
                                               n_attn, want, rec)
             for k in launches:
                 launches[k] += rec["sampled"]["launches"][k]
-        del params, toks, logits, prompts
+        del weights, toks, logits, prompts
         gc.collect()
         torch.cuda.empty_cache()
     return out, launches
 
 
-def decode_parity_phase(D):
+def decode_parity_phase(D, archs=DECODE_PARITY_ARCHS, sampled=True):
     """Phase 21 (c): reduced f32 models, ``generate`` on the card against
     the CPU port on the same params and prompts: identical greedy tokens
     and the generated tokens' logits within DECODE_PARITY_BAND; for the
     attention archs also the stepped prefill against the chunked one on
     the card.  Then the static path's tokens against
     ``ServeEngine(backend="paged")`` on the card over PAGED_DRAWS prompt
-    draws (reported, not asserted)."""
+    draws (reported, not asserted); and (``sampled``) ``sampled_parity``
+    (phase 28 (d): gemma3-4b at 6 layers, greedy only)."""
     import numpy as np
     out, threads = {}, torch.get_num_threads()
     plen, gen = DECODE_PARITY_PROMPT, DECODE_PARITY_GEN
-    for arch, layers in DECODE_PARITY_ARCHS:
+    for arch, layers in archs:
         cfg = D.reduced(D.get_config(arch), layers=layers)
         p_cpu = D.models.init_params(cfg, torch.Generator().manual_seed(3),
                                      device="cpu")
@@ -4234,7 +4358,8 @@ def decode_parity_phase(D):
                f"static vs paged engine tokens agree in "
                f"{sum(rec['paged_agree'])} of {len(rec['paged_agree'])} "
                "draws" if "stepped_gap" in rec else ""))
-    out["sampled"] = sampled_parity(D)
+    if sampled:
+        out["sampled"] = sampled_parity(D)
     return out
 
 
@@ -6460,17 +6585,403 @@ def dryrun_phase(Q):
     return out, launches
 
 
+# --------------------- phase 28: gemma3-4b at full width ---------------------
+# gemma3-4b (34 layers: five sliding-window layers of 1,024 keys, then one
+# global, so layers 5, 11, 17, 23 and 29 are global; 8 / 4 heads of 256,
+# n_rep 2; vocab 262,144) at full width in bf16 on one draw of weights:
+# (a) the prefill, phase 15's 2 x 2048 tokens, so the window drops keys on
+# the local layers; (b) ``generate`` on 4 x 1,984 prompt tokens + 64
+# (max_seq 2,048, the geometry of the gemma3 rows of B5_SHAPES and
+# B4_CACHE_SHAPES); (c) the paged engine on 8 requests of 1,100-1,400
+# prompt tokens (two lengths, four requests each, so that (b)'s path can
+# decode them in two batches) and 32 new tokens each, on bf16 pages of 16,
+# 8 slots x 96 pages (1,536 tokens a slot): the one attention segment
+# mixes windows, so the step serves every layer through the plain route at
+# its own window, as the reference's does, and B6 never runs; (d) reduced
+# f32 gemma3 at 6 layers (five local with window 16, then the global one)
+# on the card against the CPU port, the 2-layer form's legs of phases 16
+# and 21 (c) (both layers local) taken over
+GEMMA = "gemma3-4b"
+GEMMA_PROMPT, GEMMA_GEN = 1984, 64
+GEMMA_SERVE_SPEC = dict(page_len=16, pages_per_slot=96, n_slots=8,
+                        store_dtype=torch.bfloat16)
+GEMMA_SERVE_PROMPTS, GEMMA_SERVE_NEW = (1100, 1400), 32
+# prefill chunks of 128 tokens (phase 12's 64 would double the prefill
+# calls; 256 would pad a 1,400-token prompt past the slot's 1,536)
+GEMMA_SERVE_CHUNK = 128
+GEMMA_SERVE_LEGS = ("paged_recorded", "paged")
+GEMMA_PARITY = (("gemma3-4b", 6),)
+# B5 at the static decode's first, middle and last one-token step
+GEMMA_B5_POSITIONS = (GEMMA_PROMPT, GEMMA_PROMPT + GEMMA_GEN // 2,
+                      GEMMA_PROMPT + GEMMA_GEN - 2)
+
+
+def _gemma_b4_row(D, label, q, k, v, w, off, rate):
+    """B4 on one of the path's forms (q contiguous, k / v the ``transpose(1,
+    2)`` views of ``(B, S, KV, hd)`` tensors, ``off`` None or a 0-d int32
+    offset on the card) against its plain version (PF_F32_TOL plus one
+    bf16 ulp), timed beside its bound, its plain version and SDPA on the
+    same views."""
+    kw = {"window": w} if off is None else {"window": w, "q_offset": off}
+    kern = lambda: D.FA.flash_attention(q, k, v, **kw)
+    plain = lambda: D.FA.flash_attention_plain(q, k, v, **kw)
+    err, ratio = _pf_err("flash_attention", kern(), plain())
+    if not ratio <= 1.0:
+        raise AssertionError(f"flash_attention {label} window {w}: kernel "
+                             f"differs from its plain version by {err} "
+                             f"({ratio:.3g} x the tolerance)")
+    flops, nbytes = D.FA.flash_attention_work(q, k, v, **kw)
+    t_b, t_o = nbytes / rate, flops / BF16_RATE
+    o = 0 if off is None else int(off)
+    i = o + torch.arange(q.shape[2], device="cuda")
+    j = torch.arange(k.shape[2], device="cuda")
+    mask = j[None, :] <= i[:, None]
+    if w > 0:
+        mask &= i[:, None] - j[None, :] < w
+    rec = {"shape": label, "dtype": "bfloat16", "window": w,
+           "q_offset": o, "q_offset_on": "host" if off is None else "device",
+           "max_abs_err": err, "err_over_tol": ratio,
+           "ms": cuda_ms(kern), "device_ms": device_ms(kern),
+           "plain_ms": cuda_ms(plain, per_group=3, groups=3, warmup=1),
+           "bound_ms": 1e3 * max(t_b, t_o),
+           "bound_by": "bytes" if t_b >= t_o else "operations",
+           "flops": flops, "bytes": nbytes,
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=mask, enable_gqa=True))}
+    log(f"    flash_attention {label}, window {w}: kernel "
+        f"{rec['ms'] * 1e3:.1f} us (device {rec['device_ms'] * 1e3:.1f}), "
+        f"plain {rec['plain_ms'] * 1e3:.1f} us, SDPA "
+        f"{rec['library_ms'] * 1e3:.1f} us, bound "
+        f"{rec['bound_ms'] * 1e3:.1f} us by {rec['bound_by']} "
+        f"({rec['bound_ms'] / rec['device_ms']:.0%} of device time), err "
+        f"{err:.3g} ({ratio:.2f} x the tolerance)")
+    return rec
+
+
+def gemma_kernel_rows(D, rate):
+    """Phase 28, before the legs: B4 and B5 at the path's own geometry in
+    bf16, windowed (1,024) and global, each against its plain version and
+    timed (``_gemma_b4_row``; B5 by ``_b5_time`` beside its plain version
+    and SDPA): B4 on (a)'s 2 x 2048 prefill (k / v views of the
+    projections' layout), B4 on (b)'s 1,984-token chunk at a device offset
+    of 0 over the 2,048-key cache views, B5 at (b)'s first, middle and
+    last decode positions over those views, the position on the card.
+    Returns the records by kernel."""
+    cfg = D.get_config(GEMMA)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    windows = (cfg.attn_window, 0)
+    max_seq = GEMMA_PROMPT + GEMMA_GEN
+    gen = torch.Generator(device="cuda").manual_seed(2800)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    out = {"flash_attention": [], "flash_decode": []}
+    q = rn(PREFILL_BATCH, h, PREFILL_SEQ, hd)
+    k, v = (rn(PREFILL_BATCH, PREFILL_SEQ, kvh, hd).transpose(1, 2)
+            for _ in "kv")
+    for w in windows:
+        out["flash_attention"].append(_gemma_b4_row(
+            D, f"{GEMMA} prefill", q, k, v, w, None, rate))
+    q = rn(DEC_BATCH, h, GEMMA_PROMPT, hd)
+    k, v = (rn(DEC_BATCH, max_seq, kvh, hd).transpose(1, 2) for _ in "kv")
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    for w in windows:
+        out["flash_attention"].append(_gemma_b4_row(
+            D, f"{GEMMA} static prefill cache view", q, k, v, w, zero, rate))
+    q = rn(DEC_BATCH, h, 1, hd)
+    for w in windows:
+        for pos in GEMMA_B5_POSITIONS:
+            on_card = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            ref = D.FD._xla_decode(q, k, v, pos, window=w)
+            err, ok, worst = _fd_err(
+                D.FD.flash_decode(q, k, v, on_card, window=w), ref)
+            if not ok:
+                raise AssertionError(f"flash_decode {GEMMA} static pos {pos} "
+                                     f"window {w}: kernel differs from its "
+                                     f"plain version by {err}; worst {worst}")
+            idx = torch.arange(max_seq, device="cuda")
+            lo = max(0, pos - w + 1) if w > 0 else 0
+            mask = ((idx <= pos) & (idx >= lo))[None, None, None]
+            rec = {"shape": f"{GEMMA} static path", "q": "bfloat16",
+                   "cache": "bfloat16", "layout": "(B, S, KV, hd)",
+                   "pos": pos, "window": w, "max_abs_err": err,
+                   **_b5_time(D.FD, q, k, v, pos, w, rate),
+                   "plain_ms": cuda_ms(lambda: D.FD._xla_decode(
+                       q, k, v, pos, window=w)),
+                   "library_ms": cuda_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask, enable_gqa=True))}
+            out["flash_decode"].append(rec)
+            log(f"    flash_decode {GEMMA} static path, pos {pos}, window "
+                f"{w}: kernel {rec['ms'] * 1e3:.1f} us (device "
+                f"{rec['device_ms'] * 1e3:.1f}, pos on the card "
+                f"{rec['device_ms_pos_on_card'] * 1e3:.1f}), plain "
+                f"{rec['plain_ms'] * 1e3:.1f} us, SDPA "
+                f"{rec['library_ms'] * 1e3:.1f} us, bound "
+                f"{rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} "
+                f"({rec['bound_ms'] / rec['device_ms_pos_on_card']:.0%} of "
+                f"device time), err {err:.3g}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gemma_requests(G, cfg):
+    """(c)'s 8 requests: two prompt lengths in GEMMA_SERVE_PROMPTS, four
+    requests each (seeded random tokens), GEMMA_SERVE_NEW new tokens each,
+    one arriving every other tick."""
+    import numpy as np
+    rng = np.random.default_rng(28)
+    lens = rng.integers(GEMMA_SERVE_PROMPTS[0], GEMMA_SERVE_PROMPTS[1] + 1, 2)
+    return [G.Request(rid=i, tokens=tuple(int(t) for t in rng.integers(
+                0, cfg.vocab_size, int(lens[i % 2]))),
+                      max_new=GEMMA_SERVE_NEW, arrival=2 * i)
+            for i in range(8)]
+
+
+def _static_agreement(G, cfg, params, reqs, tokens):
+    """(b)'s path, ``generate``, on (c)'s prompts, a batch per prompt
+    length: the share of (c)'s tokens it gives too, position by position,
+    and each request's first position that differs (bf16 logits can tie,
+    and one tie parts the streams: reported, not asserted)."""
+    agree, first = [], {}
+    for n in sorted({len(r.tokens) for r in reqs}):
+        group = [r for r in reqs if len(r.tokens) == n]
+        prompts = torch.tensor([r.tokens for r in group], device="cuda")
+        toks = G.serve.generate(cfg, params, prompts, gen=GEMMA_SERVE_NEW,
+                                max_seq=n + GEMMA_SERVE_NEW)[:, n:].tolist()
+        for r, t in zip(group, toks):
+            same = [a == b for a, b in zip(t, tokens[r.rid])]
+            agree += same
+            first[r.rid] = same.index(False) if False in same else None
+    return {"token_agreement": sum(agree) / len(agree),
+            "first_difference": first}
+
+
+def gemma_phase(G, rate):
+    """Phase 28: gemma3-4b at full width on one H100 (module comment
+    above): B4 and B5 at the path's own geometry (``gemma_kernel_rows``);
+    one draw of bf16 weights on the card for (a) ``prefill_phase`` (34 B4
+    a forward), (b) ``decode_phase`` (34 B4 in the chunked prefill, 34 x
+    63 B5, ``pos`` on the card) and (c) ``serving_phase`` (the mixed
+    segment's plain route at each layer's window in every tick, no B6;
+    token agreement with (b)'s path reported), freed after; (d) the
+    reduced 6-layer form on the card against the CPU port through phases
+    16, 21 (c) and 13's legs.  Returns (records, launches per kernel on
+    the full-width paths, the kernel rows)."""
+    rows = gemma_kernel_rows(G, rate)
+    cfg = G.get_config(GEMMA)
+    segs = G.layout(cfg)
+    windows = [w for s in segs for w in s.windows]
+    global_layers = [i for i, w in enumerate(windows) if w == 0]
+    if len(segs) != 1 or len(windows) != 34 or \
+            global_layers != [5, 11, 17, 23, 29]:
+        raise AssertionError(f"{GEMMA}: segments {segs}")
+    t0 = time.perf_counter()
+    params = G.models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    out = {"layers": len(windows), "global_layers": global_layers,
+           "window": cfg.attn_window, "init_s": time.perf_counter() - t0,
+           "params": sum(t.numel() for t in G.tree_leaves(params)),
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in G.tree_leaves(params))}
+    log(f"{GEMMA} full width: {out['params'] / 1e9:.2f} B params "
+        f"({out['weight_bytes'] / 1e9:.2f} GB bf16) drawn in "
+        f"{out['init_s']:.2f} s; {len(windows)} layers in one attention "
+        f"segment, global {global_layers}, the rest window "
+        f"{cfg.attn_window}")
+    out["prefill"], pf = prefill_phase(G, archs=(GEMMA,), params=params)
+    out["decode"], dl = decode_phase(G, archs=(GEMMA,), params=params,
+                                     prompt=GEMMA_PROMPT, gen_full=GEMMA_GEN)
+    reqs = _gemma_requests(G, cfg)
+    out["serving"], sl = serving_phase(
+        G, GEMMA, legs=GEMMA_SERVE_LEGS, cfg=cfg, params=params, reqs=reqs,
+        spec=G.PageSpec(**GEMMA_SERVE_SPEC), chunk=GEMMA_SERVE_CHUNK)
+    agree = _static_agreement(G, cfg, params, reqs, out["serving"]["tokens"])
+    out["serving"]["static_path"] = agree
+    log(f"  (c) against (b)'s path (generate on the same prompts, a batch "
+        f"per prompt length): {agree['token_agreement']:.1%} of the tokens "
+        f"agree; first difference by request {agree['first_difference']} "
+        "(reported, not asserted)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parity"] = {
+        "prefill": prefill_parity_phase(G, archs=GEMMA_PARITY),
+        "decode": decode_parity_phase(G, archs=GEMMA_PARITY, sampled=False),
+        "serve": serve_parity_phase(G, archs=GEMMA_PARITY,
+                                    card_features=False)}
+    launches = {"flash_attention": pf["flash_attention"]
+                + dl["flash_attention"],
+                "flash_decode": dl["flash_decode"],
+                "flash_decode_paged": sum(sl["flash_decode_paged"].values())}
+    if launches["flash_decode_paged"]:
+        raise AssertionError(f"{GEMMA} serving launched B6: {launches}")
+    out["launches"] = launches
+    return out, launches, rows
+
+
+# the phases that stand alone, without the records of the phases before
+# them: ``--phases`` runs a list of them after the build (phase 1)
+STANDALONE = (23, 25, 26, 27, 28)
+
+
+def port_names():
+    """The port's modules as each group of phases reads them (S: serving,
+    P: prefill, L: LM training, D: static decode, M: the MoE family, E:
+    the encoder-decoder, G: the remaining configs, GM: gemma3, Q: the dry
+    run), imported once CUDA is known."""
+    from dataclasses import replace
+    from types import SimpleNamespace
+
+    from repro_torch import api, models
+    from repro_torch import serve as serve_pkg
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config, reduced
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import prng
+    from repro_torch.core.flat import flat_spec
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import DataPlane, SyntheticTokens
+    from repro_torch.engine import TrainEngine
+    from repro_torch.engine.parity import check_parity
+    from repro_torch.kernels import dbl_merge as K
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import mamba_scan as SSD
+    from repro_torch.kernels import ops as ops_mod
+    from repro_torch.kernels import wkv6 as WKV
+    from repro_torch.kernels.ref import dbl_merge_ref
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import specs as specs_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.hlo_analysis import CostCounter, roofline_terms
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import encdec as encdec_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.models.transformer import layout
+    from repro_torch.optim import make_optimizer, sgd_momentum
+    from repro_torch.serve import paged
+    pf_mods = {"flash_attention": FA, "mamba_ssd_scan": SSD,
+               "wkv6_chunked": WKV}
+
+    def reset_pf():
+        for mod in pf_mods.values():
+            mod.reset_counts()
+
+    def pf_counts():
+        return {"launches": {k: mod.launch_count(k)
+                             for k, mod in pf_mods.items()},
+                "plain": sum(mod.plain_count() for mod in pf_mods.values())}
+    S = SimpleNamespace(FD=FD, models=models, get_config=get_config,
+                        reduced=reduced, tree_leaves=tree_leaves,
+                        tree_map=tree_map, prng=prng, paged=paged,
+                        **{n: getattr(serve_pkg, n)
+                           for n in serve_pkg.__all__})
+    P = SimpleNamespace(FA=FA, SSD=SSD, WKV=WKV, FD=FD, ops=ops_mod,
+                        models=models,
+                        get_config=get_config, reduced=reduced, layout=layout,
+                        tree_leaves=tree_leaves, tree_map=tree_map,
+                        make_prefill_step=make_prefill_step,
+                        reset_counts=reset_pf, counts=pf_counts,
+                        dbl_merge_ref=dbl_merge_ref)
+    L = SimpleNamespace(K=K, pf_mods=tuple(pf_mods.values()),
+                        train=train_mod, models=models, api=api,
+                        get_config=get_config, reduced=reduced,
+                        flat_spec=flat_spec, tree_leaves=tree_leaves,
+                        tree_map=tree_map, DataPlane=DataPlane,
+                        SyntheticTokens=SyntheticTokens,
+                        TrainEngine=TrainEngine, sgd_momentum=sgd_momentum,
+                        make_optimizer=make_optimizer)
+    D = SimpleNamespace(FD=FD, FA=FA, SSD=SSD, WKV=WKV, models=models,
+                        get_config=get_config, reduced=reduced, layout=layout,
+                        tree_leaves=tree_leaves, tree_map=tree_map,
+                        serve=serve_launch, ServeEngine=S.ServeEngine,
+                        PageSpec=S.PageSpec, Request=S.Request, prng=prng,
+                        paged=paged,
+                        repetitive_workload=S.repetitive_workload)
+    M = SimpleNamespace(**{**vars(S), **vars(P), **vars(D), **vars(L)},
+                        moe=moe_mod, transformer=tf_mod)
+    E = SimpleNamespace(**vars(D), encdec=encdec_mod,
+                        make_prefill_step=make_prefill_step,
+                        make_decode_step=make_decode_step,
+                        make_train_step=make_train_step,
+                        sgd_momentum=sgd_momentum)
+    G = SimpleNamespace(**{**vars(S), **vars(E)}, ARCH_IDS=ARCH_IDS,
+                        SHAPES=SHAPES,
+                        InputShape=InputShape, specs=specs_mod,
+                        replace=replace, moe=moe_mod, transformer=tf_mod)
+    GM = SimpleNamespace(**{**vars(S), **vars(P), **vars(D)})
+    Q = SimpleNamespace(**vars(P), K=K, CostCounter=CostCounter,
+                        roofline_terms=roofline_terms,
+                        abstract_params=abstract_params,
+                        check_parity=check_parity,
+                        meta_counts=lambda: {k: mod.meta_count(k)
+                                             for k, mod in pf_mods.items()})
+    return SimpleNamespace(S=S, P=P, L=L, D=D, M=M, E=E, G=G, GM=GM, Q=Q,
+                           pf_mods=pf_mods)
+
+
+def run_selected(phases, N, rate, name, report, out_path):
+    """``--phases``: the listed phases of STANDALONE after the build, each
+    as the whole run drives it; prints the nvidia-smi line, one JSON line
+    of what each phase returns beside its records (its launches and
+    kernel rows), and a last line naming the phases that ran (it never
+    stands for a whole run)."""
+    runs = {23: lambda: spmd_phase(_spmd_names(), rate),
+            25: lambda: big_phase(N.G, rate),
+            26: lambda: dryrun_phase(N.Q),
+            27: lambda: rwkv_train_phase(N.L, rate),
+            28: lambda: gemma_phase(N.GM, rate)}
+    t0, returned = time.perf_counter(), {}
+    for n in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = runs[n]()
+        report[f"phase {n}"], returned[str(n)] = res[0], res[1:]
+        log(f"[{time.perf_counter() - t0:.0f} s] phase {n} done")
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)),
+                    exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(report, f, indent=1, default=str)
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"phases": returned}, default=str), flush=True)
+    print(json.dumps({"ok": True, "phases": [1, *phases], "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _phase_list(ap, text):
+    """``--phases``' list: 1 (the build, which always runs) and phases of
+    STANDALONE, in the order given."""
+    try:
+        got = [int(x) for x in text.split(",") if x.strip()]
+    except ValueError:
+        got = None
+    if not got or any(n != 1 and n not in STANDALONE for n in got):
+        ap.error(f"--phases takes a comma-separated list of 1 and phases "
+                 f"of {STANDALONE}, not {text!r}")
+    return [n for n in dict.fromkeys(got) if n != 1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--spmd-only", action="store_true",
-                    help="only build the kernels and run phase 23 (SPMD)")
+    ap.add_argument("--phases", metavar="LIST", default=None,
+                    help="only build the kernels (phase 1) and run these "
+                    f"of the phases that stand alone, {STANDALONE}, in "
+                    "order (e.g. 1,28)")
     ap.add_argument("--b5-times", metavar="SRC", default=None,
                     help="only time B5 (flash_decode) from the port under "
                     "SRC (a directory holding repro_torch, e.g. a parent "
                     "commit's src), print the records and stop")
     args = ap.parse_args()
+    phases = None if args.phases is None else _phase_list(ap, args.phases)
     t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
@@ -6539,15 +7050,9 @@ def main() -> int:
         f"source(s) in parallel): {build_s:.2f} s")
     report.update(device=name, nvidia_smi=smi, build_s=build_s)
     rate = mem_rate(name)
-    if args.spmd_only:
-        report["spmd"], b2_leafwise = spmd_phase(_spmd_names(), rate)
-        print(nvidia_smi_line(), flush=True)
-        print(json.dumps({"b2_leafwise": b2_leafwise}), flush=True)
-        # the last line names what ran: it never stands for a whole pass
-        print(json.dumps({"ok": True, "phases": [1, 23], "device": {
-            "platform": "gpu", "kind": name,
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+    N = port_names()
+    if phases is not None:
+        return run_selected(phases, N, rate, name, report, args.out)
 
     # 2. kernels at the full ResNet-18 flat-store shape
     cfg = get_config("cifar-resnet18")
@@ -6848,20 +7353,11 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "variants": recs})
     # 11. B5 and B6 against their plain versions, and their times
-    from repro_torch import serve as serve_pkg
-    from repro_torch.configs import reduced
-    from repro_torch.kernels import flash_decode as FD
-    fd_recs = fd_kernel_phase(FD, rate)
+    S, P, L, D = N.S, N.P, N.L, N.D
+    fd_recs = fd_kernel_phase(S.FD, rate)
     log(f"[{time.perf_counter() - t_start:.0f} s] B5/B6 checked")
 
     # 12. the serving main path at full width, then 13. card vs CPU
-    from repro_torch.core import prng
-    from repro_torch.serve import paged
-    S = SimpleNamespace(FD=FD, models=models, get_config=get_config,
-                        reduced=reduced, tree_leaves=tree_leaves,
-                        tree_map=tree_map, prng=prng, paged=paged,
-                        **{n: getattr(serve_pkg, n)
-                           for n in serve_pkg.__all__})
     report["serving"], serve_launches = serving_phase(S)
     log(f"[{time.perf_counter() - t_start:.0f} s] serving main path done")
     report["serve_parity"] = serve_parity_phase(S)
@@ -6881,31 +7377,6 @@ def main() -> int:
             "library_ms": main["library_ms"], "variants": recs})
 
     # 14. B4, B7 and B8 against their plain versions, and their times
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import mamba_scan as SSD
-    from repro_torch.kernels import ops as ops_mod
-    from repro_torch.kernels import wkv6 as WKV
-    from repro_torch.kernels.ref import dbl_merge_ref
-    from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models.transformer import layout
-    pf_mods = {"flash_attention": FA, "mamba_ssd_scan": SSD,
-               "wkv6_chunked": WKV}
-
-    def reset_pf():
-        for mod in pf_mods.values():
-            mod.reset_counts()
-
-    def pf_counts():
-        return {"launches": {k: mod.launch_count(k)
-                             for k, mod in pf_mods.items()},
-                "plain": sum(mod.plain_count() for mod in pf_mods.values())}
-    P = SimpleNamespace(FA=FA, SSD=SSD, WKV=WKV, FD=FD, ops=ops_mod,
-                        models=models,
-                        get_config=get_config, reduced=reduced, layout=layout,
-                        tree_leaves=tree_leaves, tree_map=tree_map,
-                        make_prefill_step=make_prefill_step,
-                        reset_counts=reset_pf, counts=pf_counts,
-                        dbl_merge_ref=dbl_merge_ref)
     pf_recs = pf_kernel_phase(P, rate)
     log(f"[{time.perf_counter() - t_start:.0f} s] B4/B7/B8 checked")
     # 15. the prefill main path at full width, 16. card vs CPU, 17. ops
@@ -6935,17 +7406,6 @@ def main() -> int:
 
     # 18. the LM training main path at full width, 19. card vs CPU and
     # resume
-    from repro_torch.data import SyntheticTokens
-    from repro_torch.launch import train as train_mod
-    from repro_torch.optim import make_optimizer
-    L = SimpleNamespace(K=K, pf_mods=tuple(pf_mods.values()),
-                        train=train_mod, models=models, api=api,
-                        get_config=get_config, reduced=reduced,
-                        flat_spec=flat_spec, tree_leaves=tree_leaves,
-                        tree_map=tree_map, DataPlane=DataPlane,
-                        SyntheticTokens=SyntheticTokens,
-                        TrainEngine=TrainEngine, sgd_momentum=sgd_momentum,
-                        make_optimizer=make_optimizer)
     gc.collect()
     torch.cuda.empty_cache()
     # one timed step a sub-stage (3 until phase 25's serving needed the
@@ -6995,14 +7455,6 @@ def main() -> int:
     # card vs CPU
     gc.collect()
     torch.cuda.empty_cache()
-    from repro_torch.launch import serve as serve_launch
-    D = SimpleNamespace(FD=FD, FA=FA, SSD=SSD, WKV=WKV, models=models,
-                        get_config=get_config, reduced=reduced, layout=layout,
-                        tree_leaves=tree_leaves, tree_map=tree_map,
-                        serve=serve_launch, ServeEngine=S.ServeEngine,
-                        PageSpec=S.PageSpec, Request=S.Request, prng=prng,
-                        paged=paged,
-                        repetitive_workload=S.repetitive_workload)
     b5_recs = b5_static_phase(D, rate)
     b4_recs = b4_offset_phase(D, rate) + b4_cache_phase(D, rate)
     log(f"[{time.perf_counter() - t_start:.0f} s] B5 strided / B4 offset "
@@ -7033,11 +7485,7 @@ def main() -> int:
     # 22. the MoE family: granite-moe-3b-a800m at full width on every LM
     # path (its kernel geometries ran in phases 11, 14 and 21), then card
     # vs CPU
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.models import transformer as tf_mod
-    M = SimpleNamespace(**{**vars(S), **vars(P), **vars(D), **vars(L)},
-                        moe=moe_mod, transformer=tf_mod)
-    report["moe"], moe_launches, b1_granite = moe_phase(M, rate)
+    report["moe"], moe_launches, b1_granite = moe_phase(N.M, rate)
     log(f"[{time.perf_counter() - t_start:.0f} s] MoE family done")
     # granite's kernel records among the line's variants (phases 11, 14
     # and 21)
@@ -7077,14 +7525,7 @@ def main() -> int:
     # geometries ran in phases 14 and 21), then card vs CPU
     gc.collect()
     torch.cuda.empty_cache()
-    from repro_torch.launch.steps import make_decode_step, make_train_step
-    from repro_torch.models import encdec as encdec_mod
-    E = SimpleNamespace(**vars(D), encdec=encdec_mod,
-                        make_prefill_step=make_prefill_step,
-                        make_decode_step=make_decode_step,
-                        make_train_step=make_train_step,
-                        sgd_momentum=sgd_momentum)
-    report["encdec"], encdec_launches = encdec_phase(E)
+    report["encdec"], encdec_launches = encdec_phase(N.E)
     log(f"[{time.perf_counter() - t_start:.0f} s] encoder-decoder done")
     report["encdec"]["kernels"] = {
         e["name"]: [r for r in e["variants"]
@@ -7100,14 +7541,7 @@ def main() -> int:
     # then card vs CPU
     gc.collect()
     torch.cuda.empty_cache()
-    from repro_torch.configs import ARCH_IDS, SHAPES
-    from repro_torch.configs.base import InputShape
-    from repro_torch.launch import specs as specs_mod
-    G = SimpleNamespace(**{**vars(S), **vars(E)}, ARCH_IDS=ARCH_IDS,
-                        SHAPES=SHAPES,
-                        InputShape=InputShape, specs=specs_mod,
-                        replace=replace, moe=moe_mod, transformer=tf_mod)
-    report["big"], big_launches, big_rows = big_phase(G, rate)
+    report["big"], big_launches, big_rows = big_phase(N.G, rate)
     log(f"[{time.perf_counter() - t_start:.0f} s] remaining configs done")
     report["big"]["kernels"] = {
         e["name"]: [r for r in e["variants"]
@@ -7128,16 +7562,7 @@ def main() -> int:
     # on the card
     gc.collect()
     torch.cuda.empty_cache()
-    from repro_torch.engine.parity import check_parity
-    from repro_torch.launch.hlo_analysis import CostCounter, roofline_terms
-    from repro_torch.launch.specs import abstract_params
-    Q = SimpleNamespace(**vars(P), K=K, CostCounter=CostCounter,
-                        roofline_terms=roofline_terms,
-                        abstract_params=abstract_params,
-                        check_parity=check_parity,
-                        meta_counts=lambda: {k: mod.meta_count(k)
-                                             for k, mod in pf_mods.items()})
-    report["dryrun"], dry_launches = dryrun_phase(Q)
+    report["dryrun"], dry_launches = dryrun_phase(N.Q)
     log(f"[{time.perf_counter() - t_start:.0f} s] dry run and counts done")
     for entry in line:
         entry["launches"] += dry_launches.get(entry["name"], 0)
@@ -7156,6 +7581,20 @@ def main() -> int:
     line[0]["variants"].append(b1_rwkv)
     line[0]["max_abs_err"] = max(line[0]["max_abs_err"],
                                  b1_rwkv["max_abs_err"])
+
+    # 28. gemma3-4b at full width: B4 and B5 at its path's geometry, the
+    # prefill, the static decode and the paged engine on one draw of
+    # weights, then its reduced 6-layer form card vs CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["gemma"], gemma_launches, gemma_rows = gemma_phase(N.GM, rate)
+    log(f"[{time.perf_counter() - t_start:.0f} s] gemma3-4b done")
+    for entry in line:
+        entry["launches"] += gemma_launches.get(entry["name"], 0)
+        if entry["name"] in gemma_rows:
+            entry["variants"].extend(gemma_rows[entry["name"]])
+            entry["max_abs_err"] = max(r["max_abs_err"]
+                                       for r in entry["variants"])
     report["kernels"] = line
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     if args.out:

@@ -214,7 +214,8 @@ def run(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     if cfg.encoder_layers:
-        raise SystemExit("use examples/serve_encdec.py for enc-dec archs")
+        raise SystemExit("use python -m repro_torch.examples.serve_decode "
+                         "for enc-dec archs")
     if args.engine == "static" and args.temperature > 0:
         print(f"note: --engine static decodes greedily; --temperature "
               f"{args.temperature:g} applies to --engine continuous only "

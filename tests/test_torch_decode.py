@@ -5,7 +5,8 @@
 Reduced f32 configs, each with the reference's ``init_params`` carried
 over through ``convert.lm_params_from_numpy`` and the same numpy tokens:
 ``phi3-mini-3.8b``, ``gemma3-4b`` (window 16, smaller than the prompt of
-20 plus the 6 generated tokens, so that the window masks keys),
+20 plus the 6 generated tokens, so that the window masks keys; at 2 layers
+both local, at 6 five local and then the global layer, ``i % 6 == 5``),
 ``zamba2-2.7b`` at 6 layers (so that its weight-tied shared block runs)
 and ``rwkv6-7b``; 2 prompts of ``PROMPT`` tokens, ``max_seq`` = PROMPT +
 GEN.
@@ -20,9 +21,10 @@ apart: on these tokens the reference's own prefill forward and stepped
 decode differ by 1.7e-5, and the two packages' prefill forwards by
 7.8e-5.  The module functions (``decode_attention``,
 ``decode_attention_dyn``, the SSD and WKV steps) are held within
-``FN_ATOL`` 2e-5 (measured at most 2.4e-6).  Two planted faults — the
-sliding window one key too wide (gap 1.28), the WKV bonus ``u`` dropped
-in the step (4.75) — land far outside the band.
+``FN_ATOL`` 2e-5 (measured at most 2.4e-6).  Three planted faults — the
+sliding window one key too wide (gap 1.28), gemma3's global layer given
+the local window (0.30, where the free 6-layer run lies 5.1e-6 off), the
+WKV bonus ``u`` dropped in the step (4.75) — land far outside the band.
 
 The kernels' plain forms on this path: B5 (``flash_decode``) on the
 strided ``(B, S, KV, hd)`` layer cache and at hd 80, against the
@@ -80,9 +82,9 @@ BAND = 1e-4
 FN_ATOL = 2e-5
 PROMPT, GEN, BATCH = 20, 6, 2
 MAX_SEQ = PROMPT + GEN
-ARCHS = [("phi3-mini-3.8b", 2), ("gemma3-4b", 2), ("zamba2-2.7b", 6),
-         ("rwkv6-7b", 2)]
-ATTN_ARCHS = ARCHS[:2]
+ARCHS = [("phi3-mini-3.8b", 2), ("gemma3-4b", 2), ("gemma3-4b", 6),
+         ("zamba2-2.7b", 6), ("rwkv6-7b", 2)]
+ATTN_ARCHS = ARCHS[:3]
 _CACHE = {}
 
 
@@ -334,7 +336,7 @@ def test_decode_step_chunks_match_reference(arch, layers):
     assert _cache_gap(tc, _stepped(arch, layers)[3]) <= BAND
 
 
-@pytest.mark.parametrize("arch,layers", ARCHS[2:])
+@pytest.mark.parametrize("arch,layers", ARCHS[3:])
 def test_recurrent_decode_refuses_chunks(arch, layers):
     cfg, _, _, tp, tok = _setup(arch, layers)
     cache = models.init_cache(cfg, BATCH, MAX_SEQ, device="cpu")
@@ -573,7 +575,8 @@ def _jstep(jcfg, t):
 @pytest.mark.parametrize("where", ["inside", "clamped"])
 @pytest.mark.parametrize("t", [2, 17, 64])
 @pytest.mark.parametrize("arch,layers,window", [("phi3-mini-3.8b", 2, 0),
-                                                ("gemma3-4b", 2, 16)])
+                                                ("gemma3-4b", 2, 16),
+                                                ("gemma3-4b", 6, 16)])
 def test_device_pos_chunks_match_reference(arch, layers, window, t, where):
     """A chunk of T tokens at a 0-d int32 ``pos`` through
     ``make_decode_step`` against the reference's jitted step at
@@ -654,7 +657,8 @@ def test_decode_attention_dyn_device_pos_matches_reference(t, pos, window):
 
 
 # --------------------------------- generate ----------------------------------
-@pytest.mark.parametrize("arch", [a for a, _ in ARCHS] + ["encdec"])
+@pytest.mark.parametrize("arch", list(dict.fromkeys(a for a, _ in ARCHS))
+                         + ["encdec"])
 def test_chunkable_matches_reference(arch):
     from dataclasses import replace
     if arch == "encdec":                 # an encoder-decoder never chunks
@@ -781,21 +785,36 @@ def _window_off_by_one(orig):
     return dyn
 
 
+def _global_given_local_window(orig, window):
+    def dyn(q, k_cache, v_cache, pos, w):
+        return orig(q, k_cache, v_cache, pos, w or window)
+    return dyn
+
+
 def _step_without_u(orig):
     def step(S, r, k, v, w, u):
         return orig(S, r, k, v, w, torch.zeros_like(u))
     return step
 
 
-@pytest.mark.parametrize("fault", ["window_off_by_one", "u_dropped"])
+@pytest.mark.parametrize("fault", ["window_off_by_one", "u_dropped",
+                                   "global_given_local_window"])
 def test_planted_fault_breaks_the_band(monkeypatch, fault):
-    arch, layers = (("gemma3-4b", 2) if fault == "window_off_by_one"
-                    else ("rwkv6-7b", 2))
+    arch, layers = {"window_off_by_one": ("gemma3-4b", 2),
+                    "u_dropped": ("rwkv6-7b", 2),
+                    "global_given_local_window": ("gemma3-4b", 6)}[fault]
     want = _stepped(arch, layers)[1]          # before the fault is planted
     if fault == "window_off_by_one":
         monkeypatch.setattr(transformer, "decode_attention_dyn",
                             _window_off_by_one(
                                 transformer.decode_attention_dyn))
+    elif fault == "global_given_local_window":
+        cfg = _setup(arch, layers)[0]
+        assert 0 in transformer.layout(cfg)[0].windows
+        monkeypatch.setattr(transformer, "decode_attention_dyn",
+                            _global_given_local_window(
+                                transformer.decode_attention_dyn,
+                                cfg.attn_window))
     else:
         monkeypatch.setattr(rwkv6, "wkv6_step",
                             _step_without_u(rwkv6.wkv6_step))

@@ -119,12 +119,30 @@ def test_seamless_is_registered_with_the_reference_config():
         assert getattr(r, f) == getattr(jr, f), f
 
 
+def _refusal(run, *argv):
+    with pytest.raises(SystemExit) as exc:
+        run(["--arch", ARCH, *argv])
+    return str(exc.value)
+
+
 def test_serve_cli_refuses_encoder_decoders_as_the_reference():
-    with pytest.raises(SystemExit) as want:
-        jserve.run(["--arch", ARCH])
-    with pytest.raises(SystemExit) as got:
-        serve.run(["--arch", ARCH, "--device", "cpu"])
-    assert str(got.value) == str(want.value) != ""
+    """Both CLIs refuse an encoder-decoder and send its user elsewhere:
+    the reference to ``examples/serve_encdec.py``, which neither package
+    has (ROADMAP C20), the port to its serving example, which runs the
+    encoder-decoder's decode."""
+    want = _refusal(jserve.run)
+    got = _refusal(serve.run, "--device", "cpu")
+    assert want.startswith("use ") and want.endswith(" for enc-dec archs")
+    assert got == ("use python -m repro_torch.examples.serve_decode for "
+                   "enc-dec archs")
+
+
+def test_serve_cli_refusal_names_an_importable_module():
+    import importlib
+    msg = _refusal(serve.run, "--device", "cpu")
+    name = msg.split("python -m ", 1)[1].split()[0]
+    mod = importlib.import_module(name)
+    assert callable(mod.main) and "encoder-decoder" in mod.__doc__
 
 
 # ---------------------------------------------------------------- init tree

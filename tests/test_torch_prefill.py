@@ -5,7 +5,8 @@ Reduced f32 configs, each with the reference's ``init_params`` carried
 over through ``convert.lm_params_from_numpy`` and the same numpy tokens:
 ``zamba2-2.7b`` at 6 layers (``[('mamba2', 5), ('shared_attn', 1)]``, so
 that the weight-tied shared block runs; at the default 2 layers it has
-none), ``rwkv6-7b``, ``gemma3-4b`` (sliding window 16) and
+none), ``rwkv6-7b``, ``gemma3-4b`` (sliding window 16; at 2 layers both
+local, at 6 five local and then the global layer, ``i % 6 == 5``) and
 ``phi3-mini-3.8b``, at S = 45: not a multiple of the SSD chunk (32, which
 ``ssd_chunked`` shrinks to 15) nor of anything else.
 
@@ -42,7 +43,7 @@ torch.set_num_threads(1)
 BAND = 1e-4
 SEQ = 45
 ARCHS = [("zamba2-2.7b", 6), ("rwkv6-7b", 2), ("gemma3-4b", 2),
-         ("phi3-mini-3.8b", 2)]
+         ("gemma3-4b", 6), ("phi3-mini-3.8b", 2)]
 _CACHE = {}
 
 

@@ -1,7 +1,9 @@
 """The port's paged serving engine against the JAX package, on the CPU.
 
 Both packages run reduced ``gemma3-4b`` (two layers with a uniform window
-of 16, GQA n_rep 2; the fixture of the reference's serving tests), reduced
+of 16, GQA n_rep 2; the fixture of the reference's serving tests; and, for
+the step, the whole serve run and paged-vs-contig parity, six layers: five
+local, then the global one, a segment of mixed windows), reduced
 ``phi3-mini-3.8b`` (two global layers, MHA) and the wide-GQA configs
 reduced to keep their group widths: ``llama3-405b`` (16 query heads over
 one KV head, RoPE theta 500,000), ``deepseek-67b`` (8 over 1) and
@@ -81,16 +83,38 @@ MOE_PAGED_CONTIG_BAND = 1e-5
 CHURN_SPEC = dict(page_len=16, pages_per_slot=4, n_slots=2)
 
 
+# gemma3 at 6 layers: five local layers (window 16), then the global one
+# (``i % 6 == 5``), one attention segment of mixed windows, which the
+# step serves through ``_slot_attention`` at each layer's own window
+GEMMA_MIXED = "gemma3-4b-6-layers"
+_MODELS = {}
+
+
+def _model(key):
+    """(arch, reference cfg, reference params, port cfg, port params)."""
+    if key not in _MODELS:
+        arch, layers = (("gemma3-4b", 6) if key == GEMMA_MIXED
+                        else (key, 2))
+        kw = dict(GEOMETRY.get(arch, {}), layers=layers)
+        jcfg = jreduced(jget_config(arch), **kw)
+        cfg = reduced(get_config(arch), **kw)
+        jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+        tparams = convert.lm_params_from_numpy(
+            jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
+        _MODELS[key] = arch, jcfg, jparams, cfg, tparams
+    return _MODELS[key]
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def model(request):
-    """(arch, reference cfg, reference params, port cfg, port params)."""
-    arch = request.param
-    jcfg = jreduced(jget_config(arch), **GEOMETRY.get(arch, {}))
-    cfg = reduced(get_config(arch), **GEOMETRY.get(arch, {}))
-    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = convert.lm_params_from_numpy(
-        jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
-    return arch, jcfg, jparams, cfg, tparams
+    return _model(request.param)
+
+
+@pytest.fixture(scope="module", params=ARCHS + (GEMMA_MIXED,))
+def served(request):
+    """``model``, and gemma3 with its global layer (``GEMMA_MIXED``): the
+    step, the whole serve run and paged-vs-contig parity."""
+    return _model(request.param)
 
 
 def _churn(vocab, seed=1, n=8):
@@ -199,8 +223,8 @@ def _run_step(model, kind, backend, *, port_cfg=None, seed=0):
                                           ("verify", "paged"),
                                           ("decode", "contig"),
                                           ("prefill", "contig")])
-def test_serve_step_matches_reference(model, kind, backend):
-    want, got, before, jc, tc = _run_step(model, kind, backend)
+def test_serve_step_matches_reference(served, kind, backend):
+    want, got, before, jc, tc = _run_step(served, kind, backend)
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= STEP_TOL
     for b, w, g in zip(before, jc, tc):
@@ -291,8 +315,8 @@ def _gap_and_margin(jr, tr):
 
 
 @pytest.mark.parametrize("backend", ["paged", "contig"])
-def test_serve_matches_reference(model, backend):
-    je, jr, te, tr = _serve_both(model, backend)
+def test_serve_matches_reference(served, backend):
+    je, jr, te, tr = _serve_both(served, backend)
     assert te.log == je.log
     assert te.compile_log == je.compile_log
     assert _toks(tr) == _toks(jr)
@@ -327,8 +351,8 @@ def test_planted_fault_breaks_the_serve_band(model, monkeypatch):
 
 # ------------------------- within the port ---------------------------------
 @pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
-def test_paged_contig_bit_parity_under_churn(model, store):
-    _, _, _, cfg, tparams = model
+def test_paged_contig_bit_parity_under_churn(served, store):
+    _, _, _, cfg, tparams = served
     spec = (PageSpec(**CHURN_SPEC) if store == torch.float32 else
             PageSpec(page_len=32, pages_per_slot=2, n_slots=2,
                      store_dtype=store))
